@@ -1,0 +1,144 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C entry point. At first
+use it is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared -Xcompiler -fPIC`` into ``fisco_bcos_tpu_torch/build/`` (named by
+the hash of its source, so an edited source is rebuilt) and loaded with
+``ctypes``. Nothing here runs at import: the CPU tests import every module.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
+adds one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from functools import lru_cache
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = {"secp256k1_recover": CSRC / "secp256k1_recover.cu"}
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, stack and spills per kernel, into the build log
+]
+
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (neither on PATH nor under CUDA_HOME)")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> dict:
+    """Compile kernel `name` unless its library is already built. Returns
+    {"seconds", "log"}: nvcc's wall time and output (ptxas -v included),
+    0.0 and "" when there was nothing to build."""
+    out = library_path(name)
+    if out.exists():
+        return {"seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")  # renamed into place when whole
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name} (rc={proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+
+
+@lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
+    build(name)
+    lib = ctypes.CDLL(str(library_path(name)))
+    lib.fisco_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.fisco_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err:
+        msg = lib.fisco_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+# z, r, s, v, comb, qx, qy, ok pointers; lanes; CUDA device index; stream
+_RECOVER_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def secp256k1_recover(z, r, s, v, comb):
+    """Launch the recover kernel: z, r, s [B, 16] int32 16-bit limbs, v [B]
+    int32, comb [60, 8] int32 (uint32 words of the G / 2^128·G combs), all
+    on one CUDA device. Returns (qx, qy [B, 16] int32, ok bool[B])."""
+    dev = z.device
+    if dev.type != "cuda":
+        raise ValueError(f"secp256k1_recover needs CUDA tensors, got {dev}")
+    b = z.shape[0]
+    for what, t, dt, shape in (
+        ("z", z, torch.int32, (b, 16)),
+        ("r", r, torch.int32, (b, 16)),
+        ("s", s, torch.int32, (b, 16)),
+        ("v", v, torch.int32, (b,)),
+        ("comb", comb, torch.int32, (60, 8)),
+    ):
+        _require(t, what, dt, shape, dev)
+    qx = torch.empty((b, 16), dtype=torch.int32, device=dev)
+    qy = torch.empty((b, 16), dtype=torch.int32, device=dev)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return qx, qy, ok
+    lib = _library("secp256k1_recover")
+    lib.secp256k1_recover_launch.argtypes = _RECOVER_ARGTYPES
+    lib.secp256k1_recover_launch.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.secp256k1_recover_launch(
+            z.data_ptr(), r.data_ptr(), s.data_ptr(), v.data_ptr(), comb.data_ptr(),
+            qx.data_ptr(), qy.data_ptr(), ok.data_ptr(), b, dev.index, stream,
+        )
+    _check_launch(lib, "secp256k1_recover", err)
+    LAUNCHES["secp256k1_recover"] += 1
+    return qx, qy, ok

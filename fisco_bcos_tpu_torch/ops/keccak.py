@@ -1,0 +1,98 @@
+"""Batch Keccak-256 in plain PyTorch.
+
+The port of the JAX package's ``keccak256_blocks``: a lane-parallel sponge
+over pre-padded blocks with per-lane multi-block masking. A 64-bit keccak
+lane is one int64 (the JAX lo/hi uint32 split is a TPU artifact); the state
+is a ``[25, B]`` tensor and each round is a handful of whole-state ops.
+Right shifts of int64 are arithmetic, so every rotation masks the bits it
+brings down.
+
+This runs as plain PyTorch on the card too — the JAX package computes it
+outside any Pallas kernel. Its hand-written CUDA kernel is queued in
+ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
+    0x000000000000808B, 0x0000000080000001, 0x8000000080008081, 0x8000000000008009,
+    0x000000000000008A, 0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089, 0x8000000000008003,
+    0x8000000000008002, 0x8000000000000080, 0x000000000000800A, 0x800000008000000A,
+    0x8000000080008081, 0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+# as signed int64 bit patterns
+_RC_I64 = [rc - (1 << 64) if rc >> 63 else rc for rc in _RC]
+
+# rho rotation offsets r[x][y]; the pi permutation as, for each destination
+# lane (index x + 5y), its source lane and rotation
+_ROT = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+_PI_SRC = [0] * 25
+_PI_ROT = [0] * 25
+for _x in range(5):
+    for _y in range(5):
+        _dst = _y + 5 * ((2 * _x + 3 * _y) % 5)
+        _PI_SRC[_dst] = _x + 5 * _y
+        _PI_ROT[_dst] = _ROT[_x][_y]
+
+RATE_LANES = 17
+_LO32 = 0xFFFFFFFF
+
+
+def keccak_f1600(a: torch.Tensor) -> torch.Tensor:
+    """24-round Keccak-f[1600] over a [25, B] int64 state (lane x + 5y)."""
+    dev = a.device
+    src = torch.tensor(_PI_SRC, device=dev)
+    rot = torch.tensor(_PI_ROT, device=dev)[:, None]
+    low_mask = (1 << rot) - 1  # the bits a right shift by 64 - rot brings down
+    bsz = a.shape[1]
+    for rc in _RC_I64:
+        a5 = a.view(5, 5, bsz)  # [y, x, B]
+        # theta: C[x] = xor over y; D[x] = C[x-1] ^ rotl(C[x+1], 1)
+        c = a5[0] ^ a5[1] ^ a5[2] ^ a5[3] ^ a5[4]
+        c1 = c.roll(-1, 0)
+        d = c.roll(1, 0) ^ ((c1 << 1) | ((c1 >> 63) & 1))
+        a = (a5 ^ d[None]).reshape(25, bsz)
+        # rho + pi: B[dst] = rotl(A[src], rot)
+        b = a[src]
+        b = (b << rot) | ((b >> (64 - rot)) & low_mask)
+        # chi within each row y, then iota
+        b5 = b.view(5, 5, bsz)
+        a = (b5 ^ (~b5.roll(-1, 1) & b5.roll(-2, 1))).reshape(25, bsz)
+        a[0] ^= rc
+    return a
+
+
+def keccak256_lanes(lanes: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """Sponge over pre-padded blocks of 64-bit lanes.
+
+    lanes: [B, M, 17] int64 rate lanes; nblocks: [B]. Returns digests as
+    [B, 8] int64 little-endian 32-bit words (values < 2^32)."""
+    bsz, m_max, _ = lanes.shape
+    state = torch.zeros((25, bsz), dtype=torch.int64, device=lanes.device)
+    nblocks = nblocks.to(lanes.device)
+    for m in range(m_max):
+        absorbed = state.clone()
+        absorbed[:RATE_LANES] ^= lanes[:, m, :].T
+        state = torch.where(m < nblocks, keccak_f1600(absorbed), state)
+    sq = state[:4]  # 32 bytes = lanes 0..3 -> words [lo0, hi0, lo1, hi1, ...]
+    return torch.stack([sq & _LO32, (sq >> 32) & _LO32], dim=1).reshape(8, bsz).T
+
+
+def keccak256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """blocks: [B, M, 17, 2] rate lanes as (lo, hi) 32-bit halves (the JAX
+    layout, any integer dtype holding the uint32 values); nblocks: [B].
+    Returns digests as [B, 8] int64 little-endian words (values < 2^32)."""
+    b = blocks.to(torch.int64)
+    lanes = (b[..., 0] & _LO32) | (b[..., 1] << 32)
+    return keccak256_lanes(lanes, nblocks)
+

@@ -1,0 +1,165 @@
+"""Batch secp256k1 ECDSA public-key recovery.
+
+``recover_device`` keeps the JAX package's public layout: ``[B, 16]`` limbs
+in, ``(qx, qy [B, 16], ok [B])`` out. On a CUDA tensor it launches the
+hand-written kernel (``csrc/secp256k1_recover.cu``, which replaces the
+Pallas ``_recover_kernel`` together with the inversions the TPU ran outside
+it); on a CPU tensor it runs the plain PyTorch version below, a port of the
+JAX ``recover_core``. Both give the same bytes on every lane: the affine
+result of a valid lane is unique, and a not-ok lane is all zeros.
+
+Semantics (the reference's, Secp256k1Crypto.cpp:106-108): v ∈ {0..3, 27,
+28} — 29 and 30 must NOT alias to 2 and 3; x = r + (v&2 ? n : 0) < p;
+y = √(x³+7) must exist, its parity flipped by v&1; Q = r⁻¹(s·R − z·G).
+Invalid lanes never raise: they come back not-ok with a zero key.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import _kernels
+from .bigint import bytes_be_to_limbs, limbs_to_bytes_be
+from .ec import (
+    CurveOps,
+    glv_decompose,
+    lane_inv,
+    pt_to_affine_batch,
+    quad_mul_windowed,
+    reduce_mod_n,
+    valid_scalar,
+)
+from .hash_common import bucket_batch, pad_rows
+from .limb import add_widen, eq, lt, select
+from ..device import resolve_device
+from ..params import default_tables
+
+# ---------------------------------------------------------------------------
+# Plain version (limb-major [16, T] int64), a port of the JAX recover_core
+# ---------------------------------------------------------------------------
+
+
+def inv_mod_n(x: torch.Tensor, C: CurveOps) -> torch.Tensor:
+    """Batch x^-1 mod n with one Fermat exponentiation for the lane axis.
+    Canonicalizes first so an x ≡ 0 (mod n) with nonzero limbs cannot
+    poison the shared product tree."""
+    return lane_inv(C.Fn, reduce_mod_n(x, C))
+
+
+def recover_project_core(z, r, s, v, rinv, g_table, C: CurveOps):
+    """Projective part of recovery. z, r, s: [16, T] plain limbs; v: [T]
+    recovery id; rinv = :func:`inv_mod_n`(r). Returns (X, Y, Z [16, T]
+    projective Q, valid bool[T])."""
+    F, Fn = C.F, C.Fn
+    valid = ((v >= 0) & (v <= 3)) | ((v >= 27) & (v <= 28))
+    v = torch.where(v >= 27, v - 27, v)
+    valid &= valid_scalar(r, C) & valid_scalar(s, C)
+    # x = r + (v & 2 ? n : 0); reject overflow past 2^256 or x >= p
+    n_or_0 = select((v & 2) != 0, C.n_col.expand_as(r), torch.zeros_like(r))
+    x17 = add_widen(r, n_or_0)
+    x = x17[:16]
+    valid &= (x17[16] == 0) & lt(x, C.p_col)
+    # y from y^2 = x^3 + 7; p ≡ 3 (mod 4)
+    y2 = F.add(F.mul(F.sqr(x), x), C.b_col.expand_as(x))
+    y = F.sqrt(y2)
+    valid &= eq(F.sqr(y), y2)  # x^3 + 7 must be a quadratic residue
+    flip = (y[0] & 1) != (v & 1)  # parity of the plain y
+    y = select(flip, F.neg(y), y)
+    # Q = r^-1 * (s*R - z*G)
+    u1 = Fn.neg(Fn.mul(reduce_mod_n(z, C), rinv))
+    u2 = Fn.mul(s, rinv)
+    ka, sa, kb, sb = glv_decompose(u2, C)
+    X, Y, Z = quad_mul_windowed(u1, ka, sa, kb, sb, (x, y), C, g_table)
+    return X, Y, Z, valid
+
+
+def recover_finish(X, Y, Z, valid, C: CurveOps):
+    """Projective Q -> plain affine (qx, qy, ok); not-ok lanes are zeroed."""
+    qx, qy, inf = pt_to_affine_batch((X, Y, Z), C)
+    valid = valid & ~inf
+    zero = torch.zeros_like(X)
+    return select(valid, qx, zero), select(valid, qy, zero), valid
+
+
+def recover_core(z, r, s, v, g_table, C: CurveOps):
+    """Whole recovery on limb-major tensors: r⁻¹, the projective core, and
+    the batched affine conversion."""
+    rinv = inv_mod_n(r, C)
+    X, Y, Z, valid = recover_project_core(z, r, s, v, rinv, g_table, C)
+    return recover_finish(X, Y, Z, valid, C)
+
+
+def recover_plain(z, r, s, v):
+    """The plain PyTorch version of the kernel, in its public layout:
+    z, r, s [B, 16] int32 limbs, v [B] int32 -> (qx, qy [B, 16] int32,
+    ok bool[B]), on the inputs' device."""
+    C = CurveOps(z.device)
+    g_table = torch.from_numpy(default_tables().comb_limbs().astype(np.int64)).to(z.device)
+    qx, qy, ok = recover_core(
+        z.T.to(torch.int64),
+        r.T.to(torch.int64),
+        s.T.to(torch.int64),
+        v.to(torch.int64),
+        g_table,
+        C,
+    )
+    return qx.T.to(torch.int32).contiguous(), qy.T.to(torch.int32).contiguous(), ok
+
+
+# ---------------------------------------------------------------------------
+# Device entry point ([B, 16] batch-major public API)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def comb_words(device: torch.device) -> torch.Tensor:
+    """The kernel's [60, 8] int32 comb table (uint32 words of the affine
+    c·G and c·2^128·G, c = 1..15), uploaded once per device."""
+    return torch.from_numpy(default_tables().comb_words.view(np.int32)).to(device)
+
+
+def recover_device(z, r, s, v):
+    """Batch ECDSA recover. z/r/s: [B, 16] int32 limbs; v: [B] int32.
+    Returns (qx, qy [B, 16] int32 plain limbs, ok bool[B]).
+
+    CUDA tensors go to the CUDA kernel (or an exception); CPU tensors to the
+    plain version."""
+    if z.device.type == "cuda":
+        return _kernels.secp256k1_recover(z, r, s, v, comb_words(z.device))
+    if z.device.type == "cpu":
+        return recover_plain(z, r, s, v)
+    raise ValueError(f"recover_device: unsupported device {z.device}")
+
+
+# ---------------------------------------------------------------------------
+# Host wrapper (bytes in / bytes out, batch padded per hash_common._bucket)
+# ---------------------------------------------------------------------------
+
+
+def recover_batch(
+    msg_hashes: np.ndarray, sigs65: np.ndarray, device=None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host API: [B,32] hash + [B,65] r‖s‖v signatures (uint8) ->
+    (pubkeys [B,64] uint8, ok bool[B])."""
+    dev = resolve_device(device)
+    bsz = len(msg_hashes)
+    bb = bucket_batch(bsz)
+    sigs65 = np.asarray(sigs65, dtype=np.uint8).reshape(-1, 65)
+
+    def limbs(a):
+        rows = pad_rows(bytes_be_to_limbs(a), bb).astype(np.int32)
+        return torch.from_numpy(rows).to(dev)
+
+    z = limbs(np.asarray(msg_hashes, dtype=np.uint8).reshape(-1, 32))
+    r = limbs(sigs65[:, :32])
+    s = limbs(sigs65[:, 32:64])
+    v = torch.from_numpy(pad_rows(sigs65[:, 64].astype(np.int32), bb)).to(dev)
+    qx, qy, ok = recover_device(z, r, s, v)
+    pubs = np.concatenate(
+        [limbs_to_bytes_be(qx.cpu().numpy()), limbs_to_bytes_be(qy.cpu().numpy())],
+        axis=-1,
+    )
+    return pubs[:bsz], ok.cpu().numpy()[:bsz]

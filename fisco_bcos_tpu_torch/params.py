@@ -1,0 +1,88 @@
+"""The recover program's precomputed state, in the port's layout.
+
+The state is the affine comb table of G and 2^128·G and the GLV split
+constants. The port builds it itself from its reference copy
+(:func:`build_tables`); :func:`tables_from_jax` carries the JAX package's
+numpy arrays of the same state into the same layout, so a test can pin the
+two equal. The CUDA kernel reads the combs as 32-bit words ([60, 8]); the
+plain version reads 16-bit limbs ([60, 16]); both come from one table here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+
+from .ops import ec
+
+
+def limbs16_to_words(table: np.ndarray) -> np.ndarray:
+    """[..., 16] 16-bit limbs -> [..., 8] uint32 little-endian words."""
+    t = np.asarray(table, dtype=np.uint64)
+    return (t[..., 0::2] | (t[..., 1::2] << 16)).astype(np.uint32)
+
+
+def words_to_limbs16(words: np.ndarray) -> np.ndarray:
+    """[..., 8] uint32 words -> [..., 16] uint32 16-bit limbs."""
+    w = np.asarray(words, dtype=np.uint32)
+    return np.stack([w & 0xFFFF, w >> 16], axis=-1).reshape(*w.shape[:-1], 16)
+
+
+def _limbs_int(limbs) -> int:
+    return sum(int(v) << (16 * i) for i, v in enumerate(np.asarray(limbs).tolist()))
+
+
+@dataclass(frozen=True)
+class RecoverTables:
+    """comb_words: [60, 8] uint32 — x of c·G (rows 0..14), y of c·G (15..29),
+    then the same for 2^128·G (30..59), c = 1..15, affine, canonical.
+    glv: the GLV split constants."""
+
+    comb_words: np.ndarray
+    glv: ec.GlvParams
+
+    def comb_limbs(self) -> np.ndarray:
+        return words_to_limbs16(self.comb_words)
+
+    def same_as(self, other: "RecoverTables") -> bool:
+        return np.array_equal(self.comb_words, other.comb_words) and self.glv == other.glv
+
+
+def build_tables() -> RecoverTables:
+    """The port's own tables, built from its reference copy."""
+    return RecoverTables(
+        comb_words=limbs16_to_words(ec.g_comb_table_glv()), glv=ec.glv_params()
+    )
+
+
+@lru_cache(maxsize=None)
+def default_tables() -> RecoverTables:
+    return build_tables()
+
+
+def tables_from_jax(g_comb_table_glv: np.ndarray, glv_params) -> RecoverTables:
+    """Convert the JAX package's state to the port's layout.
+
+    g_comb_table_glv: [60, 16] uint32 16-bit limbs, as
+    ``fisco_bcos_tpu.ops.ec.g_comb_table_glv("secp256k1")`` returns it.
+    glv_params: an object with the JAX ``_GlvParams`` fields as limb arrays
+    (beta_enc, g1, g2, a1, b1_abs, a2, b2), as
+    ``fisco_bcos_tpu.ops.ec.glv_params("secp256k1")`` returns it.
+    """
+    table = np.asarray(g_comb_table_glv)
+    if table.shape != (60, 16):
+        raise ValueError(f"comb table must be [60, 16], got {table.shape}")
+    return RecoverTables(
+        comb_words=limbs16_to_words(table),
+        glv=ec.GlvParams(
+            beta=_limbs_int(glv_params.beta_enc),
+            g1=_limbs_int(glv_params.g1),
+            g2=_limbs_int(glv_params.g2),
+            a1=_limbs_int(glv_params.a1),
+            b1_abs=_limbs_int(glv_params.b1_abs),
+            a2=_limbs_int(glv_params.a2),
+            b2=_limbs_int(glv_params.b2),
+        ),
+    )
