@@ -7,22 +7,31 @@ Needs one CUDA card, ``nvcc`` and the repo's ``fisco_bcos_tpu_torch`` package;
 exits non-zero, printing no result, without them. In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every kernel of the path from ``fisco_bcos_tpu_torch/csrc`` (timed);
-3. on a 10,240-lane block with invalid lanes mixed in, holds the
-   secp256k1 recover kernel against its plain PyTorch version on the card,
-   bit for bit, one lane of every distinct case against the host oracle,
-   and ``admit_batch``'s four outputs against the host oracle (reference
-   keccak and reference ECDSA);
-4. runs ``admit_batch`` — the main path — on a 10,240-transaction block of
-   valid transactions built as ``bench.py``'s admission benchmark builds
-   them, on the default device, with every kernel launch counter set to 0
-   just before and read just after, and holds its outputs against the host
-   oracle;
-5. on that block, times the kernel, its plain version, ``admit_batch`` and
-   each of its stages (CUDA events / synchronised host clock, medians of
-   warm runs) and the card's busy time in one profiled call, and prints
-   them beside the card's name and power limit, one JSON line describing
-   every kernel, and last the JSON result line.
+2. builds every kernel from ``fisco_bcos_tpu_torch/csrc``, one ``nvcc`` per
+   source, all started together (timed);
+3. secp256k1 admission: on a 10,240-lane block with invalid lanes
+   mixed in, holds the recover kernel against its plain PyTorch version on
+   the card, bit for bit, one lane of every distinct case against the host
+   oracle, and ``admit_batch``'s four outputs against the host oracle
+   (reference keccak and reference ECDSA); runs ``admit_batch`` on a
+   10,240-transaction block of valid transactions built as ``bench.py``'s
+   admission benchmark builds them, with every launch counter set to 0 just
+   before and read just after, and holds its outputs against the host
+   oracle; times the kernel, its plain version, ``admit_batch``, each of its
+   stages and the card's busy time in one profiled call;
+4. secp256k1 verify: on a mixed and a timed 10,240-lane block,
+   holds the verify kernel against its plain version on every lane and
+   ``verify_batch`` against the host oracle; drives ``verify_batch`` on the
+   timed block between the counters; times the kernel, its plain version
+   and ``verify_batch``;
+5. SM2 / SM-suite admission: the same for the SM2 kernel and
+   ``admit_batch_sm`` (SM3 tx hash, SM2 verify, SM3 sender), with lanes of
+   digest e = 0 and e = 2^256 - 1 fed to ``sm2.verify_device`` directly;
+   times the kernel, its plain version, ``sm2.verify_batch``,
+   ``admit_batch_sm``, its stages and the card's busy time in one profiled
+   call;
+6. prints every figure beside the card's name and power limit, one JSON
+   line describing every kernel, and last the JSON result line.
 
 No phase's failure is caught: any mismatch or error ends the script with a
 traceback and a non-zero exit code.
@@ -36,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 BLOCK_TXS = 10_240  # a 10k-tx block, bucketed as hash_common._bucket does
 UNIQUE_SIGNERS = 128  # distinct cases of the mixed (correctness) block
@@ -48,16 +58,26 @@ SEED = 20_261_016
 INT32_MUL_PER_S = 67e12 / 4
 HBM_BYTES_PER_S = 3.35e12
 
-# 32-bit multiplies of the least work per operation of the kernel
-# (csrc/secp256k1_recover.cu), each 32x32->64 product counted as two (low
-# and high half): a 256-bit squaring needs 36 word products, not 64, and a
-# product by a word that is 0 or 1 by construction is no work.
+# 32-bit multiplies of the least work per operation of the kernels
+# (csrc/secp256k1_common.cuh, csrc/sm2_verify.cu), each 32x32->64 product
+# counted as two (low and high half): a 256-bit squaring needs 36 word
+# products, not 64, and a product by a word that is 0 or 1 by construction
+# is no work.
 MULS_FP_MUL = 2 * (64 + 8 + 1)  # 8x8 words, fp_reduce_wide, fp_fold_top
 MULS_FP_SQR = 2 * (36 + 8 + 1)
 MULS_FP_SMALL = 2 * (8 + 1)  # fp_mul_small + fp_fold_top
 MULS_FN_MUL = 2 * (64 + 32 + 20 + 4)  # 8x8 words + three folds by CN (CN[4] = 1)
 MULS_FN_SQR = 2 * (36 + 32 + 20 + 4)
 MULS_GLV = 2 * (2 * 80 + 4 * 16)  # two u2·g products; four c·basis, 4x4 words each
+# SM2's Montgomery product: only the a·b word products. The reduction needs
+# no multiply: -p^-1 ≡ 1 mod 2^32 makes each step's m the low word itself,
+# and p = 2^256 - 2^224 - 2^96 + 2^64 - 1 makes m·p shifts and subtracts.
+# By a constant, only its words other than 0/1 count.
+MULS_MM = 2 * 64
+MULS_MM_SQR = 2 * 36
+MULS_MM_R2 = 2 * 8 * 6  # R^2 mod p has 6 words other than 0/1
+MULS_MM_R1 = 2 * 8 * 1  # R mod p (the table's Z = 1) has 1
+# out of the Montgomery domain, a product by 1, is a reduction alone: no work
 
 
 def log(*args) -> None:
@@ -187,7 +207,7 @@ def expected_admission(picked):
 
 
 # ---------------------------------------------------------------------------
-# Operation count of the recover kernel for this run's inputs
+# Operation counts of the kernels for this run's inputs
 # ---------------------------------------------------------------------------
 
 
@@ -201,6 +221,46 @@ def _pow_ops(e: int) -> tuple[int, int]:
     return 14 + sum(1 for c in rest if c), 4 * len(rest)
 
 
+def _ladder_ops(window_sets, n_windows: int, add_muls, dbl_ops) -> tuple[int, ...]:
+    """Sum, over a windowed ladder run MSB first, of each step's operation
+    counts (tuples added elementwise): per window 4 doublings (dbl_ops),
+    then an addition (add_muls[k]) for each scalar k whose window is
+    nonzero. Doublings of the still-identity accumulator and the first
+    addition to it are no work and are not counted."""
+    total = [0] * len(dbl_ops)
+    started = False
+    for i in range(n_windows - 1, -1, -1):
+        if started:
+            total = [t + 4 * d for t, d in zip(total, dbl_ops)]
+        for k, ops in zip(window_sets, add_muls):
+            if (k >> (4 * i)) & 0xF:
+                if started:
+                    total = [t + o for t, o in zip(total, ops)]
+                started = True
+    return tuple(total)
+
+
+def _glv_ladder_ops(u1: int, u2: int) -> tuple[int, int, int]:
+    """(fp_mul, fp_sqr, fp_mul_small) of glv_dual_mul for scalars u1, u2:
+    the c·Q table (14 additions of Q, whose Z is 1, so each is a mixed
+    addition, 11 products) and its β view (15 products), then the 33-window
+    ladder over the GLV split of u2 and the 128-bit halves of u1."""
+    from fisco_bcos_tpu_torch.ops.ec import glv_params
+
+    P = glv_params()
+    c1 = (u2 * P.g1) >> 448
+    c2 = (u2 * P.g2) >> 448
+    ka = abs(u2 - (c1 * P.a1 + c2 * P.a2))
+    kb = abs(c1 * P.b1_abs - c2 * P.b2)
+    lo, hi = u1 & ((1 << 128) - 1), u1 >> 128
+    # complete addition 12 products, mixed 11, each with 2 products by 21;
+    # a doubling 6 products, 2 squarings, 1 product by 21
+    fp_mul, fp_sqr, small = _ladder_ops(
+        (ka, kb, lo, hi), 33, [(12, 0, 2), (12, 0, 2), (11, 0, 2), (11, 0, 2)], (6, 2, 1)
+    )
+    return fp_mul + 14 * 11 + 15, fp_sqr, small + 14 * 2
+
+
 def recover_multiplies(case_hash: bytes, sig65: bytes) -> int:
     """32-bit multiplies of the least work the recover kernel's method needs
     for one lane, following its control flow: early exit on invalid input
@@ -208,7 +268,6 @@ def recover_multiplies(case_hash: bytes, sig65: bytes) -> int:
     nonzero window. Doublings of the still-identity accumulator and the
     first addition to it are no work and are not counted."""
     from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
-    from fisco_bcos_tpu_torch.ops.ec import glv_params
 
     C = ref.SECP256K1
     r = int.from_bytes(sig65[:32], "big")
@@ -234,25 +293,8 @@ def recover_multiplies(case_hash: bytes, sig65: bytes) -> int:
     rinv = pow(r, C.n - 2, C.n)
     u1 = (-(z % C.n) * rinv) % C.n
     u2 = s * rinv % C.n
-    P = glv_params()
-    c1 = (u2 * P.g1) >> 448
-    c2 = (u2 * P.g2) >> 448
-    ka = abs(u2 - (c1 * P.a1 + c2 * P.a2))
-    kb = abs(c1 * P.b1_abs - c2 * P.b2)
-    lo, hi = u1 & ((1 << 128) - 1), u1 >> 128
-    # the c·R table: 14 additions of R, whose Z is 1 (so each is a mixed
-    # addition, 11 products), and its β view (15 products)
-    fp_mul += 14 * 11 + 15
-    small = 14 * 2
-    started = False
-    for i in range(32, -1, -1):
-        if started:
-            fp_mul, fp_sqr, small = fp_mul + 4 * 6, fp_sqr + 4 * 2, small + 4
-        for k, mul in ((ka, 12), (kb, 12), (lo, 11), (hi, 11)):
-            if (k >> (4 * i)) & 0xF:
-                if started:
-                    fp_mul, small = fp_mul + mul, small + 2
-                started = True
+    lm, ls, small = _glv_ladder_ops(u1, u2)
+    fp_mul, fp_sqr = fp_mul + lm, fp_sqr + ls
     expected = ref.ecdsa_recover(case_hash, r, s, v)
     if expected is not None:
         inv_m, inv_s = _pow_ops(C.p - 2)
@@ -261,6 +303,44 @@ def recover_multiplies(case_hash: bytes, sig65: bytes) -> int:
         fp_mul * MULS_FP_MUL + fp_sqr * MULS_FP_SQR + small * MULS_FP_SMALL
         + fn_mul * MULS_FN_MUL + fn_sqr * MULS_FN_SQR + MULS_GLV
     )
+
+
+def verify_multiplies(z: int, r: int, s: int) -> int:
+    """32-bit multiplies of the least work the secp256k1 verify kernel's
+    method needs for one lane. Every lane runs the whole method: the curve
+    check (2 squarings, 1 product), s^-1 by Fermat, u1 and u2, the GLV
+    split, the ladder, and the two products of the projective compare."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+    C = ref.SECP256K1
+    fn_mul, fn_sqr = _pow_ops(C.n - 2)
+    fn_mul += 2  # u1, u2
+    sinv = pow(s % C.n, C.n - 2, C.n)
+    lm, ls, small = _glv_ladder_ops(z % C.n * sinv % C.n, r % C.n * sinv % C.n)
+    fp_mul, fp_sqr = 1 + lm + 2, 2 + ls
+    return (
+        fp_mul * MULS_FP_MUL + fp_sqr * MULS_FP_SQR + small * MULS_FP_SMALL
+        + fn_mul * MULS_FN_MUL + fn_sqr * MULS_FN_SQR + MULS_GLV
+    )
+
+
+def sm2_verify_multiplies(r: int, s: int) -> int:
+    """32-bit multiplies of the least work the SM2 verify kernel's method
+    needs for one lane: Q into the Montgomery domain (2 products by R^2),
+    the curve check (2 squarings, 1 product; a·x by additions), the c·Q
+    table (14 complete additions, each 14 products, one of them by Z = 1),
+    the 64-window ladder over s (G comb, mixed additions of 13 products)
+    and t = r + s mod n (Q table, complete additions of 14), doublings of 3
+    squarings and 10 products, and the compare (k·Z, (k+n)·Z; X out of the
+    Montgomery domain is a reduction alone)."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+    C = ref.SM2_CURVE
+    t = (r % C.n + s) % C.n
+    mm, sqr = _ladder_ops((t, s), 64, [(14, 0), (13, 0)], (10, 3))
+    mm += 1 + 14 * 13 + 2  # x^2·x; the table; k·Z and (k+n)·Z
+    sqr += 2
+    return mm * MULS_MM + sqr * MULS_MM_SQR + 2 * MULS_MM_R2 + 14 * MULS_MM_R1
 
 
 # ---------------------------------------------------------------------------
@@ -307,30 +387,12 @@ def host_ms(fn, reps: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_vs_plain(z, r, s, v, what: str):
-    """Kernel and plain version on the same card tensors, bit for bit.
-    Returns the kernel's outputs and the largest elementwise difference."""
-    import torch
-
-    from fisco_bcos_tpu_torch.ops import secp256k1
-
-    kernel = secp256k1.recover_device(z, r, s, v)
-    plain = secp256k1.recover_plain(z, r, s, v)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("qx", "qy", "ok"), kernel, plain):
-        if not torch.equal(a, b):
-            bad = (a != b).reshape(len(z), -1).any(1).nonzero().flatten()[:8].tolist()
-            raise AssertionError(f"recover kernel != plain on {name} of the {what}, lanes {bad}")
-    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(kernel, plain))
-    return kernel, err
-
-
-def check_outputs(got, want, what: str) -> None:
+def check_outputs(got, want, what: str, entry: str = "admit_batch") -> None:
     import numpy as np
 
     for name, g, w in zip(("senders", "ok", "pubkeys", "tx hashes"), got, want):
         if g.shape != w.shape or not np.array_equal(g, w):
-            raise AssertionError(f"admit_batch {name} != host oracle on the {what}")
+            raise AssertionError(f"{entry} {name} != host oracle on the {what}")
 
 
 def check_mixed_block(cases, device) -> int:
@@ -338,10 +400,14 @@ def check_mixed_block(cases, device) -> int:
     of every distinct case == host oracle, admit_batch == host oracle.
     Returns the kernel's largest difference from the plain version."""
     from fisco_bcos_tpu_torch.crypto.admission import admit_batch
+    from fisco_bcos_tpu_torch.ops import secp256k1
     from fisco_bcos_tpu_torch.ops.bigint import limbs_to_int
 
     payloads, sigs65, picked = tile(cases, BLOCK_TXS)
-    kernel, err = kernel_vs_plain(*recover_inputs(payloads, sigs65, device), "mixed block")
+    kernel, err, _ = compare_and_time(
+        secp256k1.recover_device, secp256k1.recover_plain, recover_inputs(payloads, sigs65, device),
+        "secp256k1_recover", "mixed block",
+    )
     qx, qy, ok = (t.cpu().numpy() for t in kernel)
     for i in range(len(cases)):  # one lane of every distinct case
         expected = picked[i][2]
@@ -369,9 +435,8 @@ def run_main_path(block, device) -> tuple[dict, float]:
     _kernels.reset_launches()
     out = admit_batch(payloads, sigs65)
     launches = dict(_kernels.LAUNCHES)
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    if launches["secp256k1_recover"] == 0:
+        raise AssertionError("kernel secp256k1_recover was not launched on the main path")
     check_outputs(out, expected_admission(picked), "main path's block")
     log(f"main path: admit_batch on {BLOCK_TXS} txs == host oracle ({int(out[1].sum())} ok); "
         f"launches {launches}")
@@ -386,28 +451,21 @@ def measure_recover_kernel(block, device) -> dict:
 
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
     z, r, s, v = recover_inputs(payloads, sigs65, device)
-    _, err = kernel_vs_plain(z, r, s, v, "main path's block")
+    _, err, plain_ms = compare_and_time(
+        secp256k1.recover_device, secp256k1.recover_plain, (z, r, s, v),
+        "secp256k1_recover", "main path's block",
+    )
     kernel_ms = cuda_ms(lambda: secp256k1.recover_device(z, r, s, v))
-    plain_ms = host_ms(lambda: secp256k1.recover_plain(z, r, s, v), reps=3)
 
     per_case = [recover_multiplies(keccak256(c[0]), c[1]) for c in block]
     muls = sum(per_case[i % len(block)] for i in range(BLOCK_TXS))
-    ops_ms = muls / INT32_MUL_PER_S * 1e3
-    io_bytes = BLOCK_TXS * (3 * 16 * 4 + 4) + 60 * 8 * 4 + BLOCK_TXS * (2 * 16 * 4 + 1)
-    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
-    return {
-        "name": "secp256k1_recover",
-        "route": "cuda",
-        "source": "fisco_bcos_tpu_torch/csrc/secp256k1_recover.cu",
-        "replaces": "fisco_bcos_tpu/ops/pallas_ec.py:63",
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,  # no single PyTorch call computes ECDSA recovery
-        "int32_multiplies": muls,
-    }
+    row = kernel_row(
+        "secp256k1_recover", "fisco_bcos_tpu_torch/csrc/secp256k1_recover.cu",
+        "fisco_bcos_tpu/ops/pallas_ec.py:63", kernel_ms, muls,
+        io_bytes=BLOCK_TXS * (3 * 16 * 4 + 4) + 60 * 8 * 4 + BLOCK_TXS * (2 * 16 * 4 + 1),
+    )
+    row.update(max_abs_err=err, plain_ms=plain_ms)
+    return row
 
 
 def admission_stages(block, device) -> dict[str, float]:
@@ -477,12 +535,455 @@ def device_busy_ms(fn) -> tuple[float, float]:
     return busy_us / 1e3, wall_ms
 
 
+# ---------------------------------------------------------------------------
+# secp256k1 verify
+# ---------------------------------------------------------------------------
+
+
+def make_verify_cases(n_unique: int, seed: int):
+    """(hash, r, s, (qx, qy)) rows with one lane in 16 of each bad kind
+    (r = 0, s = 0, s >= n, qx >= p, Q off the curve, Q = (0, 0), a wrong
+    hash, a corrupted r) and one each of valid signatures over z = 0 and
+    z = 2^256 - 1 (u1 = 0; z > n reduced once)."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+    from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+
+    C = ref.SECP256K1
+    rng = random.Random(seed)
+    rows = []
+    for i in range(n_unique):
+        d = rng.randrange(1, C.n)
+        pub = ref.privkey_to_pubkey(C, d)
+        variant = i % 16
+        h = {8: bytes(32), 9: b"\xff" * 32}.get(variant, keccak256(b"verify case %d" % i))
+        r, s, _ = ref.ecdsa_sign(h, d)
+        if variant == 1:
+            r = 0
+        elif variant == 2:
+            s = 0
+        elif variant == 3:
+            s = (C.n, (1 << 256) - 1)[(i // 16) % 2]
+        elif variant == 4:
+            pub = (C.p + (i // 16) % 3, pub[1])
+        elif variant == 5:
+            pub = (pub[0], (pub[1] + 1) % C.p)
+        elif variant == 6:
+            pub = (0, 0)
+        elif variant == 7:
+            h = keccak256(b"not the signed message %d" % i)
+        elif variant == 10:
+            r = (r ^ (1 << rng.randrange(256))) % (1 << 256)
+        rows.append((h, r, s, pub))
+    return rows
+
+
+def verify_rows_from_block(block):
+    """The timed verify block: bench_admission's signers and payloads, each
+    lane's tx hash, r, s and public key."""
+    from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+
+    return [
+        (keccak256(payload), int.from_bytes(sig[:32], "big"), int.from_bytes(sig[32:64], "big"), pub)
+        for payload, sig, pub in block
+    ]
+
+
+def verify_arrays(rows, n: int):
+    """Tile rows to n lanes: (hashes, rs, ss [n, 32], pubs [n, 64]) uint8 and
+    the host oracle's verdicts (ecdsa_verify per distinct row, tiled)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+    b = lambda v: v.to_bytes(32, "big")  # noqa: E731
+    uniq = [
+        (h, b(r), b(s), b(q[0]) + b(q[1]), ref.ecdsa_verify(h, r, s, q)) for h, r, s, q in rows
+    ]
+    picked = [uniq[i % len(uniq)] for i in range(n)]
+    cols = [
+        np.frombuffer(b"".join(c[k] for c in picked), dtype=np.uint8).reshape(n, -1)
+        for k in range(4)
+    ]
+    return (*cols, np.array([c[4] for c in picked]))
+
+
+def limb_tensors(device, *arrays):
+    """[B, 32] big-endian byte arrays -> [B, 16] int32 limb tensors."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs
+
+    return [torch.from_numpy(bytes_be_to_limbs(a).astype(np.int32)).to(device) for a in arrays]
+
+
+def verify_limbs(hashes, rs, ss, pubs, device):
+    return limb_tensors(device, hashes, rs, ss, pubs[:, :32], pubs[:, 32:])
+
+
+def compare_and_time(kernel_fn, plain_fn, args, name: str, what: str):
+    """A kernel and its plain version on the same card tensors, equal on
+    every lane of every output; the plain call is the timed one
+    (synchronised host clock). Returns (the kernel's outputs, the largest
+    elementwise difference, plain ms)."""
+    import torch
+
+    got = kernel_fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain_fn(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    for a, b in pairs:
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(len(a), -1).any(1).nonzero().flatten()[:8].tolist()
+            raise AssertionError(f"{name} kernel != plain on the {what}, lanes {bad}")
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in pairs)
+    return got, err, plain_ms
+
+
+def check_verify_block(rows, device, what: str) -> tuple[int, float]:
+    """verify kernel == verify_plain on every lane of a 10,240-lane block;
+    verify_batch == the host oracle. Returns (max difference, plain ms)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.ops import secp256k1
+
+    *arrays, want = verify_arrays(rows, BLOCK_TXS)
+    _, err, plain_ms = compare_and_time(
+        secp256k1.verify_device, secp256k1.verify_plain, verify_limbs(*arrays, device),
+        "secp256k1_verify", what,
+    )
+    got = secp256k1.verify_batch(*arrays)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"verify_batch != host oracle on the {what}")
+    log(f"{what}, {BLOCK_TXS} lanes ({int(want.sum())} valid): verify kernel == plain; "
+        f"verify_batch == host oracle")
+    return err, plain_ms
+
+
+def run_verify_path(rows) -> tuple[int, float]:
+    """The verify path: verify_batch on the timed block, launch counters
+    zeroed just before and read just after. Returns (launches of the verify
+    kernel, median end-to-end ms)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.ops import _kernels, secp256k1
+
+    *arrays, want = verify_arrays(rows, BLOCK_TXS)
+    _kernels.reset_launches()
+    got = secp256k1.verify_batch(*arrays)
+    launches = _kernels.LAUNCHES["secp256k1_verify"]
+    if launches == 0:
+        raise AssertionError("kernel secp256k1_verify was not launched on the verify path")
+    if not np.array_equal(got, want) or not got.all():
+        raise AssertionError("verify_batch != host oracle on the timed block")
+    log(f"verify path: verify_batch on {BLOCK_TXS} signatures == host oracle; "
+        f"launches {dict(_kernels.LAUNCHES)}")
+    return launches, host_ms(lambda: secp256k1.verify_batch(*arrays), reps=5)
+
+
+def measure_verify_kernel(rows, device) -> dict:
+    from fisco_bcos_tpu_torch.ops import secp256k1
+
+    *arrays, _ = verify_arrays(rows, BLOCK_TXS)
+    args = verify_limbs(*arrays, device)
+    kernel_ms = cuda_ms(lambda: secp256k1.verify_device(*args))
+    per_case = [verify_multiplies(int.from_bytes(h, "big"), r, s) for h, r, s, _ in rows]
+    muls = sum(per_case[i % len(rows)] for i in range(BLOCK_TXS))
+    return kernel_row(
+        "secp256k1_verify", "fisco_bcos_tpu_torch/csrc/secp256k1_verify.cu",
+        "fisco_bcos_tpu/ops/pallas_ec.py:78", kernel_ms, muls,
+        io_bytes=BLOCK_TXS * (5 * 16 * 4 + 1) + 60 * 8 * 4,
+    )
+
+
+def kernel_row(name, source, replaces, kernel_ms, muls, io_bytes) -> dict:
+    """A kernel's line: its time, and its bound from this run's inputs —
+    the larger of its int32 multiplies over the issue rate and its bytes
+    (each input read once, each output written once) over HBM's rate."""
+    ops_ms = muls / INT32_MUL_PER_S * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "ms": kernel_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        # no single PyTorch call computes ECDSA recovery, ECDSA or SM2
+        # verification: nothing to time beside the kernels
+        "library_ms": None,
+        "int32_multiplies": muls,
+    }
+
+
+# ---------------------------------------------------------------------------
+# SM2 / SM-suite admission
+# ---------------------------------------------------------------------------
+
+SM2_EDGE_LANES = 64  # lanes of digest e = 0 and e = 2^256 - 1 (verify_device)
+
+
+def make_sm2_cases(n_unique: int, seed: int):
+    """(payload, r, s, (qx, qy), ok) rows: SM2 signatures over SM3(payload)
+    with one lane in 16 of each bad kind (r = 0, s = n, t = (r + s) mod n
+    = 0, Q off the curve, qx >= p, Q = (0, 0), a wrong hash, a corrupted s);
+    ok is the host oracle's verdict."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+    from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
+
+    C = ref.SM2_CURVE
+    rng = random.Random(seed)
+    rows = []
+    for i in range(n_unique):
+        payload = b"fisco-bcos sm tx %06d " % i + bytes(rng.randrange(256) for _ in range(rng.randrange(20, 260)))
+        d = rng.randrange(1, C.n - 1)
+        pub = ref.privkey_to_pubkey(C, d)
+        r, s = ref.sm2_sign(sm3(payload), d)
+        variant = i % 16
+        if variant == 1:
+            r = 0
+        elif variant == 2:
+            s = C.n
+        elif variant == 3:
+            s = C.n - r
+        elif variant == 4:
+            pub = (pub[0], (pub[1] + 1) % C.p)
+        elif variant == 5:
+            pub = (C.p + (i // 16) % 3, pub[1])
+        elif variant == 6:
+            pub = (0, 0)
+        elif variant == 7:
+            payload = payload + b"!"  # signed hash != this payload's hash
+        elif variant == 8:
+            s = s ^ (1 << rng.randrange(256))
+        rows.append((payload, r, s, pub, ref.sm2_verify(sm3(payload), r, s, pub)))
+    return rows
+
+
+def make_sm2_bench_block(n_unique: int):
+    """Valid SM-suite transactions: bench.py bench_sm2's signers (secret
+    0x1234 + 7919·i) signing bench_admission's 97-byte payloads over their
+    SM3 hash."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+    from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
+
+    C = ref.SM2_CURVE
+    rows = []
+    for i in range(n_unique):
+        payload = b"bench parallel-transfer tx %06d" % i + b"\xab" * 64
+        d = 0x1234 + 7919 * i
+        r, s = ref.sm2_sign(sm3(payload), d)
+        rows.append((payload, r, s, ref.privkey_to_pubkey(C, d), True))
+    return rows
+
+
+def sm2_tile(rows, n: int):
+    """(payloads, sigs128 [n, 128] uint8, picked rows) tiled to n lanes."""
+    import numpy as np
+
+    b = lambda v: v.to_bytes(32, "big")  # noqa: E731
+    picked = [rows[i % len(rows)] for i in range(n)]
+    sigs = b"".join(b(r) + b(s) + b(q[0]) + b(q[1]) for _, r, s, q, _ in picked)
+    return [c[0] for c in picked], np.frombuffer(sigs, dtype=np.uint8).reshape(n, 128), picked
+
+
+def expected_admission_sm(picked):
+    """Host oracle of admit_batch_sm: (senders, ok, pubs, hashes); a not-ok
+    lane has the zero key and the sender of the zero key."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
+
+    memo = {}
+
+    def row(case):
+        payload, r, s, q, ok = case
+        key = (payload, r, s, q)
+        if key not in memo:
+            pub = q[0].to_bytes(32, "big") + q[1].to_bytes(32, "big") if ok else bytes(64)
+            memo[key] = (sm3(pub)[12:], ok, pub, sm3(payload))
+        return memo[key]
+
+    rows = [row(c) for c in picked]
+    as_u8 = lambda k, w: np.frombuffer(b"".join(r[k] for r in rows), dtype=np.uint8).reshape(-1, w)  # noqa: E731
+    return as_u8(0, 20), np.array([r[1] for r in rows]), as_u8(2, 64), as_u8(3, 32)
+
+
+def sm2_device_inputs(payloads, sigs128, device):
+    """The SM2 kernel's inputs as the SM admission path builds them: (e, r,
+    s, qx, qy) [B', 16] int32 on the card."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import admission
+    from fisco_bcos_tpu_torch.ops import sm2, sm3
+
+    blocks, nblocks, za_blk, za_n, r, s, qx, qy = (
+        torch.from_numpy(a).to(device) for a in admission.host_inputs_sm(payloads, sigs128)
+    )
+    e = sm2.e_device(sm3.sm3_blocks(blocks, nblocks), za_blk, za_n)
+    return [e, r, s, qx, qy]
+
+
+def sm2_edge_lanes(device):
+    """Lanes fed to verify_device directly with digest e = 0 and
+    e = 2^256 - 1, which no SM3 output reaches on purpose: signatures made
+    for that e (valid), the same with s + 1, and with e flipped in bit 0.
+    Returns (limb tensors [e, r, s, qx, qy], host oracle verdicts)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+    rows = ref.sm2_edge_e_rows((0, (1 << 256) - 1), SM2_EDGE_LANES, random.Random(SEED + 2))
+    b = lambda v: np.frombuffer(v.to_bytes(32, "big"), dtype=np.uint8)  # noqa: E731
+    cols = [np.stack([b(v) for v in col]) for col in zip(*[(e, r, s, q[0], q[1]) for e, r, s, q in rows])]
+    return limb_tensors(device, *cols), np.array([ref.sm2_verify_e(*row) for row in rows])
+
+
+def check_sm2_mixed_block(rows, device) -> tuple[int, float]:
+    """SM2 kernel == plain on every lane of the mixed block plus the e-edge
+    lanes (one call each), the edge lanes == their oracle, admit_batch_sm ==
+    host oracle. Returns (max difference, plain ms)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch_sm
+    from fisco_bcos_tpu_torch.ops import sm2
+
+    payloads, sigs128, picked = sm2_tile(rows, BLOCK_TXS)
+    edge, edge_want = sm2_edge_lanes(device)
+    args = [torch.cat([a, b]) for a, b in zip(sm2_device_inputs(payloads, sigs128, device), edge)]
+    _, err, plain_ms = compare_and_time(sm2.verify_device, sm2.verify_plain, args, "sm2_verify", "mixed block")
+    edge_got = sm2.verify_device(*edge).cpu().numpy()
+    if not np.array_equal(edge_got, edge_want):
+        raise AssertionError("sm2 kernel != host oracle on the e = 0 / e = 2^256 - 1 lanes")
+    out = admit_batch_sm(payloads, sigs128)
+    check_outputs(out, expected_admission_sm(picked), "mixed block", "admit_batch_sm")
+    log(f"SM2 mixed block, {BLOCK_TXS} lanes ({int(out[1].sum())} ok) + {SM2_EDGE_LANES} e-edge lanes "
+        f"({int(edge_want.sum())} ok): sm2 kernel == plain; edge lanes == oracle; "
+        f"admit_batch_sm == host oracle")
+    return err, plain_ms
+
+
+def run_sm_path(rows) -> tuple[int, float]:
+    """The SM admission path: admit_batch_sm on the timed block, launch
+    counters zeroed just before and read just after, outputs against the
+    host oracle. Returns (launches of the SM2 kernel, median ms)."""
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch_sm
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    payloads, sigs128, picked = sm2_tile(rows, BLOCK_TXS)
+    _kernels.reset_launches()
+    out = admit_batch_sm(payloads, sigs128)
+    launches = _kernels.LAUNCHES["sm2_verify"]
+    if launches == 0:
+        raise AssertionError("kernel sm2_verify was not launched on the SM admission path")
+    check_outputs(out, expected_admission_sm(picked), "timed block", "admit_batch_sm")
+    log(f"SM admission path: admit_batch_sm on {BLOCK_TXS} txs == host oracle "
+        f"({int(out[1].sum())} ok); launches {dict(_kernels.LAUNCHES)}")
+    return launches, host_ms(lambda: admit_batch_sm(payloads, sigs128), reps=5)
+
+
+def measure_sm2(rows, device) -> tuple[dict, float]:
+    """The SM2 kernel on the SM path's inputs: equal to the plain version
+    (timed), its own time and bound; and sm2.verify_batch end to end."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
+    from fisco_bcos_tpu_torch.ops import sm2
+
+    payloads, sigs128, _ = sm2_tile(rows, BLOCK_TXS)
+    args = sm2_device_inputs(payloads, sigs128, device)
+    _, err, plain_ms = compare_and_time(sm2.verify_device, sm2.verify_plain, args, "sm2_verify", "timed block")
+    kernel_ms = cuda_ms(lambda: sm2.verify_device(*args))
+    per_case = [sm2_verify_multiplies(r, s) for _, r, s, _, _ in rows]
+    muls = sum(per_case[i % len(rows)] for i in range(BLOCK_TXS))
+    row = kernel_row(
+        "sm2_verify", "fisco_bcos_tpu_torch/csrc/sm2_verify.cu",
+        "fisco_bcos_tpu/ops/pallas_ec.py:163", kernel_ms, muls,
+        io_bytes=BLOCK_TXS * (5 * 16 * 4 + 1) + 30 * 8 * 4,
+    )
+    row.update(max_abs_err=err, plain_ms=plain_ms)
+    hashes = np.stack([np.frombuffer(sm3(p), dtype=np.uint8) for p in payloads])
+    verify_args = (hashes, sigs128[:, :32], sigs128[:, 32:64], sigs128[:, 64:])
+    if not sm2.verify_batch(*verify_args).all():
+        raise AssertionError("sm2.verify_batch rejected a valid signature of the timed block")
+    return row, host_ms(lambda: sm2.verify_batch(*verify_args), reps=5)
+
+
+def sm_admission_stages(rows, device) -> dict[str, float]:
+    """Median ms of each stage of admit_batch_sm on the timed block, each
+    run warm and ending synchronised (the stages of admission_sm_core)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import admission
+    from fisco_bcos_tpu_torch.ops import sm2, sm3
+    from fisco_bcos_tpu_torch.ops.address import sm3_sender_address_device
+    from fisco_bcos_tpu_torch.ops.bigint import words_be_to_limbs
+
+    payloads, sigs128, _ = sm2_tile(rows, BLOCK_TXS)
+    st: dict = {}
+
+    def host_pad():
+        st["host"] = admission.host_inputs_sm(payloads, sigs128)
+
+    def upload():
+        st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
+
+    def tx_hash():
+        st["h"] = sm3.sm3_blocks(*st["dev"][:2])
+
+    def sm2_e():
+        st["e"] = sm2.e_device(st["h"], *st["dev"][2:4])
+
+    def verify():
+        st["ok"] = sm2.verify_device(st["e"], *st["dev"][4:])
+
+    def address():
+        ok = st["ok"][:, None]
+        st["q"] = [torch.where(ok, q, torch.zeros_like(q)) for q in st["dev"][6:8]]
+        st["addr"] = sm3_sender_address_device(*st["q"])
+
+    def pack_download():
+        z = words_be_to_limbs(st["h"])
+        admission.pack_admission_device(st["addr"], st["ok"], *st["q"], z).cpu()
+
+    stages = (host_pad, upload, tx_hash, sm2_e, verify, address, pack_download)
+    return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
+
+
+def log_busy(card: str, what: str, fn) -> None:
+    busy, wall = device_busy_ms(fn)
+    if busy > 0:
+        log(f"[{card}] {what}, one profiled call: device busy {busy:.3f} ms of "
+            f"{wall:.2f} ms wall (device idle share {1 - busy / wall:.3f})")
+    else:
+        log(f"[{card}] {what} device busy: not measured (no device events in the trace)")
+
+
+ROW_KEYS = (
+    "name", "route", "source", "replaces", "launches", "max_abs_err",
+    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+)
+
+
+def log_kernel(card: str, row: dict) -> None:
+    log(f"[{card}] {row['name']} @ {BLOCK_TXS} lanes: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.1f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, {row['int32_multiplies']} int32 multiplies), "
+        f"{row['launches']} launch(es) on its path")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
         return 2
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch, admit_batch_sm
     from fisco_bcos_tpu_torch.device import resolve_device
     from fisco_bcos_tpu_torch.ops import _kernels
 
@@ -490,7 +991,9 @@ def main() -> int:
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    built = {name: _kernels.build(name) for name in _kernels.SOURCES}
+    names = list(_kernels.SOURCES)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
+        built = dict(zip(names, pool.map(_kernels.build, names)))
     log(f"build: {json.dumps({k: round(v['seconds'], 3) for k, v in built.items()})} "
         f"({time.perf_counter() - t0:.3f} s)")
     for name, b in built.items():  # ptxas -v: registers, stack and spills
@@ -502,37 +1005,58 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = make_cases(UNIQUE_SIGNERS, SEED)
     block = make_bench_block(BENCH_SIGNERS)
-    log(f"{len(cases)} mixed cases and {len(block)} valid signers built on the host "
-        f"in {time.perf_counter() - t0:.1f} s")
+    verify_cases = make_verify_cases(UNIQUE_SIGNERS, SEED + 1)
+    verify_block = verify_rows_from_block(block)
+    sm_cases = make_sm2_cases(UNIQUE_SIGNERS, SEED + 3)
+    sm_block = make_sm2_bench_block(BENCH_SIGNERS)
+    log(f"secp256k1: {len(cases)} mixed recover cases, {len(verify_cases)} mixed verify cases, "
+        f"{len(block)} valid signers; SM2: {len(sm_cases)} mixed cases, {len(sm_block)} valid "
+        f"signers; built on the host in {time.perf_counter() - t0:.1f} s")
 
+    # -- secp256k1 admission (recover kernel) --
     mixed_err = check_mixed_block(cases, device)
     launches, admit_ms = run_main_path(block, device)
     recover = measure_recover_kernel(block, device)
     recover["launches"] = launches["secp256k1_recover"]
     recover["max_abs_err"] = max(recover["max_abs_err"], mixed_err)
-
-    log(f"[{card}] secp256k1_recover @ {BLOCK_TXS} lanes: kernel {recover['ms']:.4f} ms, "
-        f"plain {recover['plain_ms']:.1f} ms, bound {recover['bound_ms']:.4f} ms "
-        f"({recover['bound_by']}, {recover['int32_multiplies']} int32 multiplies)")
+    log_kernel(card, recover)
     log(f"[{card}] admit_batch @ {BLOCK_TXS} txs: {admit_ms:.2f} ms end to end "
         f"({BLOCK_TXS / admit_ms * 1e3:.0f} tx/s)")
     stages = admission_stages(block, device)
     log(f"[{card}] admit_batch stages (ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    from fisco_bcos_tpu_torch.crypto.admission import admit_batch
-
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
-    busy, wall = device_busy_ms(lambda: admit_batch(payloads, sigs65))
-    if busy > 0:
-        log(f"[{card}] admit_batch, one profiled call: device busy {busy:.3f} ms of "
-            f"{wall:.2f} ms wall (device idle share {1 - busy / wall:.3f})")
-    else:
-        log(f"[{card}] admit_batch device busy: not measured (no device events in the trace)")
-    row = {k: recover[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-    )}
-    log(json.dumps({"kernels": [row]}))
+    log_busy(card, "admit_batch", lambda: admit_batch(payloads, sigs65))
+
+    # -- secp256k1 verify --
+    verify_mixed_err, _ = check_verify_block(verify_cases, device, "verify mixed block")
+    verify_err, verify_plain_ms = check_verify_block(verify_block, device, "verify timed block")
+    verify_launches, verify_batch_ms = run_verify_path(verify_block)
+    verify = measure_verify_kernel(verify_block, device)
+    verify.update(
+        launches=verify_launches, max_abs_err=max(verify_err, verify_mixed_err), plain_ms=verify_plain_ms
+    )
+    log_kernel(card, verify)
+    log(f"[{card}] secp256k1 verify_batch @ {BLOCK_TXS} signatures: {verify_batch_ms:.2f} ms "
+        f"end to end ({BLOCK_TXS / verify_batch_ms * 1e3:.0f} verifies/s)")
+
+    # -- SM2 / SM-suite admission --
+    sm_mixed_err, _ = check_sm2_mixed_block(sm_cases, device)
+    sm_launches, sm_admit_ms = run_sm_path(sm_block)
+    sm2_row, sm2_verify_batch_ms = measure_sm2(sm_block, device)
+    sm2_row.update(launches=sm_launches, max_abs_err=max(sm2_row["max_abs_err"], sm_mixed_err))
+    log_kernel(card, sm2_row)
+    log(f"[{card}] sm2.verify_batch @ {BLOCK_TXS} signatures: {sm2_verify_batch_ms:.2f} ms "
+        f"end to end ({BLOCK_TXS / sm2_verify_batch_ms * 1e3:.0f} verifies/s)")
+    log(f"[{card}] admit_batch_sm @ {BLOCK_TXS} txs: {sm_admit_ms:.2f} ms end to end "
+        f"({BLOCK_TXS / sm_admit_ms * 1e3:.0f} tx/s)")
+    sm_stages = sm_admission_stages(sm_block, device)
+    log(f"[{card}] admit_batch_sm stages (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sm_stages.items()))
+    sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
+    log_busy(card, "admit_batch_sm", lambda: admit_batch_sm(sm_payloads, sigs128))
+
+    log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in (recover, verify, sm2_row)]}))
     log(json.dumps({
         "ok": True,
         "device": {

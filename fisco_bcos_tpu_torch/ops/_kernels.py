@@ -1,10 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point. At first
-use it is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
--shared -Xcompiler -fPIC`` into ``fisco_bcos_tpu_torch/build/`` (named by
-the hash of its source, so an edited source is rebuilt) and loaded with
-``ctypes``. Nothing here runs at import: the CPU tests import every module.
+Each kernel is one ``csrc/*.cu`` file with a plain C entry point, which may
+include shared ``csrc/*.cuh`` headers. At first use it is compiled with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+into ``fisco_bcos_tpu_torch/build/``, named by the hash of the source
+together with every header it includes (:func:`source_digest`, so an edited
+source or header is rebuilt), and loaded with ``ctypes``. Nothing here runs
+at import: the CPU tests import every module.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
 adds one where it launches its kernel and nowhere else.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +29,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = {"secp256k1_recover": CSRC / "secp256k1_recover.cu"}
+SOURCES = {
+    "secp256k1_recover": CSRC / "secp256k1_recover.cu",
+    "secp256k1_verify": CSRC / "secp256k1_verify.cu",
+    "sm2_verify": CSRC / "sm2_verify.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -52,10 +59,31 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of a source and, recursively, of every quoted ``#include`` it
+    names (resolved beside the including file, as nvcc resolves them)."""
+    h = hashlib.sha256()
+    seen: set[Path] = set()
+
+    def feed(path: Path) -> None:
+        path = path.resolve()
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        for inc in _INCLUDE.findall(text):
+            feed(path.parent / inc.decode())
+
+    feed(src)
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{source_digest(SOURCES[name])}.so"
 
 
 def build(name: str) -> dict:
@@ -105,6 +133,10 @@ def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple, devic
         raise ValueError(f"{what} must be contiguous")
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 # z, r, s, v, comb, qx, qy, ok pointers; lanes; CUDA device index; stream
 _RECOVER_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -134,11 +166,79 @@ def secp256k1_recover(z, r, s, v, comb):
     lib.secp256k1_recover_launch.argtypes = _RECOVER_ARGTYPES
     lib.secp256k1_recover_launch.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.secp256k1_recover_launch(
             z.data_ptr(), r.data_ptr(), s.data_ptr(), v.data_ptr(), comb.data_ptr(),
-            qx.data_ptr(), qy.data_ptr(), ok.data_ptr(), b, dev.index, stream,
+            qx.data_ptr(), qy.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
         )
     _check_launch(lib, "secp256k1_recover", err)
     LAUNCHES["secp256k1_recover"] += 1
     return qx, qy, ok
+
+
+def _require_verify_args(name: str, limbs: dict, comb, comb_rows: int) -> tuple[torch.device, int]:
+    """Checks of a verify kernel's inputs: [B, 16] int32 limb tensors and a
+    [comb_rows, 8] int32 comb, contiguous, on one CUDA device."""
+    first = next(iter(limbs.values()))
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    b = first.shape[0]
+    for what, t in limbs.items():
+        _require(t, what, torch.int32, (b, 16), dev)
+    _require(comb, "comb", torch.int32, (comb_rows, 8), dev)
+    return dev, b
+
+
+# z, r, s, qx, qy, comb, ok pointers; lanes; CUDA device index; stream
+_SECP_VERIFY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def secp256k1_verify(z, r, s, qx, qy, comb):
+    """Launch the secp256k1 verify kernel: z, r, s, qx, qy [B, 16] int32
+    16-bit limbs, comb [60, 8] int32 (uint32 words of the G / 2^128·G
+    combs), all on one CUDA device. Returns ok bool[B]."""
+    dev, b = _require_verify_args(
+        "secp256k1_verify", {"z": z, "r": r, "s": s, "qx": qx, "qy": qy}, comb, 60
+    )
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return ok
+    lib = _library("secp256k1_verify")
+    lib.secp256k1_verify_launch.argtypes = _SECP_VERIFY_ARGTYPES
+    lib.secp256k1_verify_launch.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = lib.secp256k1_verify_launch(
+            z.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(), qy.data_ptr(),
+            comb.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
+        )
+    _check_launch(lib, "secp256k1_verify", err)
+    LAUNCHES["secp256k1_verify"] += 1
+    return ok
+
+
+# e, r, s, qx, qy, comb, ok pointers; lanes; CUDA device index; stream
+_SM2_VERIFY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def sm2_verify(e, r, s, qx, qy, comb):
+    """Launch the SM2 verify kernel: e, r, s, qx, qy [B, 16] int32 16-bit
+    limbs (plain domain), comb [30, 8] int32 (uint32 words of the
+    Montgomery-domain affine c·G), all on one CUDA device. Returns ok
+    bool[B]."""
+    dev, b = _require_verify_args(
+        "sm2_verify", {"e": e, "r": r, "s": s, "qx": qx, "qy": qy}, comb, 30
+    )
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return ok
+    lib = _library("sm2_verify")
+    lib.sm2_verify_launch.argtypes = _SM2_VERIFY_ARGTYPES
+    lib.sm2_verify_launch.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = lib.sm2_verify_launch(
+            e.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(), qy.data_ptr(),
+            comb.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
+        )
+    _check_launch(lib, "sm2_verify", err)
+    LAUNCHES["sm2_verify"] += 1
+    return ok

@@ -52,6 +52,15 @@ def bytes_be_to_limbs(data: np.ndarray) -> np.ndarray:
     return be16[..., ::-1].copy()
 
 
+def limb_tensor(data: np.ndarray, rows: int, device) -> torch.Tensor:
+    """[B, 32] big-endian byte rows -> [rows, 16] int32 limb tensor on
+    `device`, zero rows padding the batch to its bucket."""
+    limbs = bytes_be_to_limbs(np.asarray(data, dtype=np.uint8).reshape(-1, 32))
+    padded = np.zeros((rows, LIMBS), dtype=np.int32)
+    padded[: len(limbs)] = limbs
+    return torch.from_numpy(padded).to(device)
+
+
 def limbs_to_bytes_be(limbs: np.ndarray) -> np.ndarray:
     """[B, 16] uint32 limbs -> [B, 32] uint8 big-endian byte rows."""
     limbs = np.asarray(limbs, dtype=np.uint32)[..., ::-1]
@@ -89,3 +98,19 @@ def limbs_to_bytes_device(limbs: torch.Tensor) -> torch.Tensor:
     """[..., 16] limbs -> [..., 32] big-endian byte values (input dtype)."""
     rev = limbs.flip(-1)
     return torch.stack([rev >> 8, rev & 0xFF], dim=-1).reshape(*limbs.shape[:-1], 32)
+
+
+def words_be_to_limbs(words: torch.Tensor) -> torch.Tensor:
+    """SM3 digest words ([..., 8] big-endian order, values < 2^32, digest
+    read as a big-endian 256-bit integer) -> [..., 16] int32 limbs."""
+    rc = words.to(torch.int64).flip(-1)  # word 7 = least significant
+    lo = rc & 0xFFFF
+    hi = (rc >> 16) & 0xFFFF
+    return torch.stack([lo, hi], dim=-1).reshape(*words.shape[:-1], LIMBS).to(torch.int32)
+
+
+def limbs_to_words_be(limbs: torch.Tensor) -> torch.Tensor:
+    """[..., 16] limbs -> [..., 8] int64 big-endian 32-bit words (the
+    inverse of :func:`words_be_to_limbs`)."""
+    l64 = limbs.to(torch.int64)
+    return (l64[..., 0::2] | (l64[..., 1::2] << 16)).flip(-1)

@@ -6,15 +6,19 @@ batch on axis 1. The limbs ride int64, because PyTorch on the CPU has no
 uint32 add, shift or compare; a partial product of two limbs is < 2^32 and a
 column of 16 of them < 2^36, far inside int64.
 
-This is the plain version of the CUDA recover kernel's arithmetic: the CPU
-tests run it against the JAX package, and ``chip_smoke.py`` runs it on the
-card against the kernel. The Kogge–Stone carry trees and scatter-free
+This is the plain version of the CUDA kernels' arithmetic: the CPU tests
+run it against the JAX package, and ``chip_smoke.py`` runs it on the card
+against the kernels. The Kogge–Stone carry trees and scatter-free
 concatenations of the JAX code exist for Mosaic/XLA; here a ripple of 0/1
 carries is resolved in one integer add per lane (see :func:`_carry_in`).
 
-Moduli are pseudo-Mersenne m = 2^256 − c (secp256k1's p and n); values are
-plain-domain and every field op returns the canonical residue in [0, m) for
-canonical inputs (``mul``/``sqr`` for any 256-bit inputs).
+Two fields share one interface (``enc``, ``one``, ``from_plain``,
+``to_plain``, ``mul``, ``sqr``, ``mul_small``, ``add``, ``sub``, ``neg``,
+``inv``, ``sqrt``): ``FoldField`` for pseudo-Mersenne m = 2^256 − c
+(secp256k1's p and n, plain-domain values) and ``MontField`` for any odd m
+(SM2's p, Montgomery-domain values, word REDC). Every field op returns the
+canonical residue in [0, m) for canonical inputs (``mul``/``sqr`` for any
+256-bit inputs, ``MontField`` as long as a·b < m·2^256).
 """
 
 from __future__ import annotations
@@ -169,11 +173,48 @@ def cond_sub(x: torch.Tensor, m_col: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Pseudo-Mersenne field
+# Fields: pseudo-Mersenne fold (plain domain) and Montgomery (REDC)
 # ---------------------------------------------------------------------------
 
 
-class FoldField:
+class _Field:
+    """What both fields share: the modulus, add/sub/neg on canonical
+    residues, and Fermat inversion / the p ≡ 3 (mod 4) square root through
+    the field's own mul."""
+
+    def __init__(self, m: int, one: int, device):
+        self.m_int = m
+        self.m_col = const_col(int_to_rows(m), device)
+        self._one = const_col(int_to_rows(one), device)
+
+    def one(self, like: torch.Tensor) -> torch.Tensor:
+        """The field's 1 (its own domain), broadcast over like's lanes."""
+        return self._one.expand(LIMBS, like.shape[-1])
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return cond_sub(add_widen(a, b), self.m_col)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        diff, borrow = sub_borrow(a, b)
+        plus = add_widen(diff, self.m_col)[:LIMBS]
+        return select(borrow, plus, diff)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return self.sub(torch.zeros_like(a), a)
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """a^-1 mod m for prime m (Fermat); 0 -> 0."""
+        return pow_static(self, a, self.m_int - 2)
+
+    def sqrt(self, a: torch.Tensor) -> torch.Tensor:
+        """Square-root candidate for m ≡ 3 (mod 4): a^((m+1)/4). The caller
+        checks sqr(result) == a to detect non-residues."""
+        if self.m_int % 4 != 3:
+            raise ValueError("sqrt needs m ≡ 3 (mod 4)")
+        return pow_static(self, a, (self.m_int + 1) // 4)
+
+
+class FoldField(_Field):
     """GF(m) for m = 2^256 - c (c ≤ ~2^130): plain-domain values, reduction
     by folding hi·c back into the low words. Constants live on `device`."""
 
@@ -181,13 +222,18 @@ class FoldField:
         c = _R - m
         if not 0 < c < 1 << 132:
             raise ValueError("FoldField needs m = 2^256 - c with small c")
-        self.m_int = m
+        super().__init__(m, 1, device)
         self.c_col = const_col(int_to_rows(c, (c.bit_length() + 15) // 16), device)
-        self.m_col = const_col(int_to_rows(m), device)
-        self._one = const_col(int_to_rows(1), device)
 
-    def one(self, like: torch.Tensor) -> torch.Tensor:
-        return self._one.expand(LIMBS, like.shape[-1])
+    # -- domain conversions (plain domain: all identity) --
+    def enc(self, v: int) -> np.ndarray:
+        return int_to_rows(v % self.m_int)
+
+    def from_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def to_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
     def reduce_wide(self, x: torch.Tensor, bound: int) -> torch.Tensor:
         """x (normalized limbs, value < bound) -> x mod m: fold
@@ -220,27 +266,58 @@ class FoldField:
         wide = carry_norm(a * c, bits=31)[: LIMBS + 1]
         return self.reduce_wide(wide, (_R - 1) * c + 1)
 
-    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return cond_sub(add_widen(a, b), self.m_col)
 
-    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        diff, borrow = sub_borrow(a, b)
-        plus = add_widen(diff, self.m_col)[:LIMBS]
-        return select(borrow, plus, diff)
+class MontField(_Field):
+    """GF(m) for any odd m < 2^256: Montgomery-domain values x·R mod m
+    (R = 2^256), word REDC reduction — the JAX package's ``MontField``, the
+    default field of SM2's p. Every op returns the canonical residue; REDC of
+    a t < m·R is unique, so any correct REDC gives the same bits."""
 
-    def neg(self, a: torch.Tensor) -> torch.Tensor:
-        return self.sub(torch.zeros_like(a), a)
+    def __init__(self, m: int, device):
+        if m % 2 == 0 or not 2 < m < _R:
+            raise ValueError("MontField needs an odd modulus < 2^256")
+        super().__init__(m, _R % m, device)
+        self.mprime_int = (-pow(m, -1, _R)) % _R  # -m^-1 mod 2^256
+        self.r1_int = _R % m  # R mod m, the field's 1
+        self.r2_int = _R * _R % m  # R^2 mod m
+        self.mprime_col = const_col(int_to_rows(self.mprime_int), device)
+        self.r2_col = const_col(int_to_rows(self.r2_int), device)
 
-    def inv(self, a: torch.Tensor) -> torch.Tensor:
-        """a^-1 mod m for prime m (Fermat); 0 -> 0."""
-        return pow_static(self, a, self.m_int - 2)
+    def enc(self, v: int) -> np.ndarray:
+        return int_to_rows((v % self.m_int) * _R % self.m_int)
 
-    def sqrt(self, a: torch.Tensor) -> torch.Tensor:
-        """Square-root candidate for m ≡ 3 (mod 4): a^((m+1)/4). The caller
-        checks sqr(result) == a to detect non-residues."""
-        if self.m_int % 4 != 3:
-            raise ValueError("sqrt needs m ≡ 3 (mod 4)")
-        return pow_static(self, a, (self.m_int + 1) // 4)
+    def redc(self, t: torch.Tensor) -> torch.Tensor:
+        """t [32, T] normalized, t < m·R -> t·R^-1 mod m, [16, T]."""
+        m_val = carry_norm(conv_cols(t[:LIMBS], self.mprime_col, LIMBS), bits=36)[:LIMBS]
+        mm = carry_norm(conv_cols(m_val, self.m_col, 2 * LIMBS), bits=36)[: 2 * LIMBS]
+        s = add_widen(t, mm)  # [33, T]; the low 16 limbs are zero
+        return cond_sub(s[LIMBS:], self.m_col)
+
+    def from_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """Any 256-bit plain x -> x·R mod m (x·R^2 < m·R, so REDC applies)."""
+        return self.mul(x, self.r2_col)
+
+    def to_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self.redc(_fit(x, 2 * LIMBS))
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.redc(carry_norm(conv_cols(a, b, 2 * LIMBS), bits=36)[: 2 * LIMBS])
+
+    def sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mul(a, a)
+
+    def mul_small(self, a: torch.Tensor, c: int) -> torch.Tensor:
+        """a * c for tiny c by an addition chain on the bits of c, MSB first
+        (scaling commutes with the Montgomery form; the a = -3 law's c = 3)."""
+        if not 0 < c < 32:
+            raise ValueError("MontField.mul_small supports 0 < c < 32")
+        acc = None
+        for bit in bin(c)[2:]:
+            if acc is not None:
+                acc = self.add(acc, acc)
+            if bit == "1":
+                acc = a if acc is None else self.add(acc, a)
+        return acc
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +335,7 @@ def _exp_windows(e: int) -> list[int]:
     return [(e >> (_POW_W * i)) & 0xF for i in range(nw - 1, -1, -1)]
 
 
-def pow_static(F: FoldField, a: torch.Tensor, e: int) -> torch.Tensor:
+def pow_static(F: _Field, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e in field F for a fixed Python-int exponent: 4-bit windows, MSB
     first, 4 squarings + one table multiply per nonzero window."""
     wins = _exp_windows(e)

@@ -1,11 +1,15 @@
-"""The recover program's precomputed state, in the port's layout.
+"""The signature programs' precomputed state, in the port's layout.
 
-The state is the affine comb table of G and 2^128·G and the GLV split
-constants. The port builds it itself from its reference copy
-(:func:`build_tables`); :func:`tables_from_jax` carries the JAX package's
-numpy arrays of the same state into the same layout, so a test can pin the
-two equal. The CUDA kernel reads the combs as 32-bit words ([60, 8]); the
-plain version reads 16-bit limbs ([60, 16]); both come from one table here.
+secp256k1 (recover and verify): the affine comb table of G and 2^128·G and
+the GLV split constants. SM2 (verify): the Montgomery-domain affine comb of
+G and the Montgomery constants of its field (−p⁻¹, R mod p, R² mod p). The
+port builds both itself from its reference copy (:func:`build_tables`,
+:func:`build_sm2_tables`); :func:`tables_from_jax` and
+:func:`sm2_tables_from_jax` carry the JAX package's numpy arrays of the same
+state into the same layout, so a test can pin the two equal. The CUDA
+kernels read the combs as 32-bit words ([60, 8], [30, 8]); the plain
+versions read 16-bit limbs ([60, 16], [30, 16]); both come from one table
+here.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from functools import lru_cache
 
 import numpy as np
 
-from .ops import ec
+from .crypto.ref.ecdsa import SM2_CURVE
+from .ops import ec, limb
 
 
 def limbs16_to_words(table: np.ndarray) -> np.ndarray:
@@ -85,4 +90,59 @@ def tables_from_jax(g_comb_table_glv: np.ndarray, glv_params) -> RecoverTables:
             a2=_limbs_int(glv_params.a2),
             b2=_limbs_int(glv_params.b2),
         ),
+    )
+
+
+@dataclass(frozen=True)
+class Sm2Tables:
+    """comb_words: [30, 8] uint32 — Montgomery-domain x of c·G (rows 0..14)
+    and y (15..29), c = 1..15, affine, canonical. mprime, r1, r2: −p⁻¹ mod
+    2^256, R mod p and R² mod p of SM2's p (R = 2^256)."""
+
+    comb_words: np.ndarray
+    mprime: int
+    r1: int
+    r2: int
+
+    def comb_limbs(self) -> np.ndarray:
+        return words_to_limbs16(self.comb_words)
+
+    def same_as(self, other: "Sm2Tables") -> bool:
+        return np.array_equal(self.comb_words, other.comb_words) and (
+            self.mprime, self.r1, self.r2
+        ) == (other.mprime, other.r1, other.r2)
+
+
+def build_sm2_tables() -> Sm2Tables:
+    """The port's own SM2 tables: its comb builder and its MontField."""
+    F = limb.MontField(SM2_CURVE.p, "cpu")
+    return Sm2Tables(
+        comb_words=limbs16_to_words(ec.g_comb_table("sm2")),
+        mprime=F.mprime_int,
+        r1=F.r1_int,
+        r2=F.r2_int,
+    )
+
+
+@lru_cache(maxsize=None)
+def default_sm2_tables() -> Sm2Tables:
+    return build_sm2_tables()
+
+
+def sm2_tables_from_jax(g_comb_table_sm2: np.ndarray, mont_field) -> Sm2Tables:
+    """Convert the JAX package's SM2 state to the port's layout.
+
+    g_comb_table_sm2: [30, 16] uint32 16-bit limbs, as
+    ``fisco_bcos_tpu.ops.ec.g_comb_table`` returns it for SM2.
+    mont_field: an object with the JAX ``MontField`` fields ``mprime``,
+    ``r1`` and ``r2`` as limb arrays, as ``make_mont_field(p)`` returns it.
+    """
+    table = np.asarray(g_comb_table_sm2)
+    if table.shape != (30, 16):
+        raise ValueError(f"SM2 comb table must be [30, 16], got {table.shape}")
+    return Sm2Tables(
+        comb_words=limbs16_to_words(table),
+        mprime=_limbs_int(mont_field.mprime),
+        r1=_limbs_int(mont_field.r1),
+        r2=_limbs_int(mont_field.r2),
     )

@@ -4,6 +4,7 @@ reach the kernel loader."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -15,7 +16,7 @@ import torch
 import fisco_bcos_tpu_torch
 from fisco_bcos_tpu_torch.crypto import admission
 from fisco_bcos_tpu_torch.device import resolve_device
-from fisco_bcos_tpu_torch.ops import _kernels, secp256k1
+from fisco_bcos_tpu_torch.ops import _kernels, secp256k1, sm2, sm3
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -81,6 +82,18 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         admission.admit_batch(payloads, np.zeros((1, 65), np.uint8))
     with pytest.raises(RuntimeError):
         secp256k1.recover_batch(np.zeros((1, 32), np.uint8), np.zeros((1, 65), np.uint8))
+    h = np.zeros((1, 32), np.uint8)
+    pub = np.zeros((1, 64), np.uint8)
+    for call in (
+        lambda: secp256k1.verify_batch(h, h, h, pub),
+        lambda: sm2.verify_batch(h, h, h, pub),
+        lambda: sm2.recover_batch(h, np.zeros((1, 128), np.uint8)),
+        lambda: sm2.sm2_e_batch(h, pub),
+        lambda: sm3.sm3_batch([b"x"]),
+        lambda: admission.admit_batch_sm(payloads, np.zeros((1, 128), np.uint8)),
+    ):
+        with pytest.raises(RuntimeError):
+            call()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
@@ -91,12 +104,39 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
     comb = torch.zeros((60, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
         _kernels.secp256k1_recover(z, z, z, v, comb)
+    with pytest.raises(ValueError):
+        _kernels.secp256k1_verify(z, z, z, z, z, comb)
+    with pytest.raises(ValueError):
+        _kernels.sm2_verify(z, z, z, z, z, torch.zeros((30, 8), dtype=torch.int32))
     assert _kernels.LAUNCHES == before  # a refused call is not a launch
+    assert set(_kernels.LAUNCHES) == set(_kernels.SOURCES)
 
 
 def test_kernel_build_is_content_addressed():
-    path = _kernels.library_path("secp256k1_recover")
-    assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
-    assert path == _kernels.library_path("secp256k1_recover")
+    for name in _kernels.SOURCES:
+        path = _kernels.library_path(name)
+        assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
+        assert path == _kernels.library_path(name)
     flags = " ".join(_kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+
+
+def test_library_name_follows_included_headers(tmp_path):
+    """An edited header renames (so rebuilds) every library whose source
+    includes it, directly or through another header, and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    names = ("secp256k1_recover", "secp256k1_verify", "sm2_verify")
+    digest = lambda: {n: _kernels.source_digest(csrc / f"{n}.cu") for n in names}  # noqa: E731
+    before = digest()
+    assert before == {n: _kernels.source_digest(_kernels.SOURCES[n]) for n in names}
+    common = csrc / "secp256k1_common.cuh"
+    common.write_text(common.read_text() + "\n// edited\n")
+    after_common = digest()
+    assert after_common["secp256k1_recover"] != before["secp256k1_recover"]
+    assert after_common["secp256k1_verify"] != before["secp256k1_verify"]
+    assert after_common["sm2_verify"] == before["sm2_verify"]
+    wide = csrc / "wide_int.cuh"  # included by sm2_verify.cu and by the header above
+    wide.write_text(wide.read_text() + "\n// edited\n")
+    after_wide = digest()
+    assert all(after_wide[n] != after_common[n] for n in names)

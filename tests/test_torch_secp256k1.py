@@ -20,6 +20,9 @@ from fisco_bcos_tpu_torch.ops import _kernels, bigint, secp256k1
 
 C = ref.SECP256K1
 KERNEL_SRC = Path(_kernels.SOURCES["secp256k1_recover"])
+# the field, GLV and exponent constants live in the header both secp256k1
+# kernels include
+CONSTANTS_SRC = _kernels.CSRC / "secp256k1_common.cuh"
 
 
 def _non_residue_x() -> int:
@@ -104,7 +107,8 @@ def _words_of(name: str, src: str) -> int:
 
 
 def test_kernel_source_constants():
-    src = KERNEL_SRC.read_text()
+    assert f'#include "{CONSTANTS_SRC.name}"' in KERNEL_SRC.read_text()
+    src = CONSTANTS_SRC.read_text()
     glv = params.build_tables().glv
     want = {
         "SECP_P": C.p,
