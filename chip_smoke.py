@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Needs one CUDA card, ``nvcc`` and the repo's ``fisco_bcos_tpu_torch`` package;
 exits non-zero, printing no result, without them. In order it:
@@ -30,8 +30,21 @@ exits non-zero, printing no result, without them. In order it:
    times the kernel, its plain version, ``sm2.verify_batch``,
    ``admit_batch_sm``, its stages and the card's busy time in one profiled
    call;
-6. prints every figure beside the card's name and power limit, one JSON
+6. with ``--parent DIR`` (another checkout, for example the parent commit
+   unpacked by ``git archive``), builds that checkout's kernels and holds
+   each kernel against its counterpart there on the timed blocks: equal
+   on every lane, timed in turns parent, new, new, parent;
+7. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
+   warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
+   against this checkout's sources (and the parent's, with ``--parent``),
+   the cycles one warp spends on each field op and group-law op and on an
+   SM2 product as the loop body around it grows (``clock64()``);
+8. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line.
+
+After the build it prints each kernel's registers, stack and spills
+(ptxas), its size in SASS instructions (``cuobjdump``) and its launch
+geometry at the block's width.
 
 No phase's failure is caught: any mismatch or error ends the script with a
 traceback and a non-zero exit code.
@@ -39,13 +52,17 @@ traceback and a non-zero exit code.
 
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 BLOCK_TXS = 10_240  # a 10k-tx block, bucketed as hash_common._bucket does
 UNIQUE_SIGNERS = 128  # distinct cases of the mixed (correctness) block
@@ -964,6 +981,159 @@ def log_busy(card: str, what: str, fn) -> None:
         log(f"[{card}] {what} device busy: not measured (no device events in the trace)")
 
 
+# ---------------------------------------------------------------------------
+# Against another checkout's kernels
+# ---------------------------------------------------------------------------
+
+
+def load_kernels_module(checkout: str):
+    """The ``fisco_bcos_tpu_torch/ops/_kernels.py`` of another checkout,
+    loaded under its own module name: it builds that checkout's sources
+    into that checkout and keeps its own launch counts."""
+    path = Path(checkout).resolve() / "fisco_bcos_tpu_torch" / "ops" / "_kernels.py"
+    spec = importlib.util.spec_from_file_location("other_checkout_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def timed_kernel_args(device, block, verify_block, sm_block) -> dict:
+    """Each kernel's wrapper arguments on its timed block, comb included."""
+    from fisco_bcos_tpu_torch.ops import secp256k1, sm2
+
+    payloads, sigs65, _ = tile(block, BLOCK_TXS)
+    *arrays, _ = verify_arrays(verify_block, BLOCK_TXS)
+    sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
+    comb = secp256k1.comb_words(device)
+    return {
+        "secp256k1_recover": (*recover_inputs(payloads, sigs65, device), comb),
+        "secp256k1_verify": (*verify_limbs(*arrays, device), comb),
+        "sm2_verify": (*sm2_device_inputs(sm_payloads, sigs128, device), sm2.comb_words(device)),
+    }
+
+
+def time_against_parent(card: str, parent, timed_args: dict) -> None:
+    """Each kernel and the parent checkout's on the same timed block: equal
+    on every lane, then CUDA-event times in turns parent, new, new, parent."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    for name, args in timed_args.items():
+        new, old = getattr(_kernels, name), getattr(parent, name)
+        got, want = new(*args), old(*args)
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{name} kernel != the parent checkout's on the timed block")
+        times = [cuda_ms(lambda f=f: f(*args)) for f in (old, new, new, old)]
+        log(f"[{card}] {name} @ {BLOCK_TXS} lanes against the parent checkout (equal on every lane): "
+            f"parent {times[0]:.4f}, new {times[1]:.4f}, new {times[2]:.4f}, parent {times[3]:.4f} ms "
+            f"(new/parent {(times[1] + times[2]) / (times[0] + times[3]):.3f})")
+
+
+FIELD_BENCH_OPS = 13  # field_bench.cu's op codes 0..12
+BODY_SIZES = (1, 4, 8, 16, 24, 32, 64)  # products a loop body, op code 100 + K
+
+
+def sass_by_function(lib: Path) -> dict[str, int]:
+    """SASS instructions of each function in a built library (``cuobjdump
+    -sass``, beside nvcc); empty when the tool is missing."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    tool = Path(_kernels._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def lane_scaling(card: str, timed_args: dict) -> None:
+    """Each kernel on the first 32, 4,224 and 10,240 lanes of its timed
+    block: one warp, one warp a SM, the block."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    for name, args in timed_args.items():
+        fn = getattr(_kernels, name)
+        times = []
+        for n in (32, 132 * 32, BLOCK_TXS):
+            part = tuple(a[:n] if a.shape[0] == BLOCK_TXS else a for a in args)
+            times.append(cuda_ms(lambda: fn(*part)))
+        log(f"[{card}] {name} at 32 / 4,224 / {BLOCK_TXS:,} lanes: "
+            + " / ".join(f"{t:.4f}" for t in times) + " ms")
+
+
+def build_field_bench(checkout: str | Path) -> Path:
+    """nvcc of this checkout's csrc/field_bench.cu against `checkout`'s
+    csrc/ into that checkout's build directory; returns the library."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    csrc = Path(checkout).resolve() / "fisco_bcos_tpu_torch" / "csrc"
+    out = csrc.parent / "build" / "libfield_bench.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
+         str(_kernels.CSRC / "field_bench.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for field_bench against {csrc}:\n{proc.stdout}")
+    return out
+
+
+def field_bench(card: str, libs: dict) -> None:
+    """One warp's cycles (median over its 32 lanes, clock64()) per field op
+    and group-law op, and per SM2 product for loop bodies of K products,
+    for each built library ({label: path})."""
+    import ctypes
+
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    io0 = torch.randint(0, 2**31, (64 * 8,), generator=gen, dtype=torch.int64).to(torch.int32)
+    cyc = torch.zeros(32, dtype=torch.int64, device="cuda")
+    fns = {}
+    for label, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.field_bench_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        lib.field_bench_run.restype = ctypes.c_int
+        lib.field_bench_name.argtypes = [ctypes.c_int]
+        lib.field_bench_name.restype = ctypes.c_char_p
+        fns[label] = lib
+
+    def cycles(lib, op: int, iters: int) -> float:
+        io = io0.cuda()
+        err = lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, 2)  # warm
+        err = err or lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, iters)
+        if err:
+            raise RuntimeError(f"field_bench op {op} failed: CUDA error {err}")
+        return statistics.median(cyc.cpu().tolist()) / iters
+
+    labels = list(fns)
+    for op in range(FIELD_BENCH_OPS):
+        iters = 400 if op < 7 else 40
+        name = fns[labels[0]].field_bench_name(op).decode()
+        log(f"[{card}] field bench, one warp, cycles per {name}: "
+            + ", ".join(f"{lb} {cycles(fns[lb], op, iters):.1f}" for lb in labels))
+    sizes = {lb: sass_by_function(path) for lb, path in libs.items()}
+    for k in BODY_SIZES:
+        iters = max(8, 800 // k)
+
+        def body(lb: str) -> str:  # the kernel's SASS size: ~its loop body
+            n = next((v for f, v in sizes[lb].items() if f.startswith(f"_Z15body_size_benchILi{k}E")), 0)
+            return f" ({n * 16 / 1024:.0f} KiB)" if n else ""
+
+        log(f"[{card}] field bench, one warp, loop body of {k} SM2 products: cycles per product "
+            + ", ".join(f"{lb} {cycles(fns[lb], 100 + k, iters) / k:.1f}{body(lb)}" for lb in labels))
+
+
 ROW_KEYS = (
     "name", "route", "source", "replaces", "launches", "max_abs_err",
     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -980,6 +1150,10 @@ def log_kernel(card: str, row: dict) -> None:
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", metavar="DIR",
+                        help="another checkout whose kernels each kernel is timed against")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
         return 2
@@ -992,14 +1166,27 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     names = list(_kernels.SOURCES)
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
-        built = dict(zip(names, pool.map(_kernels.build, names)))
+    parent = load_kernels_module(args.parent) if args.parent else None
+    checkouts = {"this": Path(__file__).resolve().parent}
+    if args.parent:
+        checkouts["parent"] = Path(args.parent)
+    builds = [lambda n=n: _kernels.build(n) for n in names]
+    builds += [lambda n=n: parent.build(n) for n in names] if parent else []
+    builds += [lambda c=c: build_field_bench(c) for c in checkouts.values()]
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all started together
+        results = list(pool.map(lambda f: f(), builds))
+    built = dict(zip(names, results))  # this checkout's kernels
+    bench_libs = dict(zip(checkouts, results[-len(checkouts):]))
     log(f"build: {json.dumps({k: round(v['seconds'], 3) for k, v in built.items()})} "
-        f"({time.perf_counter() - t0:.3f} s)")
-    for name, b in built.items():  # ptxas -v: registers, stack and spills
+        f"({time.perf_counter() - t0:.3f} s, field bench{' and parent checkout' if parent else ''} too)")
+    for name, b in built.items():  # ptxas -v: registers, stack and spills; size; launch geometry
         for line in (ln.strip() for ln in b["log"].splitlines()):
             if "Used" in line or ("spill" in line and not line.startswith("0 bytes stack frame")):
                 log(f"  {name}: {line}")
+        size = sum(sass_by_function(_kernels.library_path(name)).values())
+        log(f"  {name}: " + (f"{size} SASS instructions ({size * 16 / 1024:.0f} KiB)" if size else
+                             "SASS size not measured (no cuobjdump)")
+            + f"; launch geometry at {BLOCK_TXS} lanes {json.dumps(_kernels.geometry(name, BLOCK_TXS))}")
 
     device = resolve_device()
     t0 = time.perf_counter()
@@ -1055,6 +1242,12 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in sm_stages.items()))
     sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
     log_busy(card, "admit_batch_sm", lambda: admit_batch_sm(sm_payloads, sigs128))
+
+    timed_args = timed_kernel_args(device, block, verify_block, sm_block)
+    if parent:
+        time_against_parent(card, parent, timed_args)
+    lane_scaling(card, timed_args)
+    field_bench(card, bench_libs)
 
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in (recover, verify, sm2_row)]}))
     log(json.dumps({

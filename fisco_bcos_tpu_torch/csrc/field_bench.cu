@@ -1,0 +1,157 @@
+// Cycles per field op and per group-law op for one warp (clock64() around
+// a loop), and cycles per SM2 product as a loop body grows: the
+// measurements behind the kernels' design (PERF.md §6). Not a kernel of any
+// path: chip_smoke.py --field-bench builds it against a checkout's csrc/
+// (-I that directory; hence the angle brackets) and prints what it
+// measures.
+//
+// Built against the current sources (wide_int.cuh defines SLOT_WORDS) it
+// times the group law through the field-op programs over shared-memory
+// slots; against an earlier checkout, through its point functions.
+
+#include <sm2_verify.cu>
+#include <secp256k1_common.cuh>
+
+#ifdef SLOT_WORDS
+#define FB_SQR_MM(r, a) mm_sqr(r, a)
+#define FB_SQR_FN(r, a) fn_sqr(r, a)
+#else
+#define FB_SQR_MM(r, a) mm_mul(r, a, a)
+#define FB_SQR_FN(r, a) fn_mul(r, a, a)
+#endif
+
+enum {
+  FB_MM_MUL, FB_MM_SQR, FB_MM_ADD, FB_FP_MUL, FB_FP_SQR, FB_FN_MUL, FB_FN_SQR,
+  FB_SM2_DBL, FB_SM2_ADD, FB_SM2_MADD, FB_SECP_DBL, FB_SECP_ADD, FB_SECP_MADD, FB_OPS
+};
+
+extern "C" const char* field_bench_name(int op) {
+  static const char* names[FB_OPS] = {
+      "SM2 mm_mul", "SM2 mm_sqr", "SM2 mm_add", "secp fp_mul", "secp fp_sqr", "secp fn_mul",
+      "secp fn_sqr", "SM2 doubling (RCB 3)", "SM2 addition (RCB 1)", "SM2 mixed addition (RCB 2)",
+      "secp doubling (RCB 9)", "secp addition (RCB 7)", "secp mixed addition (RCB 8)"};
+  return op >= 0 && op < FB_OPS ? names[op] : "";
+}
+
+// 32 lanes; io holds 64 x 8 random words (below 2^255, so below both p)
+template <int OP>
+__global__ void field_bench(u32* io, long long* cyc, int iters) {
+  u32 x[8], y[8], z[8];
+  for (int i = 0; i < 8; i++) {
+    x[i] = io[8 * threadIdx.x + i];
+    y[i] = io[8 * (threadIdx.x + 32) + i];
+    z[i] = x[i] ^ y[i];
+  }
+  x[7] &= 0x7FFFFFFFu, y[7] &= 0x7FFFFFFFu, z[7] &= 0x7FFFFFFFu;
+#ifdef SLOT_WORDS
+  extern __shared__ uint4 s_slots[];
+  u32* sl = reinterpret_cast<u32*>(s_slots + threadIdx.x);
+  slot_put(sl, 32, S_X, x), slot_put(sl, 32, S_Y, y), slot_put(sl, 32, S_Z, z);
+  slot_put(sl, 32, S_QX, y), slot_put(sl, 32, S_QY, z), slot_put(sl, 32, S_QZ, x);
+  slot_put(sl, 32, S_K, z);
+#else
+  Pt P, Q;
+  copy_w<8>(P.X, x), copy_w<8>(P.Y, y), copy_w<8>(P.Z, z);
+  copy_w<8>(Q.X, y), copy_w<8>(Q.Y, z), copy_w<8>(Q.Z, x);
+#endif
+  long long t0 = clock64();
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) {
+    if (OP == FB_MM_MUL) mm_mul(x, x, y);
+    if (OP == FB_MM_SQR) FB_SQR_MM(x, x);
+    if (OP == FB_MM_ADD) mm_add(x, x, y);
+    if (OP == FB_FP_MUL) fp_mul(x, x, y);
+    if (OP == FB_FP_SQR) fp_sqr(x, x);
+    if (OP == FB_FN_MUL) fn_mul(x, x, y);
+    if (OP == FB_FN_SQR) FB_SQR_FN(x, x);
+#ifdef SLOT_WORDS
+    if (OP == FB_SM2_DBL) fop_run<Sm2Field>(SM2_DBL, FOP_LEN(SM2_DBL), sl, 32);
+    if (OP == FB_SM2_ADD) fop_run<Sm2Field>(SM2_ADD, FOP_LEN(SM2_ADD), sl, 32);
+    if (OP == FB_SM2_MADD) fop_run<Sm2Field>(SM2_MADD, FOP_LEN(SM2_MADD), sl, 32);
+    if (OP == FB_SECP_DBL) fop_run<SecpField>(SECP_DBL, FOP_LEN(SECP_DBL), sl, 32);
+    if (OP == FB_SECP_ADD) fop_run<SecpField>(SECP_ADD, FOP_LEN(SECP_ADD), sl, 32);
+    if (OP == FB_SECP_MADD) fop_run<SecpField>(SECP_MADD, FOP_LEN(SECP_MADD), sl, 32);
+#else
+    if (OP == FB_SM2_DBL) sm2_pt_double(P, P);
+    if (OP == FB_SM2_ADD) sm2_pt_add(P, P, Q);
+    if (OP == FB_SM2_MADD) sm2_pt_add_mixed(P, P, Q.X, Q.Y);
+    if (OP == FB_SECP_DBL) pt_double(P, P);
+    if (OP == FB_SECP_ADD) pt_add(P, P, Q);
+    if (OP == FB_SECP_MADD) pt_add_mixed(P, P, Q.X, Q.Y);
+#endif
+  }
+  long long t1 = clock64();
+#ifdef SLOT_WORDS
+  slot_get(y, sl, 32, S_X);
+#else
+  copy_w<8>(y, P.X);
+#endif
+  for (int i = 0; i < 8; i++) io[8 * threadIdx.x + i] = x[i] ^ y[i];
+  cyc[threadIdx.x] = t1 - t0;
+}
+
+// K dependent SM2 products a loop iteration: the loop body is ~K products
+// of code.
+template <int K>
+__global__ void body_size_bench(u32* io, long long* cyc, int iters) {
+  u32 x[8], y[8];
+  for (int i = 0; i < 8; i++) x[i] = io[8 * threadIdx.x + i], y[i] = io[8 * (threadIdx.x + 32) + i];
+  x[7] &= 0x7FFFFFFFu, y[7] &= 0x7FFFFFFFu;
+  long long t0 = clock64();
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) {
+#pragma unroll
+    for (int j = 0; j < K; j++) {
+      mm_mul(x, x, y);
+      y[j & 7] ^= x[(j + 3) & 7];
+      y[7] &= 0x7FFFFFFFu;
+    }
+  }
+  long long t1 = clock64();
+  for (int i = 0; i < 8; i++) io[8 * threadIdx.x + i] = x[i];
+  cyc[threadIdx.x] = t1 - t0;
+}
+
+template <int OP>
+static int launch_op(u32* io, long long* cyc, int iters) {
+#ifdef SLOT_WORDS
+  const int smem = SLOT_WORDS * 4 * 32;
+  cudaError_t err = cudaFuncSetAttribute(field_bench<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+#else
+  const int smem = 0;
+#endif
+  field_bench<OP><<<1, 32, smem>>>(io, cyc, iters);
+  return (int)cudaDeviceSynchronize();
+}
+
+// Runs op `op` (or, for op = 100 + K, the body-size bench with K products a
+// body) `iters` times in one warp; cyc gets each lane's cycles.
+extern "C" int field_bench_run(void* io, void* cyc, int op, int iters) {
+  u32* w = (u32*)io;
+  long long* c = (long long*)cyc;
+  switch (op) {
+    case FB_MM_MUL: return launch_op<FB_MM_MUL>(w, c, iters);
+    case FB_MM_SQR: return launch_op<FB_MM_SQR>(w, c, iters);
+    case FB_MM_ADD: return launch_op<FB_MM_ADD>(w, c, iters);
+    case FB_FP_MUL: return launch_op<FB_FP_MUL>(w, c, iters);
+    case FB_FP_SQR: return launch_op<FB_FP_SQR>(w, c, iters);
+    case FB_FN_MUL: return launch_op<FB_FN_MUL>(w, c, iters);
+    case FB_FN_SQR: return launch_op<FB_FN_SQR>(w, c, iters);
+    case FB_SM2_DBL: return launch_op<FB_SM2_DBL>(w, c, iters);
+    case FB_SM2_ADD: return launch_op<FB_SM2_ADD>(w, c, iters);
+    case FB_SM2_MADD: return launch_op<FB_SM2_MADD>(w, c, iters);
+    case FB_SECP_DBL: return launch_op<FB_SECP_DBL>(w, c, iters);
+    case FB_SECP_ADD: return launch_op<FB_SECP_ADD>(w, c, iters);
+    case FB_SECP_MADD: return launch_op<FB_SECP_MADD>(w, c, iters);
+    case 101: body_size_bench<1><<<1, 32>>>(w, c, iters); break;
+    case 104: body_size_bench<4><<<1, 32>>>(w, c, iters); break;
+    case 108: body_size_bench<8><<<1, 32>>>(w, c, iters); break;
+    case 116: body_size_bench<16><<<1, 32>>>(w, c, iters); break;
+    case 124: body_size_bench<24><<<1, 32>>>(w, c, iters); break;
+    case 132: body_size_bench<32><<<1, 32>>>(w, c, iters); break;
+    case 164: body_size_bench<64><<<1, 32>>>(w, c, iters); break;
+    default: return -1;
+  }
+  return (int)cudaDeviceSynchronize();
+}

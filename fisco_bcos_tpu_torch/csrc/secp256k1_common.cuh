@@ -5,7 +5,12 @@
 // GF(p) reduces with the 2^256 = 0x1000003D1 fold, GF(n) with the ~2^129
 // complement fold; every op returns the canonical residue, so values equal
 // the plain PyTorch version's (fisco_bcos_tpu_torch/ops/limb.py FoldField)
-// bit for bit. Host-compilable, like wide_int.cuh.
+// bit for bit. Products and squarings (36 word products) come from
+// wide_int.cuh. The group law (RCB algorithms 7, 8, 9) runs as constant
+// programs of field ops over the lane's slots (fop_run), and the
+// Fermat chains keep their 15 powers in the table slots: the slots are
+// passed in as a base and a stride (shared memory on the card, a local
+// array on the host). Host-compilable, like wide_int.cuh.
 
 #ifndef FISCO_SECP256K1_COMMON_CUH
 #define FISCO_SECP256K1_COMMON_CUH
@@ -95,11 +100,16 @@ DEV void fp_reduce_wide(u32* r, const u32* t) {
 
 DEV void fp_mul(u32* r, const u32* a, const u32* b) {
   u32 t[16];
-  mul_w<8, 8>(t, a, b);
+  wide_mul(t, a, b);
   fp_reduce_wide(r, t);
 }
 
-DEV void fp_sqr(u32* r, const u32* a) { fp_mul(r, a, a); }
+// a^2 mod p in 36 word products; r may alias a.
+DEV void fp_sqr(u32* r, const u32* a) {
+  u32 t[16];
+  wide_sqr(t, a);
+  fp_reduce_wide(r, t);
+}
 
 DEV void fp_mul_small(u32* r, const u32* a, u32 k) {
   u64 acc = 0;
@@ -162,7 +172,14 @@ DEV void fn_reduce_wide(u32* r, const u32* t) {
 
 DEV void fn_mul(u32* r, const u32* a, const u32* b) {
   u32 t[16];
-  mul_w<8, 8>(t, a, b);
+  wide_mul(t, a, b);
+  fn_reduce_wide(r, t);
+}
+
+// a^2 mod n in 36 word products; r may alias a.
+DEV void fn_sqr(u32* r, const u32* a) {
+  u32 t[16];
+  wide_sqr(t, a);
   fn_reduce_wide(r, t);
 }
 
@@ -180,17 +197,19 @@ DEV u32 exp_word(int i) {
   return E == EXP_P_INV_ID ? EXP_P_INV[i] : E == EXP_P_SQRT_ID ? EXP_P_SQRT[i] : EXP_N_INV[i];
 }
 
-// a^e for a static exponent e, 4-bit windows MSB first; 0 -> 0.
+// r = a^e for a static exponent e, 4-bit windows MSB first; 0 -> 0. The
+// powers a^1..a^15 go to the table slots (S_TAB on); r may alias a.
 template <bool MODN, int E>
-DEV_NOINLINE void f_pow(u32* r, const u32* a) {
-  u32 tab[15][8];
-  copy_w<8>(tab[0], a);
+DEV void f_pow(u32* r, const u32* a, u32* sl, int stride) {
+  u32 acc[8], t[8];
+  copy_w<8>(acc, a);
+  slot_put(sl, stride, S_TAB, acc);
 #pragma unroll 1
   for (int k = 1; k < 15; k++) {
-    if (MODN) fn_mul(tab[k], tab[k - 1], a);
-    else fp_mul(tab[k], tab[k - 1], a);
+    if (MODN) fn_mul(acc, acc, a);
+    else fp_mul(acc, acc, a);
+    slot_put(sl, stride, S_TAB + k, acc);
   }
-  u32 acc[8];
   bool started = false;
 #pragma unroll 1
   for (int w = 63; w >= 0; w--) {
@@ -198,15 +217,16 @@ DEV_NOINLINE void f_pow(u32* r, const u32* a) {
     if (started) {
 #pragma unroll 1
       for (int q = 0; q < 4; q++) {
-        if (MODN) fn_mul(acc, acc, acc);
+        if (MODN) fn_sqr(acc, acc);
         else fp_sqr(acc, acc);
       }
       if (c) {
-        if (MODN) fn_mul(acc, acc, tab[c - 1]);
-        else fp_mul(acc, acc, tab[c - 1]);
+        slot_get(t, sl, stride, S_TAB + (int)c - 1);
+        if (MODN) fn_mul(acc, acc, t);
+        else fp_mul(acc, acc, t);
       }
     } else if (c) {
-      copy_w<8>(acc, tab[c - 1]);
+      slot_get(acc, sl, stride, S_TAB + (int)c - 1);
       started = true;
     }
   }
@@ -214,109 +234,83 @@ DEV_NOINLINE void f_pow(u32* r, const u32* a) {
 }
 
 // ---------------------------------------------------------------------------
-// Complete projective group law, a = 0, b3 = 3b = 21 (Renes–Costello–Batina)
+// Complete projective group law, a = 0, b3 = 3b = 21 (Renes–Costello–Batina),
+// as field-op programs over the slots: the point (S_X, S_Y, S_Z), the addend
+// (S_QX, S_QY, S_QZ), β in S_K; F_SMALL is 21·x.
 // ---------------------------------------------------------------------------
 
-// RCB algorithm 9 (6M + 2S + 1·b3); R may alias P.
-DEV_NOINLINE void pt_double(Pt& R, const Pt& P) {
-  u32 t0[8], t1[8], t2[8], x3[8], y3[8], z3[8];
-  fp_sqr(t0, P.Y);
-  fp_add(z3, t0, t0);
-  fp_add(z3, z3, z3);
-  fp_add(z3, z3, z3);  // 8·Y^2
-  fp_mul(t1, P.Y, P.Z);
-  fp_sqr(t2, P.Z);
-  fp_mul_small(t2, t2, 21u);
-  fp_mul(x3, t2, z3);
-  fp_add(y3, t0, t2);
-  fp_mul(z3, t1, z3);
-  fp_add(t1, t2, t2);
-  fp_add(t2, t1, t2);  // 3·b3·Z^2
-  fp_sub(t0, t0, t2);
-  fp_mul(y3, t0, y3);
-  fp_add(y3, x3, y3);
-  fp_mul(t1, P.X, P.Y);
-  fp_mul(x3, t0, t1);
-  fp_add(x3, x3, x3);
-  copy_w<8>(R.X, x3);
-  copy_w<8>(R.Y, y3);
-  copy_w<8>(R.Z, z3);
-}
+// secp256k1's field ops mod p for fop_run.
+struct SecpField {
+  DEV_MEMBER void op(u32 kind, u32* r, const u32* a, const u32* b) {
+    switch (kind) {
+      case F_MUL: fp_mul(r, a, b); break;
+      case F_SQR: fp_sqr(r, a); break;
+      case F_ADD: fp_add(r, a, b); break;
+      case F_SUB: fp_sub(r, a, b); break;
+      default: fp_mul_small(r, a, 21u); break;
+    }
+  }
+};
 
-// RCB algorithm 7 (12M + 2·b3); R may alias P or Q.
-DEV_NOINLINE void pt_add(Pt& R, const Pt& P, const Pt& Q) {
-  u32 t0[8], t1[8], t2[8], t3[8], t4[8], x3[8], y3[8], z3[8], u[8], v[8];
-  fp_mul(t0, P.X, Q.X);
-  fp_mul(t1, P.Y, Q.Y);
-  fp_mul(t2, P.Z, Q.Z);
-  fp_add(u, P.X, P.Y);
-  fp_add(v, Q.X, Q.Y);
-  fp_mul(t3, u, v);
-  fp_add(u, t0, t1);
-  fp_sub(t3, t3, u);  // X1Y2 + X2Y1
-  fp_add(u, P.Y, P.Z);
-  fp_add(v, Q.Y, Q.Z);
-  fp_mul(t4, u, v);
-  fp_add(u, t1, t2);
-  fp_sub(t4, t4, u);  // Y1Z2 + Y2Z1
-  fp_add(u, P.X, P.Z);
-  fp_add(v, Q.X, Q.Z);
-  fp_mul(x3, u, v);
-  fp_add(u, t0, t2);
-  fp_sub(y3, x3, u);  // X1Z2 + X2Z1
-  fp_add(x3, t0, t0);
-  fp_add(t0, x3, t0);  // 3·X1X2
-  fp_mul_small(t2, t2, 21u);
-  fp_add(z3, t1, t2);
-  fp_sub(t1, t1, t2);
-  fp_mul_small(y3, y3, 21u);
-  fp_mul(x3, t4, y3);
-  fp_mul(t2, t3, t1);
-  fp_sub(x3, t2, x3);
-  fp_mul(y3, y3, t0);
-  fp_mul(t1, t1, z3);
-  fp_add(y3, t1, y3);
-  fp_mul(t0, t0, t3);
-  fp_mul(z3, z3, t4);
-  fp_add(z3, z3, t0);
-  copy_w<8>(R.X, x3);
-  copy_w<8>(R.Y, y3);
-  copy_w<8>(R.Z, z3);
-}
+// RCB algorithm 9: (X, Y, Z) = 2·(X, Y, Z). 6M + 2S + 1·b3.
+CONSTMEM u32 SECP_DBL[] = {
+    FOP(F_SQR, S_T0, S_Y, S_Y), FOP(F_SQR, S_T2, S_Z, S_Z),
+    FOP(F_MUL, S_T1, S_Y, S_Z), FOP(F_MUL, S_T3, S_X, S_Y),
+    FOP(F_ADD, S_T4, S_T0, S_T0), FOP(F_ADD, S_T4, S_T4, S_T4),
+    FOP(F_ADD, S_T4, S_T4, S_T4),   // 8·Y^2
+    FOP(F_SMALL, S_T2, S_T2, S_T2),  // b3·Z^2
+    FOP(F_ADD, S_T5, S_T0, S_T2),
+    FOP(F_ADD, S_T6, S_T2, S_T2), FOP(F_ADD, S_T6, S_T6, S_T2),
+    FOP(F_SUB, S_T0, S_T0, S_T6),   // Y^2 - 3·b3·Z^2
+    FOP(F_MUL, S_T6, S_T2, S_T4), FOP(F_MUL, S_Z, S_T1, S_T4),
+    FOP(F_MUL, S_T5, S_T0, S_T5), FOP(F_MUL, S_T3, S_T0, S_T3),
+    FOP(F_ADD, S_Y, S_T6, S_T5), FOP(F_ADD, S_X, S_T3, S_T3),
+};
 
-// RCB algorithm 8 (11M + 2·b3), affine (x2, y2) a genuine curve point.
-DEV_NOINLINE void pt_add_mixed(Pt& R, const Pt& P, const u32* x2, const u32* y2) {
-  u32 t0[8], t1[8], t2[8], t3[8], t4[8], t5[8], x3[8], y3[8], z3[8], u[8], v[8];
-  fp_mul(t0, P.X, x2);
-  fp_mul(t1, P.Y, y2);
-  fp_add(u, x2, y2);
-  fp_add(v, P.X, P.Y);
-  fp_mul(t3, u, v);
-  fp_add(u, t0, t1);
-  fp_sub(t3, t3, u);  // X1Y2 + X2Y1
-  fp_mul(u, x2, P.Z);
-  fp_add(t4, u, P.X);  // X1 + X2Z1
-  fp_mul(u, y2, P.Z);
-  fp_add(t5, u, P.Y);  // Y1 + Y2Z1
-  fp_add(x3, t0, t0);
-  fp_add(t0, x3, t0);  // 3·X1X2
-  fp_mul_small(t2, P.Z, 21u);
-  fp_add(z3, t1, t2);
-  fp_sub(t1, t1, t2);
-  fp_mul_small(y3, t4, 21u);
-  fp_mul(x3, t5, y3);
-  fp_mul(t2, t3, t1);
-  fp_sub(x3, t2, x3);
-  fp_mul(y3, y3, t0);
-  fp_mul(t1, t1, z3);
-  fp_add(y3, t1, y3);
-  fp_mul(t0, t0, t3);
-  fp_mul(z3, z3, t5);
-  fp_add(z3, z3, t0);
-  copy_w<8>(R.X, x3);
-  copy_w<8>(R.Y, y3);
-  copy_w<8>(R.Z, z3);
-}
+// The last level of algorithms 7 and 8, from t0 = 3·X1X2 (T9),
+// t1 = Y1Y2 - b3·Z1Z2 (T7), z3 = Y1Y2 + b3·Z1Z2 (T10), t3 = X1Y2 + X2Y1
+// (T0), t4 = Y1Z2 + Y2Z1 (T2) and y3 = b3·(X1Z2 + X2Z1) (T4).
+#define SECP_ADD_TAIL                                                             \
+  FOP(F_MUL, S_T1, S_T2, S_T4), FOP(F_MUL, S_T3, S_T0, S_T7),                      \
+      FOP(F_MUL, S_T5, S_T4, S_T9), FOP(F_MUL, S_T6, S_T7, S_T10),                  \
+      FOP(F_MUL, S_T8, S_T9, S_T0), FOP(F_MUL, S_T11, S_T10, S_T2),                 \
+      FOP(F_SUB, S_X, S_T3, S_T1), FOP(F_ADD, S_Y, S_T6, S_T5), FOP(F_ADD, S_Z, S_T11, S_T8)
+
+// RCB algorithm 7: (X, Y, Z) += (QX, QY, QZ). 12M + 2·b3.
+CONSTMEM u32 SECP_ADD[] = {
+    FOP(F_ADD, S_T0, S_X, S_Y), FOP(F_ADD, S_T1, S_QX, S_QY),
+    FOP(F_ADD, S_T2, S_Y, S_Z), FOP(F_ADD, S_T3, S_QY, S_QZ),
+    FOP(F_ADD, S_T4, S_X, S_Z), FOP(F_ADD, S_T5, S_QX, S_QZ),
+    FOP(F_MUL, S_T6, S_X, S_QX), FOP(F_MUL, S_T7, S_Y, S_QY), FOP(F_MUL, S_T8, S_Z, S_QZ),
+    FOP(F_MUL, S_T0, S_T0, S_T1), FOP(F_MUL, S_T2, S_T2, S_T3), FOP(F_MUL, S_T4, S_T4, S_T5),
+    FOP(F_ADD, S_T1, S_T6, S_T7), FOP(F_SUB, S_T0, S_T0, S_T1),   // X1Y2 + X2Y1
+    FOP(F_ADD, S_T1, S_T7, S_T8), FOP(F_SUB, S_T2, S_T2, S_T1),   // Y1Z2 + Y2Z1
+    FOP(F_ADD, S_T1, S_T6, S_T8), FOP(F_SUB, S_T4, S_T4, S_T1),   // X1Z2 + X2Z1
+    FOP(F_ADD, S_T9, S_T6, S_T6), FOP(F_ADD, S_T9, S_T9, S_T6),   // 3·X1X2
+    FOP(F_SMALL, S_T8, S_T8, S_T8),
+    FOP(F_ADD, S_T10, S_T7, S_T8), FOP(F_SUB, S_T7, S_T7, S_T8),
+    FOP(F_SMALL, S_T4, S_T4, S_T4),
+    SECP_ADD_TAIL,
+};
+
+// RCB algorithm 8: (X, Y, Z) += (QX, QY) affine, a genuine curve point (Z2 =
+// 1: algorithm 7 with Z2 = 1, the same values). 11M + 2·b3.
+CONSTMEM u32 SECP_MADD[] = {
+    FOP(F_ADD, S_T0, S_QX, S_QY), FOP(F_ADD, S_T1, S_X, S_Y),
+    FOP(F_MUL, S_T6, S_X, S_QX), FOP(F_MUL, S_T7, S_Y, S_QY), FOP(F_MUL, S_T0, S_T0, S_T1),
+    FOP(F_MUL, S_T3, S_QX, S_Z), FOP(F_MUL, S_T5, S_QY, S_Z),
+    FOP(F_ADD, S_T1, S_T6, S_T7), FOP(F_SUB, S_T0, S_T0, S_T1),   // X1Y2 + X2Y1
+    FOP(F_ADD, S_T3, S_T3, S_X),    // X1 + X2Z1
+    FOP(F_ADD, S_T2, S_T5, S_Y),    // Y1 + Y2Z1
+    FOP(F_ADD, S_T9, S_T6, S_T6), FOP(F_ADD, S_T9, S_T9, S_T6),   // 3·X1X2
+    FOP(F_SMALL, S_T8, S_Z, S_Z),
+    FOP(F_ADD, S_T10, S_T7, S_T8), FOP(F_SUB, S_T7, S_T7, S_T8),
+    FOP(F_SMALL, S_T4, S_T3, S_T3),
+    SECP_ADD_TAIL,
+};
+
+// The λ view of a table entry: QX = β·QX.
+CONSTMEM u32 SECP_BETA_QX[] = {FOP(F_MUL, S_QX, S_QX, S_K)};
 
 // ---------------------------------------------------------------------------
 // GLV split and the ladder
@@ -354,60 +348,82 @@ DEV void glv_split(const u32* u2, u32* ka, bool& sa, u32* kb, bool& sb) {
 
 // acc = u1·G + u2·Q for affine Q = (qx, qy) and scalars u1, u2 < n.
 // comb: [60][8] words — x then y of c·G (rows 0..29) and of c·2^128·G
-// (rows 30..59), c = 1..15, affine. u2 is split by GLV; the ladder runs 33
-// windows MSB first of 4 doublings, then up to two complete additions from
-// the runtime c·Q table (its λ view (βX : Y : Z) for kb) and two mixed
-// additions from the combs (u1's low and high 128 bits). A lane whose window
-// is 0 skips that addition. Any Q is safe: an off-curve or out-of-range Q
-// gives garbage, never a fault.
-DEV_NOINLINE void glv_dual_mul(Pt& acc, const u32* qx, const u32* qy, const u32* u1,
-                               const u32* u2, const u32 (*comb)[8]) {
+// (rows 30..59), c = 1..15, affine. The runtime table c·Q, c = 1..15, goes
+// to the slots from S_TAB on; each entry is the one before plus the affine
+// Q. u2 is split by GLV; the ladder runs 33 windows MSB first of 4
+// doublings, then up to two complete additions from the table ((X : ±Y :
+// Z) for ka, (βX : ±Y : Z) for kb) and two mixed additions from the combs
+// (u1's low and high 128 bits). A lane whose window is 0 skips that
+// addition. Any Q is safe: an off-curve or out-of-range Q gives garbage,
+// never a fault.
+DEV void glv_dual_mul(Pt& acc, const u32* qx, const u32* qy, const u32* u1, const u32* u2,
+                      const u32 (*comb)[8], u32* sl, int stride) {
   const u32 BETA[8] = SECP_BETA;
+  const u32 ONE[8] = {1, 0, 0, 0, 0, 0, 0, 0};
+  const u32 ZERO[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   u32 ka[8], kb[8];
   bool sa, sb;
   glv_split(u2, ka, sa, kb, sb);
-  u32 u1lo[5] = {u1[0], u1[1], u1[2], u1[3], 0};
-  u32 u1hi[5] = {u1[4], u1[5], u1[6], u1[7], 0};
 
-  // runtime table c·Q, c = 1..15 (projective), and its λ view (βX : Y : Z)
-  Pt T[15];
-  u32 TB[15][8];
-  copy_w<8>(T[0].X, qx);
-  copy_w<8>(T[0].Y, qy);
-  for (int i = 0; i < 8; i++) T[0].Z[i] = i == 0 ? 1u : 0u;
+  slot_put(sl, stride, S_K, BETA);
+  slot_put(sl, stride, S_QX, qx);
+  slot_put(sl, stride, S_QY, qy);
+  slot_put(sl, stride, S_X, qx);
+  slot_put(sl, stride, S_Y, qy);
+  slot_put(sl, stride, S_Z, ONE);
 #pragma unroll 1
-  for (int k = 1; k < 15; k++) pt_add(T[k], T[k - 1], T[0]);
-#pragma unroll 1
-  for (int k = 0; k < 15; k++) fp_mul(TB[k], T[k].X, BETA);
-
-  for (int i = 0; i < 8; i++) {
-    acc.X[i] = 0;
-    acc.Y[i] = i == 0 ? 1u : 0u;
-    acc.Z[i] = 0;
+  for (int k = 0; k < 15; k++) {
+    if (k) fop_run<SecpField>(SECP_MADD, FOP_LEN(SECP_MADD), sl, stride);
+    slot_copy(sl, stride, S_TAB + 3 * k, S_X);
+    slot_copy(sl, stride, S_TAB + 3 * k + 1, S_Y);
+    slot_copy(sl, stride, S_TAB + 3 * k + 2, S_Z);
   }
-  Pt q;
+  slot_put(sl, stride, S_X, ZERO);
+  slot_put(sl, stride, S_Y, ONE);
+  slot_put(sl, stride, S_Z, ZERO);
+
+  // 33 windows of 4 bits: bits 0..131 of each scalar (ka, kb < 2^130)
+  u32 wa[5], wb[5], wl[5], wh[5];
+  win_init<5, 132>(wa, ka);
+  win_init<5, 132>(wb, kb);
+  const u32 u1lo[5] = {u1[0], u1[1], u1[2], u1[3], 0};
+  const u32 u1hi[5] = {u1[4], u1[5], u1[6], u1[7], 0};
+  win_init<5, 132>(wl, u1lo);
+  win_init<5, 132>(wh, u1hi);
 #pragma unroll 1
   for (int i = 32; i >= 0; i--) {
 #pragma unroll 1
-    for (int d = 0; d < 4; d++) pt_double(acc, acc);
-    u32 wa = window_at(ka, i);
-    if (wa) {
-      q = T[wa - 1];
-      if (sa) fp_neg(q.Y, q.Y);
-      pt_add(acc, acc, q);
+    for (int d = 0; d < 4; d++) fop_run<SecpField>(SECP_DBL, FOP_LEN(SECP_DBL), sl, stride);
+    u32 ca = win_next<5>(wa), cb = win_next<5>(wb);
+    u32 cl = win_next<5>(wl), ch = win_next<5>(wh);
+#pragma unroll 1
+    for (int j = 0; j < 2; j++) {  // ka from (X : Y : Z), then kb from (βX : Y : Z)
+      u32 c = j ? cb : ca;
+      if (c) {
+        int e = S_TAB + 3 * (int)(c - 1);
+        u32 y[8];
+        slot_copy(sl, stride, S_QX, e);
+        slot_get(y, sl, stride, e + 1);
+        if (j ? sb : sa) fp_neg(y, y);
+        slot_put(sl, stride, S_QY, y);
+        slot_copy(sl, stride, S_QZ, e + 2);
+        if (j) fop_run<SecpField>(SECP_BETA_QX, FOP_LEN(SECP_BETA_QX), sl, stride);
+        fop_run<SecpField>(SECP_ADD, FOP_LEN(SECP_ADD), sl, stride);
+      }
     }
-    u32 wb = window_at(kb, i);
-    if (wb) {
-      q = T[wb - 1];
-      copy_w<8>(q.X, TB[wb - 1]);
-      if (sb) fp_neg(q.Y, q.Y);
-      pt_add(acc, acc, q);
+#pragma unroll 1
+    for (int j = 0; j < 2; j++) {  // u1's low half from G, its high half from 2^128·G
+      u32 c = j ? ch : cl;
+      if (c) {
+        slot_put(sl, stride, S_QX, comb[30 * j + c - 1]);
+        slot_put(sl, stride, S_QY, comb[30 * j + 15 + c - 1]);
+        fop_run<SecpField>(SECP_MADD, FOP_LEN(SECP_MADD), sl, stride);
+      }
     }
-    u32 wl = window_at(u1lo, i);
-    if (wl) pt_add_mixed(acc, acc, comb[wl - 1], comb[15 + wl - 1]);
-    u32 wh = window_at(u1hi, i);
-    if (wh) pt_add_mixed(acc, acc, comb[30 + wh - 1], comb[45 + wh - 1]);
   }
+  slot_get(acc.X, sl, stride, S_X);
+  slot_get(acc.Y, sl, stride, S_Y);
+  slot_get(acc.Z, sl, stride, S_Z);
 }
 
 #endif  // FISCO_SECP256K1_COMMON_CUH

@@ -116,6 +116,17 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def geometry(name: str, lanes: int) -> dict:
+    """Launch geometry of kernel `name` for `lanes` lanes, as its C entry
+    point computes it: threads a block, blocks, dynamic shared bytes."""
+    fn = getattr(_library(name), f"{name}_geometry")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    fn(lanes, out)
+    return {"threads": out[0], "blocks": out[1], "dynamic_shared_bytes": out[2]}
+
+
 def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err:
         msg = lib.fisco_cuda_error_string(err).decode()

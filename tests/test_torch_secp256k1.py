@@ -141,9 +141,10 @@ def host_kernel(tmp_path_factory):
         f'#include "{KERNEL_SRC}"\n'
         'extern "C" void host_recover(const int32_t* z, const int32_t* r, const int32_t* s,\n'
         "    const int32_t* v, const uint32_t* comb, int32_t* qx, int32_t* qy, uint8_t* ok, int n) {\n"
+        "  u32 slots[SLOT_WORDS];  // one lane's slots, stride 1\n"
         "  for (int i = 0; i < n; i++)\n"
         "    recover_lane(z + 16 * i, r + 16 * i, s + 16 * i, v[i], (const u32 (*)[8])comb,\n"
-        "                 qx + 16 * i, qy + 16 * i, ok + i);\n"
+        "                 slots, 1, qx + 16 * i, qy + 16 * i, ok + i);\n"
         "}\n"
     )
     lib_path = d / "librecover_host.so"

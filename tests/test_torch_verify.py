@@ -112,9 +112,10 @@ def host_kernel(tmp_path_factory):
         f'#include "{KERNEL_SRC}"\n'
         'extern "C" void host_verify(const int32_t* z, const int32_t* r, const int32_t* s,\n'
         "    const int32_t* qx, const int32_t* qy, const uint32_t* comb, uint8_t* ok, int n) {\n"
+        "  u32 slots[SLOT_WORDS];  // one lane's slots, stride 1\n"
         "  for (int i = 0; i < n; i++)\n"
         "    verify_lane(z + 16 * i, r + 16 * i, s + 16 * i, qx + 16 * i, qy + 16 * i,\n"
-        "                (const u32 (*)[8])comb, ok + i);\n"
+        "                (const u32 (*)[8])comb, slots, 1, ok + i);\n"
         "}\n"
     )
     lib_path = d / "libverify_host.so"
