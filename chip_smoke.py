@@ -22,8 +22,9 @@ exits non-zero, printing no result, without them. In order it:
 4. secp256k1 verify: on a mixed and a timed 10,240-lane block,
    holds the verify kernel against its plain version on every lane and
    ``verify_batch`` against the host oracle; drives ``verify_batch`` on the
-   timed block between the counters; times the kernel, its plain version
-   and ``verify_batch``;
+   timed block between the counters; times the kernel, its plain version,
+   ``verify_batch`` and its stages (host_pad, upload, verify, download;
+   with ``--parent``, the parent checkout's stages too, in turns);
 5. SM2 / SM-suite admission: the same for the SM2 kernel and
    ``admit_batch_sm`` (SM3 tx hash, SM2 verify, SM3 sender), with lanes of
    digest e = 0 and e = 2^256 - 1 fed to ``sm2.verify_device`` directly;
@@ -32,13 +33,16 @@ exits non-zero, printing no result, without them. In order it:
    call;
 6. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
-   each kernel against its counterpart there on the timed blocks: equal
+   each kernel against its counterpart there on the timed blocks, each fed
+   its own input layout (the verify kernel of a checkout before its
+   byte-row redesign takes five limb tensors and the 60-row comb): equal
    on every lane, timed in turns parent, new, new, parent;
 7. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
-   the cycles one warp spends on each field op and group-law op and on an
-   SM2 product as the loop body around it grows (``clock64()``);
+   the cycles one warp spends on each field op and group-law op, on an
+   inversion mod n (Fermat and safegcd divsteps) and on an SM2 product as
+   the loop body around it grows (``clock64()``);
 8. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line.
 
@@ -86,6 +90,14 @@ MULS_FP_SMALL = 2 * (8 + 1)  # fp_mul_small + fp_fold_top
 MULS_FN_MUL = 2 * (64 + 32 + 20 + 4)  # 8x8 words + three folds by CN (CN[4] = 1)
 MULS_FN_SQR = 2 * (36 + 32 + 20 + 4)
 MULS_GLV = 2 * (2 * 80 + 4 * 16)  # two u2·g products; four c·basis, 4x4 words each
+# verify's safegcd s^-1 mod n (csrc/secp256k1_modinv.cuh): 20 rounds, each
+# t·(d, e) and t·(f, g), 4 x 9 signed word products apiece, n·(md, me) over
+# n's 30-bit limbs other than 0 or a power of two (5), and the two md, me
+# corrections (low halves only); the divsteps themselves are adds, masks
+# and shifts
+MULS_FN_INV_DIVSTEP = 20 * (2 * (4 * 9 + 2 * 5) + 2 + 2 * 4 * 9)
+VERIFY_WINDOWS = 27  # verify's ladder: signed 5-bit digits in [-15, 16]
+RECODE_OFFSET = 15 * (32**VERIFY_WINDOWS - 1) // 31  # 01111 in every window
 # SM2's Montgomery product: only the a·b word products. The reduction needs
 # no multiply: -p^-1 ≡ 1 mod 2^32 makes each step's m the low word itself,
 # and p = 2^256 - 2^224 - 2^96 + 2^64 - 1 makes m·p shifts and subtracts.
@@ -257,11 +269,9 @@ def _ladder_ops(window_sets, n_windows: int, add_muls, dbl_ops) -> tuple[int, ..
     return tuple(total)
 
 
-def _glv_ladder_ops(u1: int, u2: int) -> tuple[int, int, int]:
-    """(fp_mul, fp_sqr, fp_mul_small) of glv_dual_mul for scalars u1, u2:
-    the c·Q table (14 additions of Q, whose Z is 1, so each is a mixed
-    addition, 11 products) and its β view (15 products), then the 33-window
-    ladder over the GLV split of u2 and the 128-bit halves of u1."""
+def _glv_scalars(u1: int, u2: int) -> tuple[int, int, int, int]:
+    """The ladder's four scalars: |ka|, |kb| of the GLV split of u2 (floor
+    Barrett rounding, as the kernels) and the 128-bit halves of u1."""
     from fisco_bcos_tpu_torch.ops.ec import glv_params
 
     P = glv_params()
@@ -269,13 +279,73 @@ def _glv_ladder_ops(u1: int, u2: int) -> tuple[int, int, int]:
     c2 = (u2 * P.g2) >> 448
     ka = abs(u2 - (c1 * P.a1 + c2 * P.a2))
     kb = abs(c1 * P.b1_abs - c2 * P.b2)
-    lo, hi = u1 & ((1 << 128) - 1), u1 >> 128
+    return ka, kb, u1 & ((1 << 128) - 1), u1 >> 128
+
+
+def _glv_ladder_ops(u1: int, u2: int) -> tuple[int, int, int]:
+    """(fp_mul, fp_sqr, fp_mul_small) of glv_dual_mul for scalars u1, u2:
+    the c·Q table (14 additions of Q, whose Z is 1, so each is a mixed
+    addition, 11 products) and its β view (15 products), then the 33-window
+    ladder over the GLV split of u2 and the 128-bit halves of u1."""
+    ka, kb, lo, hi = _glv_scalars(u1, u2)
     # complete addition 12 products, mixed 11, each with 2 products by 21;
     # a doubling 6 products, 2 squarings, 1 product by 21
     fp_mul, fp_sqr, small = _ladder_ops(
         (ka, kb, lo, hi), 33, [(12, 0, 2), (12, 0, 2), (11, 0, 2), (11, 0, 2)], (6, 2, 1)
     )
     return fp_mul + 14 * 11 + 15, fp_sqr, small + 14 * 2
+
+
+def signed5_digits(k: int) -> list[int]:
+    """verify's recoding of k < 2^130: 27 digits in [-15, 16], LSB first,
+    with sum d_i·32^i = k (window i of k + RECODE_OFFSET, less 15)."""
+    kk = k + RECODE_OFFSET
+    return [((kk >> (5 * i)) & 31) - 15 for i in range(VERIFY_WINDOWS)]
+
+
+def _glv_ladder5_ops(u1: int, u2: int) -> tuple[int, int, int]:
+    """(fp_mul, fp_sqr, fp_mul_small) of verify's glv_dual_mul5: the c·Q
+    table (15 mixed additions) and its β view (16 products), then 27
+    windows MSB first of 5 doublings and an addition for each scalar whose
+    digit is not 0. Doublings of the still-identity accumulator and the
+    first addition to it are no work and are not counted."""
+    digits = [signed5_digits(k) for k in _glv_scalars(u1, u2)]
+    adds = [(12, 0, 2), (12, 0, 2), (11, 0, 2), (11, 0, 2)]  # complete, complete, mixed, mixed
+    total, started = [0, 0, 0], False
+    for i in range(VERIFY_WINDOWS - 1, -1, -1):
+        if started:
+            total = [t + 5 * d for t, d in zip(total, (6, 2, 1))]
+        for ds, ops in zip(digits, adds):
+            if ds[i]:
+                if started:
+                    total = [t + o for t, o in zip(total, ops)]
+                started = True
+    fp_mul, fp_sqr, small = total
+    return fp_mul + 15 * 11 + 16, fp_sqr, small + 15 * 2
+
+
+def warp_additions(rows) -> tuple[float, float]:
+    """Ladder additions a warp pays on a verify block of BLOCK_TXS lanes
+    tiled from `rows`, averaged over its warps (a host count from the run's
+    inputs): the (window, scalar) pairs where any of the warp's 32 lanes
+    has a digit other than 0, for 33 windows of 4 bits (the parent's
+    ladder) and for 27 signed 5-bit windows."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+    C = ref.SECP256K1
+    lanes = []
+    for h, r, s, _ in rows:
+        sinv = pow(s % C.n, -1, C.n) if s % C.n else 0
+        z = int.from_bytes(h, "big")
+        lanes.append(_glv_scalars(z % C.n * sinv % C.n, r % C.n * sinv % C.n))
+    n_warps = BLOCK_TXS // 32
+    four = five = 0
+    for w in range(n_warps):
+        warp = [lanes[(32 * w + i) % len(lanes)] for i in range(32)]
+        four += sum(any((k[j] >> (4 * i)) & 15 for k in warp) for i in range(33) for j in range(4))
+        digits = [[signed5_digits(x) for x in k] for k in warp]
+        five += sum(any(d[j][i] for d in digits) for i in range(VERIFY_WINDOWS) for j in range(4))
+    return four / n_warps, five / n_warps
 
 
 def recover_multiplies(case_hash: bytes, sig65: bytes) -> int:
@@ -325,19 +395,18 @@ def recover_multiplies(case_hash: bytes, sig65: bytes) -> int:
 def verify_multiplies(z: int, r: int, s: int) -> int:
     """32-bit multiplies of the least work the secp256k1 verify kernel's
     method needs for one lane. Every lane runs the whole method: the curve
-    check (2 squarings, 1 product), s^-1 by Fermat, u1 and u2, the GLV
-    split, the ladder, and the two products of the projective compare."""
+    check (2 squarings, 1 product), s^-1 by safegcd divsteps, u1 and u2,
+    the GLV split, the signed 5-bit ladder, and the two products of the
+    projective compare."""
     from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
 
     C = ref.SECP256K1
-    fn_mul, fn_sqr = _pow_ops(C.n - 2)
-    fn_mul += 2  # u1, u2
-    sinv = pow(s % C.n, C.n - 2, C.n)
-    lm, ls, small = _glv_ladder_ops(z % C.n * sinv % C.n, r % C.n * sinv % C.n)
+    sinv = pow(s % C.n, -1, C.n) if s % C.n else 0
+    lm, ls, small = _glv_ladder5_ops(z % C.n * sinv % C.n, r % C.n * sinv % C.n)
     fp_mul, fp_sqr = 1 + lm + 2, 2 + ls
     return (
         fp_mul * MULS_FP_MUL + fp_sqr * MULS_FP_SQR + small * MULS_FP_SMALL
-        + fn_mul * MULS_FN_MUL + fn_sqr * MULS_FN_SQR + MULS_GLV
+        + 2 * MULS_FN_MUL + MULS_FN_INV_DIVSTEP + MULS_GLV
     )
 
 
@@ -624,6 +693,15 @@ def verify_arrays(rows, n: int):
     return (*cols, np.array([c[4] for c in picked]))
 
 
+def verify_row_tensor(hashes, rs, ss, pubs, device):
+    """The verify kernel's input on the card: [n, 160] uint8 rows."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import secp256k1
+
+    return torch.from_numpy(secp256k1.verify_rows(hashes, rs, ss, pubs, len(hashes))).to(device)
+
+
 def limb_tensors(device, *arrays):
     """[B, 32] big-endian byte arrays -> [B, 16] int32 limb tensors."""
     import numpy as np
@@ -635,6 +713,8 @@ def limb_tensors(device, *arrays):
 
 
 def verify_limbs(hashes, rs, ss, pubs, device):
+    """The verify kernel input of a checkout from before the byte rows: five
+    [n, 16] int32 limb tensors."""
     return limb_tensors(device, hashes, rs, ss, pubs[:, :32], pubs[:, 32:])
 
 
@@ -669,7 +749,7 @@ def check_verify_block(rows, device, what: str) -> tuple[int, float]:
 
     *arrays, want = verify_arrays(rows, BLOCK_TXS)
     _, err, plain_ms = compare_and_time(
-        secp256k1.verify_device, secp256k1.verify_plain, verify_limbs(*arrays, device),
+        secp256k1.verify_device, secp256k1.verify_plain, (verify_row_tensor(*arrays, device),),
         "secp256k1_verify", what,
     )
     got = secp256k1.verify_batch(*arrays)
@@ -701,18 +781,63 @@ def run_verify_path(rows) -> tuple[int, float]:
     return launches, host_ms(lambda: secp256k1.verify_batch(*arrays), reps=5)
 
 
+def verify_stages(rows, device, parent=None) -> dict[str, float]:
+    """Median ms of each stage of verify_batch on the block, each stage run
+    warm and ending synchronised (verify_batch's own steps, in order). With
+    `parent` (another checkout's kernels module), the stages as that
+    checkout's verify_batch runs them, through its kernel: five limb splits
+    and five uploads where the kernel takes limbs (before the byte rows)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import secp256k1
+    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs
+    from fisco_bcos_tpu_torch.ops.hash_common import bucket_batch
+
+    hashes, rs, ss, pubs, _ = verify_arrays(rows, BLOCK_TXS)
+    bb = bucket_batch(BLOCK_TXS)
+    limbs = parent is not None and takes_limbs(parent)
+    st: dict = {}
+
+    def host_pad():
+        if not limbs:
+            st["host"] = [secp256k1.verify_rows(hashes, rs, ss, pubs, bb)]
+            return
+        st["host"] = []
+        for a in (hashes, rs, ss, pubs[:, :32], pubs[:, 32:]):  # limb_tensor's host half
+            padded = np.zeros((bb, 16), dtype=np.int32)
+            padded[: len(a)] = bytes_be_to_limbs(a)
+            st["host"].append(padded)
+
+    def upload():
+        st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
+
+    def verify():
+        if parent is None:
+            st["ok"] = secp256k1.verify_device(*st["dev"])
+        else:
+            comb = (secp256k1.comb_words if limbs else secp256k1.verify_comb_words)(device)
+            st["ok"] = parent.secp256k1_verify(*st["dev"], comb)
+
+    def download():
+        st["ok"].cpu().numpy()
+
+    stages = (host_pad, upload, verify, download)
+    return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
+
+
 def measure_verify_kernel(rows, device) -> dict:
     from fisco_bcos_tpu_torch.ops import secp256k1
 
     *arrays, _ = verify_arrays(rows, BLOCK_TXS)
-    args = verify_limbs(*arrays, device)
-    kernel_ms = cuda_ms(lambda: secp256k1.verify_device(*args))
+    rows_dev = verify_row_tensor(*arrays, device)
+    kernel_ms = cuda_ms(lambda: secp256k1.verify_device(rows_dev))
     per_case = [verify_multiplies(int.from_bytes(h, "big"), r, s) for h, r, s, _ in rows]
     muls = sum(per_case[i % len(rows)] for i in range(BLOCK_TXS))
     return kernel_row(
         "secp256k1_verify", "fisco_bcos_tpu_torch/csrc/secp256k1_verify.cu",
         "fisco_bcos_tpu/ops/pallas_ec.py:78", kernel_ms, muls,
-        io_bytes=BLOCK_TXS * (5 * 16 * 4 + 1) + 60 * 8 * 4,
+        io_bytes=BLOCK_TXS * (secp256k1.VERIFY_ROW_BYTES + 1) + 64 * 8 * 4,
     )
 
 
@@ -1004,34 +1129,58 @@ def timed_kernel_args(device, block, verify_block, sm_block) -> dict:
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
     *arrays, _ = verify_arrays(verify_block, BLOCK_TXS)
     sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
-    comb = secp256k1.comb_words(device)
     return {
-        "secp256k1_recover": (*recover_inputs(payloads, sigs65, device), comb),
-        "secp256k1_verify": (*verify_limbs(*arrays, device), comb),
+        "secp256k1_recover": (*recover_inputs(payloads, sigs65, device), secp256k1.comb_words(device)),
+        "secp256k1_verify": (verify_row_tensor(*arrays, device), secp256k1.verify_comb_words(device)),
         "sm2_verify": (*sm2_device_inputs(sm_payloads, sigs128, device), sm2.comb_words(device)),
     }
 
 
-def time_against_parent(card: str, parent, timed_args: dict) -> None:
-    """Each kernel and the parent checkout's on the same timed block: equal
-    on every lane, then CUDA-event times in turns parent, new, new, parent."""
+def takes_limbs(kernels) -> bool:
+    """Whether a checkout's verify kernel predates the byte rows: its
+    wrapper takes z, r, s, qx, qy and comb."""
+    import inspect
+
+    return len(inspect.signature(kernels.secp256k1_verify).parameters) == 6
+
+
+def parent_kernel_args(parent, device, verify_block) -> dict:
+    """Arguments of the parent checkout's kernels whose input layout differs
+    from this checkout's: a verify kernel from before the byte rows gets
+    five [n, 16] limb tensors and the [60, 8] comb of 4-bit windows on the
+    same timed block."""
+    from fisco_bcos_tpu_torch.ops import secp256k1
+
+    if not takes_limbs(parent):
+        return {}
+    *arrays, _ = verify_arrays(verify_block, BLOCK_TXS)
+    return {"secp256k1_verify": (*verify_limbs(*arrays, device), secp256k1.comb_words(device))}
+
+
+def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) -> None:
+    """Each kernel and the parent checkout's on the same timed block (each
+    fed its own input layout, from `parent_args` where the layouts differ):
+    equal on every lane, then CUDA-event times in turns parent, new, new,
+    parent."""
     import torch
 
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
         new, old = getattr(_kernels, name), getattr(parent, name)
-        got, want = new(*args), old(*args)
+        old_args = parent_args.get(name, args)
+        got, want = new(*args), old(*old_args)
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
         if not all(torch.equal(a, b) for a, b in pairs):
             raise AssertionError(f"{name} kernel != the parent checkout's on the timed block")
-        times = [cuda_ms(lambda f=f: f(*args)) for f in (old, new, new, old)]
+        turns = ((old, old_args), (new, args), (new, args), (old, old_args))
+        times = [cuda_ms(lambda f=f, a=a: f(*a)) for f, a in turns]
         log(f"[{card}] {name} @ {BLOCK_TXS} lanes against the parent checkout (equal on every lane): "
             f"parent {times[0]:.4f}, new {times[1]:.4f}, new {times[2]:.4f}, parent {times[3]:.4f} ms "
             f"(new/parent {(times[1] + times[2]) / (times[0] + times[3]):.3f})")
 
 
-FIELD_BENCH_OPS = 13  # field_bench.cu's op codes 0..12
+FIELD_BENCH_OPS = 15  # field_bench.cu's op codes 0..14
 BODY_SIZES = (1, 4, 8, 16, 24, 32, 64)  # products a loop body, op code 100 + K
 
 
@@ -1108,20 +1257,25 @@ def field_bench(card: str, libs: dict) -> None:
         lib.field_bench_name.restype = ctypes.c_char_p
         fns[label] = lib
 
-    def cycles(lib, op: int, iters: int) -> float:
+    def cycles(lib, op: int, iters: int) -> float | None:
         io = io0.cuda()
         err = lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, 2)  # warm
+        if err == -1:
+            return None  # an op this checkout's sources lack
         err = err or lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, iters)
         if err:
             raise RuntimeError(f"field_bench op {op} failed: CUDA error {err}")
         return statistics.median(cyc.cpu().tolist()) / iters
 
+    def show(c: float | None) -> str:
+        return "not in this checkout" if c is None else f"{c:.1f}"
+
     labels = list(fns)
     for op in range(FIELD_BENCH_OPS):
-        iters = 400 if op < 7 else 40
+        iters = 400 if op < 7 else 40 if op < 13 else 8
         name = fns[labels[0]].field_bench_name(op).decode()
         log(f"[{card}] field bench, one warp, cycles per {name}: "
-            + ", ".join(f"{lb} {cycles(fns[lb], op, iters):.1f}" for lb in labels))
+            + ", ".join(f"{lb} {show(cycles(fns[lb], op, iters))}" for lb in labels))
     sizes = {lb: sass_by_function(path) for lb, path in libs.items()}
     for k in BODY_SIZES:
         iters = max(8, 800 // k)
@@ -1224,8 +1378,17 @@ def main() -> int:
         launches=verify_launches, max_abs_err=max(verify_err, verify_mixed_err), plain_ms=verify_plain_ms
     )
     log_kernel(card, verify)
+    adds4, adds5 = warp_additions(verify_block)
+    log(f"verify ladder additions a warp on the timed block (host count): 4-bit windows "
+        f"{adds4:.2f}, signed 5-bit windows {adds5:.2f}")
     log(f"[{card}] secp256k1 verify_batch @ {BLOCK_TXS} signatures: {verify_batch_ms:.2f} ms "
         f"end to end ({BLOCK_TXS / verify_batch_ms * 1e3:.0f} verifies/s)")
+    # with --parent, the parent checkout's stages too, in turns parent, new, new, parent
+    turns = (parent, None, None, parent) if parent else (None,)
+    for who in turns:
+        v_stages = verify_stages(verify_block, device, who)
+        log(f"[{card}] verify_batch stages{' (parent checkout)' if who else ''} (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in v_stages.items()))
 
     # -- SM2 / SM-suite admission --
     sm_mixed_err, _ = check_sm2_mixed_block(sm_cases, device)
@@ -1245,7 +1408,7 @@ def main() -> int:
 
     timed_args = timed_kernel_args(device, block, verify_block, sm_block)
     if parent:
-        time_against_parent(card, parent, timed_args)
+        time_against_parent(card, parent, timed_args, parent_kernel_args(parent, device, verify_block))
     lane_scaling(card, timed_args)
     field_bench(card, bench_libs)
 

@@ -7,10 +7,17 @@
 //
 // Built against the current sources (wide_int.cuh defines SLOT_WORDS) it
 // times the group law through the field-op programs over shared-memory
-// slots; against an earlier checkout, through its point functions.
+// slots; against an earlier checkout, through its point functions. The
+// inversions mod n: the Fermat chain f_pow<true, EXP_N_INV_ID> (with slots)
+// and verify's safegcd divsteps (where the checkout has
+// secp256k1_modinv.cuh); an op a checkout lacks returns -1.
 
 #include <sm2_verify.cu>
 #include <secp256k1_common.cuh>
+#if __has_include(<secp256k1_modinv.cuh>)
+#include <secp256k1_modinv.cuh>
+#define FB_HAS_DIVSTEP 1
+#endif
 
 #ifdef SLOT_WORDS
 #define FB_SQR_MM(r, a) mm_sqr(r, a)
@@ -22,14 +29,16 @@
 
 enum {
   FB_MM_MUL, FB_MM_SQR, FB_MM_ADD, FB_FP_MUL, FB_FP_SQR, FB_FN_MUL, FB_FN_SQR,
-  FB_SM2_DBL, FB_SM2_ADD, FB_SM2_MADD, FB_SECP_DBL, FB_SECP_ADD, FB_SECP_MADD, FB_OPS
+  FB_SM2_DBL, FB_SM2_ADD, FB_SM2_MADD, FB_SECP_DBL, FB_SECP_ADD, FB_SECP_MADD,
+  FB_FN_INV_FERMAT, FB_FN_INV_DIVSTEP, FB_OPS
 };
 
 extern "C" const char* field_bench_name(int op) {
   static const char* names[FB_OPS] = {
       "SM2 mm_mul", "SM2 mm_sqr", "SM2 mm_add", "secp fp_mul", "secp fp_sqr", "secp fn_mul",
       "secp fn_sqr", "SM2 doubling (RCB 3)", "SM2 addition (RCB 1)", "SM2 mixed addition (RCB 2)",
-      "secp doubling (RCB 9)", "secp addition (RCB 7)", "secp mixed addition (RCB 8)"};
+      "secp doubling (RCB 9)", "secp addition (RCB 7)", "secp mixed addition (RCB 8)",
+      "secp s^-1 mod n, Fermat f_pow", "secp s^-1 mod n, safegcd divsteps"};
   return op >= 0 && op < FB_OPS ? names[op] : "";
 }
 
@@ -71,6 +80,10 @@ __global__ void field_bench(u32* io, long long* cyc, int iters) {
     if (OP == FB_SECP_DBL) fop_run<SecpField>(SECP_DBL, FOP_LEN(SECP_DBL), sl, 32);
     if (OP == FB_SECP_ADD) fop_run<SecpField>(SECP_ADD, FOP_LEN(SECP_ADD), sl, 32);
     if (OP == FB_SECP_MADD) fop_run<SecpField>(SECP_MADD, FOP_LEN(SECP_MADD), sl, 32);
+    if (OP == FB_FN_INV_FERMAT) f_pow<true, EXP_N_INV_ID>(x, x, sl, 32);
+#ifdef FB_HAS_DIVSTEP
+    if (OP == FB_FN_INV_DIVSTEP) fn_inv_divstep(x, x);
+#endif
 #else
     if (OP == FB_SM2_DBL) sm2_pt_double(P, P);
     if (OP == FB_SM2_ADD) sm2_pt_add(P, P, Q);
@@ -144,6 +157,12 @@ extern "C" int field_bench_run(void* io, void* cyc, int op, int iters) {
     case FB_SECP_DBL: return launch_op<FB_SECP_DBL>(w, c, iters);
     case FB_SECP_ADD: return launch_op<FB_SECP_ADD>(w, c, iters);
     case FB_SECP_MADD: return launch_op<FB_SECP_MADD>(w, c, iters);
+#ifdef SLOT_WORDS
+    case FB_FN_INV_FERMAT: return launch_op<FB_FN_INV_FERMAT>(w, c, iters);
+#endif
+#ifdef FB_HAS_DIVSTEP
+    case FB_FN_INV_DIVSTEP: return launch_op<FB_FN_INV_DIVSTEP>(w, c, iters);
+#endif
     case 101: body_size_bench<1><<<1, 32>>>(w, c, iters); break;
     case 104: body_size_bench<4><<<1, 32>>>(w, c, iters); break;
     case 108: body_size_bench<8><<<1, 32>>>(w, c, iters); break;

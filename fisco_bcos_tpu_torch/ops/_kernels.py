@@ -186,31 +186,37 @@ def secp256k1_recover(z, r, s, v, comb):
     return qx, qy, ok
 
 
-def _require_verify_args(name: str, limbs: dict, comb, comb_rows: int) -> tuple[torch.device, int]:
-    """Checks of a verify kernel's inputs: [B, 16] int32 limb tensors and a
+def _require_verify_args(
+    name: str, inputs: dict, comb, comb_rows: int, dtype=torch.int32, width: int = 16
+) -> tuple[torch.device, int]:
+    """Checks of a verify kernel's inputs: [B, width] tensors of `dtype`
+    ([B, 16] int32 limbs for SM2, [B, 160] uint8 rows for secp256k1) and a
     [comb_rows, 8] int32 comb, contiguous, on one CUDA device."""
-    first = next(iter(limbs.values()))
+    first = next(iter(inputs.values()))
     dev = first.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     b = first.shape[0]
-    for what, t in limbs.items():
-        _require(t, what, torch.int32, (b, 16), dev)
+    for what, t in inputs.items():
+        _require(t, what, dtype, (b, width), dev)
     _require(comb, "comb", torch.int32, (comb_rows, 8), dev)
     return dev, b
 
 
-# z, r, s, qx, qy, comb, ok pointers; lanes; CUDA device index; stream
-_SECP_VERIFY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# rows, comb, ok pointers; lanes; CUDA device index; stream
+_SECP_VERIFY_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def secp256k1_verify(z, r, s, qx, qy, comb):
-    """Launch the secp256k1 verify kernel: z, r, s, qx, qy [B, 16] int32
-    16-bit limbs, comb [60, 8] int32 (uint32 words of the G / 2^128·G
-    combs), all on one CUDA device. Returns ok bool[B]."""
+def secp256k1_verify(rows, comb):
+    """Launch the secp256k1 verify kernel: rows [B, 160] uint8, z ‖ r ‖ s ‖
+    qx ‖ qy big-endian a lane, 16-byte aligned; comb [64, 8] int32 (uint32
+    words of the G / 2^128·G combs, c = 1..16); both on one CUDA device.
+    Returns ok bool[B]."""
     dev, b = _require_verify_args(
-        "secp256k1_verify", {"z": z, "r": r, "s": s, "qx": qx, "qy": qy}, comb, 60
+        "secp256k1_verify", {"rows": rows}, comb, 64, dtype=torch.uint8, width=160
     )
+    if rows.data_ptr() % 16:
+        raise ValueError("secp256k1_verify: rows must be 16-byte aligned (read in 16-byte quads)")
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
     if b == 0:
         return ok
@@ -219,8 +225,7 @@ def secp256k1_verify(z, r, s, qx, qy, comb):
     lib.secp256k1_verify_launch.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = lib.secp256k1_verify_launch(
-            z.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(), qy.data_ptr(),
-            comb.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
+            rows.data_ptr(), comb.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
         )
     _check_launch(lib, "secp256k1_verify", err)
     LAUNCHES["secp256k1_verify"] += 1

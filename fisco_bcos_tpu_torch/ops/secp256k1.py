@@ -1,8 +1,10 @@
 """Batch secp256k1 ECDSA public-key recovery and signature verification.
 
-``recover_device`` and ``verify_device`` keep the JAX package's public
-layout: ``[B, 16]`` limbs in; ``(qx, qy [B, 16], ok [B])`` or ``ok [B]``
-out. On a CUDA tensor each launches its hand-written kernel
+``recover_device`` keeps the JAX package's public layout: ``[B, 16]`` limbs
+in, ``(qx, qy [B, 16], ok [B])`` out. ``verify_device`` takes one ``[B, 160]``
+uint8 row a signature, z ‖ r ‖ s ‖ qx ‖ qy big-endian as they come off the
+wire (:func:`verify_rows`), and returns ``ok [B]``. On a CUDA tensor each
+launches its hand-written kernel
 (``csrc/secp256k1_recover.cu`` replaces the Pallas ``_recover_kernel``,
 ``csrc/secp256k1_verify.cu`` the ``_verify_kernel``, each together with the
 inversions the TPU ran outside it); on a CPU tensor each runs the plain
@@ -41,6 +43,7 @@ from .ec import (
 from .hash_common import bucket_batch, pad_rows
 from .limb import add_widen, eq, is_zero, lt, select
 from ..device import resolve_device
+from .. import params
 from ..params import default_tables
 
 # ---------------------------------------------------------------------------
@@ -125,13 +128,23 @@ def _g_table(device) -> torch.Tensor:
     return torch.from_numpy(default_tables().comb_limbs().astype(np.int64)).to(device)
 
 
-def verify_plain(z, r, s, qx, qy):
+VERIFY_ROW_BYTES = 160  # z ‖ r ‖ s ‖ qx ‖ qy, 32 big-endian bytes each
+
+
+def rows_to_limbs(rows: torch.Tensor) -> torch.Tensor:
+    """[B, 160] uint8 verify rows -> [5, 16, B] int64 limb-major plain limbs
+    (z, r, s, qx, qy), on the rows' device."""
+    be = rows.reshape(rows.shape[0], 5, 16, 2).to(torch.int64)
+    limbs = (be[..., 0] << 8 | be[..., 1]).flip(-1)  # [B, 5, 16], little-endian limbs
+    return limbs.permute(1, 2, 0)
+
+
+def verify_plain(rows):
     """The plain PyTorch version of the verify kernel, in its public layout:
-    z, r, s, qx, qy [B, 16] int32 limbs -> ok bool[B], on the inputs'
-    device."""
-    C = CurveOps(z.device)
-    zT, rT, sT, qxT, qyT = (a.T.to(torch.int64) for a in (z, r, s, qx, qy))
-    return verify_core(zT, rT, sT, qxT, qyT, inv_mod_n(sT, C), _g_table(z.device), C)
+    [B, 160] uint8 rows -> ok bool[B], on the rows' device."""
+    C = CurveOps(rows.device)
+    zT, rT, sT, qxT, qyT = rows_to_limbs(rows)
+    return verify_core(zT, rT, sT, qxT, qyT, inv_mod_n(sT, C), _g_table(rows.device), C)
 
 
 def recover_plain(z, r, s, v):
@@ -162,6 +175,13 @@ def comb_words(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(default_tables().comb_words.view(np.int32)).to(device)
 
 
+@lru_cache(maxsize=None)
+def verify_comb_words(device: torch.device) -> torch.Tensor:
+    """The verify kernel's [64, 8] int32 comb (uint32 words of the affine
+    c·G and c·2^128·G, c = 1..16), uploaded once per device."""
+    return torch.from_numpy(params.verify_comb_words().view(np.int32)).to(device)
+
+
 def recover_device(z, r, s, v):
     """Batch ECDSA recover. z/r/s: [B, 16] int32 limbs; v: [B] int32.
     Returns (qx, qy [B, 16] int32 plain limbs, ok bool[B]).
@@ -175,17 +195,17 @@ def recover_device(z, r, s, v):
     raise ValueError(f"recover_device: unsupported device {z.device}")
 
 
-def verify_device(z, r, s, qx, qy):
-    """Batch ECDSA verify. All inputs [B, 16] int32 plain-domain limbs
-    (batch major); returns ok bool[B].
+def verify_device(rows):
+    """Batch ECDSA verify. rows: [B, 160] uint8, z ‖ r ‖ s ‖ qx ‖ qy
+    big-endian (:func:`verify_rows`); returns ok bool[B].
 
     CUDA tensors go to the CUDA kernel (or an exception); CPU tensors to the
     plain version."""
-    if z.device.type == "cuda":
-        return _kernels.secp256k1_verify(z, r, s, qx, qy, comb_words(z.device))
-    if z.device.type == "cpu":
-        return verify_plain(z, r, s, qx, qy)
-    raise ValueError(f"verify_device: unsupported device {z.device}")
+    if rows.device.type == "cuda":
+        return _kernels.secp256k1_verify(rows, verify_comb_words(rows.device))
+    if rows.device.type == "cpu":
+        return verify_plain(rows)
+    raise ValueError(f"verify_device: unsupported device {rows.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -193,23 +213,32 @@ def verify_device(z, r, s, qx, qy):
 # ---------------------------------------------------------------------------
 
 
+def verify_rows(
+    msg_hashes: np.ndarray, rs: np.ndarray, ss: np.ndarray, pubkeys: np.ndarray, rows: int
+) -> np.ndarray:
+    """[B,32] hash, r, s and [B,64] pubkey (uint8 big-endian) -> the
+    kernel's [rows, 160] uint8 input, one concatenate into zero rows that
+    pad the batch to its bucket."""
+    parts = [
+        np.asarray(a, dtype=np.uint8).reshape(-1, w)
+        for a, w in ((msg_hashes, 32), (rs, 32), (ss, 32), (pubkeys, 64))
+    ]
+    out = np.zeros((rows, VERIFY_ROW_BYTES), dtype=np.uint8)
+    np.concatenate(parts, axis=1, out=out[: len(parts[0])])
+    return out
+
+
 def verify_batch(
     msg_hashes: np.ndarray, rs: np.ndarray, ss: np.ndarray, pubkeys: np.ndarray, device=None
 ) -> np.ndarray:
     """Host API: [B,32] hash, [B,32] r, [B,32] s, [B,64] uncompressed pubkey
     (all uint8 big-endian) -> bool[B]. Runs on the CUDA card unless
-    ``device`` names another."""
+    ``device`` names another: one upload of the padded rows, one download
+    of the verdicts."""
     dev = resolve_device(device)
     bsz = len(msg_hashes)
-    bb = bucket_batch(bsz)
-    pubkeys = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
-    ok = verify_device(
-        limb_tensor(msg_hashes, bb, dev),
-        limb_tensor(rs, bb, dev),
-        limb_tensor(ss, bb, dev),
-        limb_tensor(pubkeys[:, :32], bb, dev),
-        limb_tensor(pubkeys[:, 32:], bb, dev),
-    )
+    rows = verify_rows(msg_hashes, rs, ss, pubkeys, bucket_batch(bsz))
+    ok = verify_device(torch.from_numpy(rows).to(dev))
     return ok.cpu().numpy()[:bsz]
 
 

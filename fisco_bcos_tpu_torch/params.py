@@ -1,8 +1,9 @@
 """The signature programs' precomputed state, in the port's layout.
 
 secp256k1 (recover and verify): the affine comb table of G and 2^128·G and
-the GLV split constants. SM2 (verify): the Montgomery-domain affine comb of
-G and the Montgomery constants of its field (−p⁻¹, R mod p, R² mod p). The
+the GLV split constants, and the verify kernel's wider comb (c = 1..16).
+SM2 (verify): the Montgomery-domain affine comb of G and the Montgomery
+constants of its field (−p⁻¹, R mod p, R² mod p). The
 port builds both itself from its reference copy (:func:`build_tables`,
 :func:`build_sm2_tables`); :func:`tables_from_jax` and
 :func:`sm2_tables_from_jax` carry the JAX package's numpy arrays of the same
@@ -19,7 +20,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from .crypto.ref.ecdsa import SM2_CURVE
+from .crypto.ref.ecdsa import SECP256K1, SM2_CURVE, point_add, point_mul
 from .ops import ec, limb
 
 
@@ -65,6 +66,22 @@ def build_tables() -> RecoverTables:
 @lru_cache(maxsize=None)
 def default_tables() -> RecoverTables:
     return build_tables()
+
+
+@lru_cache(maxsize=None)
+def verify_comb_words() -> np.ndarray:
+    """The verify kernel's [64, 8] uint32 comb for its 5-bit signed windows:
+    x of c·G (rows 0..15), y of c·G (16..31), then the same for 2^128·G
+    (32..63), c = 1..16, affine, canonical; built from Python integers."""
+    c = SECP256K1
+    rows = []
+    for base in ((c.gx, c.gy), point_mul(c, 1 << 128, (c.gx, c.gy))):
+        pts, acc = [], None
+        for _ in range(16):
+            acc = point_add(c, acc, base)
+            pts.append(acc)
+        rows += [x for x, _ in pts] + [y for _, y in pts]
+    return np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in rows], dtype=np.uint32)
 
 
 def tables_from_jax(g_comb_table_glv: np.ndarray, glv_params) -> RecoverTables:

@@ -105,7 +105,9 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
     with pytest.raises(ValueError):
         _kernels.secp256k1_recover(z, z, z, v, comb)
     with pytest.raises(ValueError):
-        _kernels.secp256k1_verify(z, z, z, z, z, comb)
+        _kernels.secp256k1_verify(
+            torch.zeros((4, 160), dtype=torch.uint8), torch.zeros((64, 8), dtype=torch.int32)
+        )
     with pytest.raises(ValueError):
         _kernels.sm2_verify(z, z, z, z, z, torch.zeros((30, 8), dtype=torch.int32))
     assert _kernels.LAUNCHES == before  # a refused call is not a launch

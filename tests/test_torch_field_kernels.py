@@ -161,7 +161,14 @@ def test_kernel_launch_design(name):
     assert int(threads.group(2)) == 32
     assert f"__launch_bounds__({threads.group(1)}, 1)" in src
     assert "extern __shared__ uint4 s_slots[];" in src
-    assert re.search(r"#define\s+\w+_SMEM_BYTES\s+\(SLOT_WORDS \* 4 \* \w+_THREADS\)", src)
+    # verify has its own slots (16 table entries); recover and SM2 keep the
+    # shared count (15 entries), so their shared memory does not grow
+    slot_words = "VERIFY_SLOT_WORDS" if name == "secp256k1_verify" else "SLOT_WORDS"
+    assert re.search(rf"#define\s+\w+_SMEM_BYTES\s+\({slot_words} \* 4 \* \w+_THREADS\)", src)
+    assert "S_TAB, S_COUNT = S_TAB + 45" in headers and "#define SLOT_WORDS (S_COUNT * 8)" in headers
+    if name == "secp256k1_verify":
+        assert "#define VERIFY_TAB 16" in src and "#define VERIFY_SLOTS (S_TAB + 3 * VERIFY_TAB)" in src
+        assert "#define VERIFY_SLOT_WORDS (VERIFY_SLOTS * 8)" in src
     launch = src[src.index(f'extern "C" int {name}_launch'):]
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in launch
     assert launch.count("err = ") == launch.count("if (err != cudaSuccess) return (int)err;") == 3

@@ -1,6 +1,8 @@
 """Port secp256k1 verification (plain PyTorch) against the JAX package's
 verify_batch at one 32-lane bucket, on valid lanes and every invalid kind,
-plus the CUDA verify kernel's arithmetic built as host C++ (the kernel
+plus the CUDA verify kernel's arithmetic built as host C++ on its byte-row
+layout, its divstep s^-1 and signed 5-bit recoding against Python integers,
+and its 64-row comb against the reference point arithmetic (the kernel
 itself runs only on the card, through chip_smoke.py)."""
 
 import ctypes
@@ -14,7 +16,7 @@ from fisco_bcos_tpu.ops import secp256k1 as jsecp
 from fisco_bcos_tpu_torch import params
 from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
 from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
-from fisco_bcos_tpu_torch.ops import _kernels, bigint, secp256k1
+from fisco_bcos_tpu_torch.ops import _kernels, secp256k1
 
 C = ref.SECP256K1
 KERNEL_SRC = _kernels.SOURCES["secp256k1_verify"]
@@ -110,12 +112,20 @@ def host_kernel(tmp_path_factory):
     shim = d / "shim.cpp"
     shim.write_text(
         f'#include "{KERNEL_SRC}"\n'
-        'extern "C" void host_verify(const int32_t* z, const int32_t* r, const int32_t* s,\n'
-        "    const int32_t* qx, const int32_t* qy, const uint32_t* comb, uint8_t* ok, int n) {\n"
-        "  u32 slots[SLOT_WORDS];  // one lane's slots, stride 1\n"
+        'extern "C" void host_verify(const uint8_t* rows, const uint32_t* comb, uint8_t* ok, int n) {\n'
+        "  u32 slots[VERIFY_SLOT_WORDS];  // one lane's slots, stride 1\n"
         "  for (int i = 0; i < n; i++)\n"
-        "    verify_lane(z + 16 * i, r + 16 * i, s + 16 * i, qx + 16 * i, qy + 16 * i,\n"
-        "                (const u32 (*)[8])comb, slots, 1, ok + i);\n"
+        "    verify_lane(rows + VERIFY_ROW_BYTES * i, (const u32 (*)[8])comb, slots, 1, ok + i);\n"
+        "}\n"
+        'extern "C" void host_inv(const u32* a, u32* r, int n) {\n'
+        "  for (int i = 0; i < n; i++) fn_inv_divstep(r + 8 * i, a + 8 * i);\n"
+        "}\n"
+        'extern "C" void host_digits(const u32* k, int* d, int n) {  // MSB first\n'
+        "  for (int i = 0; i < n; i++) {\n"
+        "    u32 w[5];\n"
+        "    win5_init(w, k + 5 * i);\n"
+        "    for (int j = 0; j < VERIFY_WINDOWS; j++) d[VERIFY_WINDOWS * i + j] = win5_next(w);\n"
+        "  }\n"
         "}\n"
     )
     lib_path = d / "libverify_host.so"
@@ -124,18 +134,17 @@ def host_kernel(tmp_path_factory):
         check=True, capture_output=True, timeout=300,
     )
     lib = ctypes.CDLL(str(lib_path))
-    lib.host_verify.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int]
-    comb = np.ascontiguousarray(params.default_tables().comb_words)
+    lib.host_verify.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.host_inv.argtypes = lib.host_digits.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    comb = np.ascontiguousarray(params.verify_comb_words())
 
     def run(hashes, rs, ss, pubs):
-        limbs = [
-            np.ascontiguousarray(bigint.bytes_be_to_limbs(a).astype(np.int32))
-            for a in (hashes, rs, ss, pubs[:, :32], pubs[:, 32:])
-        ]
+        rows = secp256k1.verify_rows(hashes, rs, ss, pubs, len(hashes))
         ok = np.zeros(len(hashes), np.uint8)
-        lib.host_verify(*(a.ctypes.data for a in limbs), comb.ctypes.data, ok.ctypes.data, len(ok))
+        lib.host_verify(rows.ctypes.data, comb.ctypes.data, ok.ctypes.data, len(ok))
         return ok.astype(bool)
 
+    run.lib = lib
     return run
 
 
@@ -160,3 +169,57 @@ def test_kernel_arithmetic_on_host_matches_reference(host_kernel):
     ok = host_kernel(*_arrays(rows))
     assert ok.tolist() == _oracle(rows)
     assert ok[0::4].all() and ok[3::4].all()
+
+
+def _words(vals, nw: int) -> np.ndarray:
+    return np.ascontiguousarray(
+        [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)] for v in vals], dtype=np.uint32
+    )
+
+
+def test_divstep_inverse_matches_python(host_kernel):
+    """The kernel's safegcd s^-1 equals pow(s, -1, n) on edge values (long
+    runs of 0 and 1 bits among them) and 200 seeded random ones; s = 0
+    returns 0 without a fault."""
+    rng = np.random.default_rng(0x5AFE6CD)
+    runs = [(1 << 200) - 1, ((1 << 128) - 1) << 100, (1 << 255) | 1, C.n - (1 << 129)]
+    vals = [0, 1, 2, C.n - 1, C.n - 2, 1 << 255] + runs
+    vals += [int.from_bytes(rng.bytes(32), "big") % C.n for _ in range(200)]
+    a = _words(vals, 8)
+    out = np.zeros_like(a)
+    host_kernel.lib.host_inv(a.ctypes.data, out.ctypes.data, len(vals))
+    got = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in out]
+    assert got == [pow(v, -1, C.n) if v else 0 for v in vals]
+
+
+def test_signed_window_recoding_matches_python(host_kernel):
+    """27 digits, MSB first, each in [-15, 16], with sum d_i·32^i = k, for
+    edge scalars and seeded random GLV halves (ka, kb) and u1 halves."""
+    from fisco_bcos_tpu_torch.ops.ec import glv_params
+
+    P = glv_params()
+    rng = np.random.default_rng(0xD161)
+    all16 = sum(16 << (5 * i) for i in range(26))
+    ks = [0, 1, 15, 16, 17, 31, (1 << 130) - 1, (1 << 128) - 1, all16, all16 >> 5]
+    for _ in range(64):
+        u2 = int.from_bytes(rng.bytes(32), "big") % C.n
+        c1, c2 = (u2 * P.g1) >> 448, (u2 * P.g2) >> 448
+        ks += [abs(u2 - (c1 * P.a1 + c2 * P.a2)), abs(c1 * P.b1_abs - c2 * P.b2)]
+        u1 = int.from_bytes(rng.bytes(32), "big") % C.n
+        ks += [u1 & ((1 << 128) - 1), u1 >> 128]
+    k_words = _words(ks, 5)
+    digits = np.zeros((len(ks), 27), np.int32)
+    host_kernel.lib.host_digits(k_words.ctypes.data, digits.ctypes.data, len(ks))
+    assert digits.min() >= -15 and digits.max() <= 16
+    assert [sum(int(d) << (5 * (26 - j)) for j, d in enumerate(row)) for row in digits] == ks
+
+
+def test_verify_comb_matches_reference_points():
+    """The 64-row comb: x then y of c·G, then of c·2^128·G, c = 1..16."""
+    words = params.verify_comb_words()
+    assert words.shape == (64, 8) and words.dtype == np.uint32
+    vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in words]
+    for j, base in enumerate((1, 1 << 128)):
+        for c in range(1, 17):
+            x, y = ref.point_mul(C, c * base, (C.gx, C.gy))
+            assert vals[32 * j + c - 1] == x and vals[32 * j + 16 + c - 1] == y
