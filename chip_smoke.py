@@ -31,19 +31,32 @@ exits non-zero, printing no result, without them. In order it:
    times the kernel, its plain version, ``sm2.verify_batch``,
    ``admit_batch_sm``, its stages and the card's busy time in one profiled
    call;
-6. with ``--parent DIR`` (another checkout, for example the parent commit
+6. the hash kernels (keccak-256, SM3): each held against its plain version
+   and the host oracle (the port's ``crypto/ref`` hashes) on every lane of
+   a seeded mixed block of 4,096 messages of 0-700 bytes (every padding
+   edge included), of ``[B, 64]`` and ``[B, 210]`` row blocks and of the
+   10,240 97-byte payloads, which also time each kernel, its plain version
+   and its bound; ``merkle_root`` of each hasher at 1, 16, 257, 4,097 and
+   10,240 leaves against a host oracle tree and the plain path, proofs of
+   the 10,240-leaf tree, and its time and launches (one a level). The
+   admission paths of phases 3 and 5 run their hashes through these
+   kernels, with every plain hash made to raise while the counted run is
+   driven, and their launch counts are checked: ``admit_batch`` keccak256
+   2 and secp256k1_recover 1, ``admit_batch_sm`` sm3 4 and sm2_verify 1;
+7. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
    byte-row redesign takes five limb tensors and the 60-row comb): equal
-   on every lane, timed in turns parent, new, new, parent;
-7. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
+   on every lane, timed in turns parent, new, new, parent; a kernel the
+   parent lacks is not timed against it;
+8. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
    the cycles one warp spends on each field op and group-law op, on an
    inversion mod n (Fermat and safegcd divsteps) and on an SM2 product as
    the loop body around it grows (``clock64()``);
-8. prints every figure beside the card's name and power limit, one JSON
+9. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line.
 
 After the build it prints each kernel's registers, stack and spills
@@ -57,6 +70,7 @@ traceback and a non-zero exit code.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import random
@@ -107,6 +121,23 @@ MULS_MM_SQR = 2 * 36
 MULS_MM_R2 = 2 * 8 * 6  # R^2 mod p has 6 words other than 0/1
 MULS_MM_R1 = 2 * 8 * 1  # R mod p (the table's Z = 1) has 1
 # out of the Montgomery domain, a product by 1, is a reduction alone: no work
+
+# The hash kernels (csrc/keccak256.cuh, csrc/sm3.cuh) have no multiply: their
+# bound counts the 32-bit integer instructions a permutation or compression
+# needs, a 3-input logic op (LOP3), a funnel shift or a 3-input add each as
+# one, at the same 64 a clock a SM (INT32_MUL_PER_S).
+# keccak-f[1600] on 32-bit lane halves, a round: the 5 column parities (2
+# LOP3 a half), their rotations by 1 (2 shifts), each lane ^ c[x-1] ^
+# rotl(c[x+1], 1) (a LOP3 a half), rho's 24 rotations (2 shifts), chi (a
+# LOP3 a half), iota (2); and a block's 17 rate lanes absorbed.
+KECCAK_ROUND_OPS = 5 * 2 * 2 + 5 * 2 + 25 * 2 + 24 * 2 + 25 * 2 + 2
+KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS + 17 * 2
+# SM3, a round: a <<< 12; SS1 (a 3-input add, a rotation); SS2; FF; GG;
+# W[j] ^ W[j+4]; TT1 and TT2 (two 3-input adds each); b <<< 9, f <<< 19; P0
+# (two shifts, a LOP3). The schedule's 52 words, 7 each (P1's two shifts and
+# LOP3, two more rotations and LOP3s). The chaining value's 8 XORs.
+SM3_ROUND_OPS = 1 + 2 + 1 + 1 + 1 + 1 + 2 + 2 + 2 + 3
+SM3_COMPRESS_OPS = 64 * SM3_ROUND_OPS + 52 * 7 + 8
 
 
 def log(*args) -> None:
@@ -509,20 +540,55 @@ def check_mixed_block(cases, device) -> int:
     return err
 
 
-def run_main_path(block, device) -> tuple[dict, float]:
-    """The main path: admit_batch on the 10,240-tx block on the default
-    device, launch counters zeroed just before and read just after, its
-    outputs held against the host oracle. Returns the launch counts and the
-    median end-to-end ms of warm calls."""
-    from fisco_bcos_tpu_torch.crypto.admission import admit_batch
+@contextlib.contextmanager
+def plain_hashes_forbidden():
+    """While open, every plain hash of the port raises: a counted path run
+    inside it shows that no plain hash runs on a CUDA path."""
+    from fisco_bcos_tpu_torch.ops import keccak, sm3
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a plain hash ran on a CUDA path")
+
+    names = ((keccak, "keccak256_packed_plain"), (keccak, "keccak256_lanes"),
+             (sm3, "sm3_packed_plain"), (sm3, "sm3_blocks"))
+    saved = [getattr(mod, name) for mod, name in names]
+    for mod, name in names:
+        setattr(mod, name, refuse)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(names, saved):
+            setattr(mod, name, fn)
+
+
+def counted_run(fn, expected: dict, what: str):
+    """`fn()` with every launch counter set to 0 just before and read just
+    after, no plain hash allowed; each kernel of `expected` must have made
+    exactly its launches. Returns (fn's result, the counts)."""
     from fisco_bcos_tpu_torch.ops import _kernels
 
-    payloads, sigs65, picked = tile(block, BLOCK_TXS)
     _kernels.reset_launches()
-    out = admit_batch(payloads, sigs65)
+    with plain_hashes_forbidden():
+        out = fn()
     launches = dict(_kernels.LAUNCHES)
-    if launches["secp256k1_recover"] == 0:
-        raise AssertionError("kernel secp256k1_recover was not launched on the main path")
+    for name, n in expected.items():
+        if launches[name] != n:
+            raise AssertionError(f"kernel {name} launched {launches[name]} times on {what}, not {n}")
+    return out, launches
+
+
+def run_main_path(block, device) -> tuple[dict, float]:
+    """The main path: admit_batch on the 10,240-tx block on the default
+    device, counted (counted_run: the tx hash and sender through the keccak
+    kernel, recovery through the recover kernel), its outputs held against
+    the host oracle. Returns the launch counts and the median end-to-end ms
+    of warm calls."""
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch
+
+    payloads, sigs65, picked = tile(block, BLOCK_TXS)
+    out, launches = counted_run(
+        lambda: admit_batch(payloads, sigs65), {"keccak256": 2, "secp256k1_recover": 1}, "admit_batch"
+    )
     check_outputs(out, expected_admission(picked), "main path's block")
     log(f"main path: admit_batch on {BLOCK_TXS} txs == host oracle ({int(out[1].sum())} ok); "
         f"launches {launches}")
@@ -562,7 +628,7 @@ def admission_stages(block, device) -> dict[str, float]:
     from fisco_bcos_tpu_torch.crypto import admission
     from fisco_bcos_tpu_torch.ops import keccak, secp256k1
     from fisco_bcos_tpu_torch.ops.address import sender_address_device
-    from fisco_bcos_tpu_torch.ops.bigint import digest_words_le_to_limbs
+    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs_device
 
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
     st: dict = {}
@@ -574,11 +640,10 @@ def admission_stages(block, device) -> dict[str, float]:
         st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
 
     def tx_hash():
-        blocks, nblocks = st["dev"][:2]
-        st["z"] = digest_words_le_to_limbs(keccak.keccak256_blocks(blocks, nblocks))
+        st["z"] = bytes_be_to_limbs_device(keccak.keccak256_packed(*st["dev"][:3]))
 
     def recover():
-        st["q"] = secp256k1.recover_device(st["z"], *st["dev"][2:])
+        st["q"] = secp256k1.recover_device(st["z"], *st["dev"][3:])
 
     def address():
         st["addr"] = sender_address_device(st["q"][0], st["q"][1])
@@ -841,11 +906,12 @@ def measure_verify_kernel(rows, device) -> dict:
     )
 
 
-def kernel_row(name, source, replaces, kernel_ms, muls, io_bytes) -> dict:
+def kernel_row(name, source, replaces, kernel_ms, ops, io_bytes, ops_kind="int32 multiplies") -> dict:
     """A kernel's line: its time, and its bound from this run's inputs —
-    the larger of its int32 multiplies over the issue rate and its bytes
-    (each input read once, each output written once) over HBM's rate."""
-    ops_ms = muls / INT32_MUL_PER_S * 1e3
+    the larger of its counted integer operations (`ops_kind`) over the
+    issue rate and its bytes (each input read once, each output written
+    once) over HBM's rate."""
+    ops_ms = ops / INT32_MUL_PER_S * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     return {
         "name": name,
@@ -856,9 +922,10 @@ def kernel_row(name, source, replaces, kernel_ms, muls, io_bytes) -> dict:
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         # no single PyTorch call computes ECDSA recovery, ECDSA or SM2
-        # verification: nothing to time beside the kernels
+        # verification, keccak-256 or SM3: nothing to time beside the kernels
         "library_ms": None,
-        "int32_multiplies": muls,
+        "ops": ops,
+        "ops_kind": ops_kind,
     }
 
 
@@ -962,11 +1029,12 @@ def sm2_device_inputs(payloads, sigs128, device):
 
     from fisco_bcos_tpu_torch.crypto import admission
     from fisco_bcos_tpu_torch.ops import sm2, sm3
+    from fisco_bcos_tpu_torch.ops.address import pubkey_rows
 
-    blocks, nblocks, za_blk, za_n, r, s, qx, qy = (
+    data, starts, lengths, r, s, qx, qy = (
         torch.from_numpy(a).to(device) for a in admission.host_inputs_sm(payloads, sigs128)
     )
-    e = sm2.e_device(sm3.sm3_blocks(blocks, nblocks), za_blk, za_n)
+    e = sm2.e_device(sm3.sm3_packed(data, starts, lengths), pubkey_rows(qx, qy))
     return [e, r, s, qx, qy]
 
 
@@ -1010,22 +1078,20 @@ def check_sm2_mixed_block(rows, device) -> tuple[int, float]:
     return err, plain_ms
 
 
-def run_sm_path(rows) -> tuple[int, float]:
-    """The SM admission path: admit_batch_sm on the timed block, launch
-    counters zeroed just before and read just after, outputs against the
-    host oracle. Returns (launches of the SM2 kernel, median ms)."""
+def run_sm_path(rows) -> tuple[dict, float]:
+    """The SM admission path: admit_batch_sm on the timed block, counted
+    (counted_run: the tx hash, ZA, e and the sender through the SM3 kernel,
+    verification through the SM2 kernel), outputs against the host oracle.
+    Returns (the launch counts, median ms)."""
     from fisco_bcos_tpu_torch.crypto.admission import admit_batch_sm
-    from fisco_bcos_tpu_torch.ops import _kernels
 
     payloads, sigs128, picked = sm2_tile(rows, BLOCK_TXS)
-    _kernels.reset_launches()
-    out = admit_batch_sm(payloads, sigs128)
-    launches = _kernels.LAUNCHES["sm2_verify"]
-    if launches == 0:
-        raise AssertionError("kernel sm2_verify was not launched on the SM admission path")
+    out, launches = counted_run(
+        lambda: admit_batch_sm(payloads, sigs128), {"sm3": 4, "sm2_verify": 1}, "admit_batch_sm"
+    )
     check_outputs(out, expected_admission_sm(picked), "timed block", "admit_batch_sm")
     log(f"SM admission path: admit_batch_sm on {BLOCK_TXS} txs == host oracle "
-        f"({int(out[1].sum())} ok); launches {dict(_kernels.LAUNCHES)}")
+        f"({int(out[1].sum())} ok); launches {launches}")
     return launches, host_ms(lambda: admit_batch_sm(payloads, sigs128), reps=5)
 
 
@@ -1063,8 +1129,8 @@ def sm_admission_stages(rows, device) -> dict[str, float]:
 
     from fisco_bcos_tpu_torch.crypto import admission
     from fisco_bcos_tpu_torch.ops import sm2, sm3
-    from fisco_bcos_tpu_torch.ops.address import sm3_sender_address_device
-    from fisco_bcos_tpu_torch.ops.bigint import words_be_to_limbs
+    from fisco_bcos_tpu_torch.ops.address import pubkey_rows, sm3_sender_address_device
+    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs_device
 
     payloads, sigs128, _ = sm2_tile(rows, BLOCK_TXS)
     st: dict = {}
@@ -1076,25 +1142,49 @@ def sm_admission_stages(rows, device) -> dict[str, float]:
         st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
 
     def tx_hash():
-        st["h"] = sm3.sm3_blocks(*st["dev"][:2])
+        st["h"] = sm3.sm3_packed(*st["dev"][:3])
 
     def sm2_e():
-        st["e"] = sm2.e_device(st["h"], *st["dev"][2:4])
+        st["e"] = sm2.e_device(st["h"], pubkey_rows(*st["dev"][5:7]))
 
     def verify():
-        st["ok"] = sm2.verify_device(st["e"], *st["dev"][4:])
+        st["ok"] = sm2.verify_device(st["e"], *st["dev"][3:])
 
     def address():
         ok = st["ok"][:, None]
-        st["q"] = [torch.where(ok, q, torch.zeros_like(q)) for q in st["dev"][6:8]]
+        st["q"] = [torch.where(ok, q, torch.zeros_like(q)) for q in st["dev"][5:7]]
         st["addr"] = sm3_sender_address_device(*st["q"])
 
     def pack_download():
-        z = words_be_to_limbs(st["h"])
+        z = bytes_be_to_limbs_device(st["h"])
         admission.pack_admission_device(st["addr"], st["ok"], *st["q"], z).cpu()
 
     stages = (host_pad, upload, tx_hash, sm2_e, verify, address, pack_download)
     return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
+
+
+def kernel_device_ms(fn, reps: int = 20) -> tuple[float, int] | None:
+    """The device time of one kernel launch of `fn`, without the launch:
+    the median duration of the device events in one torch.profiler trace of
+    `reps` warm calls, and how many events the trace holds (None when it
+    holds none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"]
+    return (statistics.median(spans) / 1e3, len(spans)) if spans else None
+
+
+def show_device_ms(m: tuple[float, int] | None) -> str:
+    return "not measured" if m is None else f"{m[0]:.4f} ms ({m[1]} events)"
 
 
 def log_busy(card: str, what: str, fn) -> None:
@@ -1104,6 +1194,160 @@ def log_busy(card: str, what: str, fn) -> None:
             f"{wall:.2f} ms wall (device idle share {1 - busy / wall:.3f})")
     else:
         log(f"[{card}] {what} device busy: not measured (no device events in the trace)")
+
+
+# ---------------------------------------------------------------------------
+# Hash kernels and the merkle root
+# ---------------------------------------------------------------------------
+
+HASH_KERNELS = ("keccak256", "sm3")
+HASH_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 135, 136, 137, 271, 272, 512)
+HASH_MIXED = 4096  # messages of the mixed hash block, 0-700 bytes
+MERKLE_LEAVES = (1, 16, 257, 4097, BLOCK_TXS)
+
+
+def hash_fns(name: str):
+    """(kernel entry, plain version, host oracle, blocks a message of n
+    bytes takes, operations a block, JAX function replaced) of a hash
+    kernel."""
+    from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+    from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3 as ref_sm3
+    from fisco_bcos_tpu_torch.ops import keccak, sm3
+
+    if name == "keccak256":
+        return (keccak.keccak256_packed, keccak.keccak256_packed_plain, keccak256,
+                lambda n: n // 136 + 1, KECCAK_F_OPS, "fisco_bcos_tpu/ops/keccak.py:132")
+    return (sm3.sm3_packed, sm3.sm3_packed_plain, ref_sm3,
+            lambda n: (n + 8) // 64 + 1, SM3_COMPRESS_OPS, "fisco_bcos_tpu/ops/sm3.py:92")
+
+
+def hash_mixed_messages() -> list[bytes]:
+    """The mixed hash block: every padding edge, then seeded lengths of
+    0-700 bytes."""
+    rng = random.Random(SEED + 4)
+    lengths = list(HASH_EDGE_LENGTHS) + [rng.randrange(701) for _ in range(HASH_MIXED - len(HASH_EDGE_LENGTHS))]
+    return [rng.randbytes(n) for n in lengths]
+
+
+def check_hash_lanes(name: str, args, msgs, what: str) -> tuple[int, float]:
+    """A hash kernel == its plain version == the host oracle on every lane
+    of the packed batch `args` holding `msgs`. Returns (largest difference
+    from the plain version, plain ms)."""
+    kernel, plain, oracle = hash_fns(name)[:3]
+    got, err, plain_ms = compare_and_time(kernel, plain, args, name, what)
+    got = got.cpu().numpy()
+    memo: dict = {}
+    for i, m in enumerate(msgs):
+        if m not in memo:
+            memo[m] = oracle(m)
+        if bytes(got[i]) != memo[m]:
+            raise AssertionError(f"{name} kernel != host oracle on the {what}, lane {i} ({len(m)} bytes)")
+    return err, plain_ms
+
+
+def check_hash_kernels(device) -> dict[str, int]:
+    """Each hash kernel on the mixed block and on [B, 64] and [B, 210] row
+    blocks (the sender's and ZA's forms). Returns each kernel's largest
+    difference from its plain version."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops.hash_common import rows_as_packed, upload_packed
+
+    mixed = hash_mixed_messages()
+    gen = np.random.default_rng(SEED + 5)
+    rows = {w: gen.integers(0, 256, (HASH_MIXED, w), dtype=np.uint8) for w in (64, 210)}
+    errs = {}
+    for name in HASH_KERNELS:
+        errs[name], _ = check_hash_lanes(name, upload_packed(mixed, device), mixed, "mixed hash block")
+        for w, r in rows.items():
+            args = rows_as_packed(torch.from_numpy(r).to(device))
+            err, _ = check_hash_lanes(name, args, [bytes(x) for x in r], f"[{HASH_MIXED}, {w}] row block")
+            errs[name] = max(errs[name], err)
+        log(f"{name}: kernel == plain == host oracle on the mixed block ({HASH_MIXED} messages of "
+            f"0-700 bytes) and on [{HASH_MIXED}, 64] and [{HASH_MIXED}, 210] row blocks")
+    return errs
+
+
+def measure_hash_kernel(name: str, payloads, device) -> dict:
+    """A hash kernel on the main path's payloads (the 10,240 97-byte tx
+    payloads): equal to its plain version and the host oracle on every
+    lane, both timed, and its bound from these messages' blocks."""
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    _, _, _, blocks, block_ops, replaces = hash_fns(name)
+    args = upload_packed(payloads, device)
+    err, plain_ms = check_hash_lanes(name, args, payloads, "timed payload block")
+    kernel = hash_fns(name)[0]
+    kernel_ms = cuda_ms(lambda: kernel(*args))
+    device_ms = kernel_device_ms(lambda: kernel(*args))
+    n_bytes = sum(len(p) for p in payloads)
+    row = kernel_row(
+        name, f"fisco_bcos_tpu_torch/csrc/{name}.cu", replaces, kernel_ms,
+        sum(blocks(len(p)) for p in payloads) * block_ops,
+        io_bytes=n_bytes + len(payloads) * (8 + 4 + 32), ops_kind="int32 instructions",
+    )
+    row.update(max_abs_err=err, plain_ms=plain_ms, device_ms=device_ms)
+    return row
+
+
+def oracle_merkle_root(leaves, hasher: str, width: int = 16) -> bytes:
+    """The host oracle of merkle_root, built with the port's crypto/ref
+    hashes: the leaves zero-filled to their bucket, groups of `width`
+    (the last one short), and H(padded root ‖ u64be(n))."""
+    from fisco_bcos_tpu_torch.ops.merkle import bucket_leaves
+
+    h = hash_fns(hasher)[2]
+    n = len(leaves)
+    level = [bytes(x) for x in leaves] + [bytes(32)] * (bucket_leaves(n) - n)
+    while len(level) > 1:
+        level = [h(b"".join(level[i : i + width])) for i in range(0, len(level), width)]
+    return h(level[0] + n.to_bytes(8, "big"))
+
+
+def check_merkle(card: str, device) -> None:
+    """merkle_root of each hasher at MERKLE_LEAVES leaves == the host
+    oracle == the plain path, leaves given as numpy and on the card; the
+    10,240-leaf tree's proofs; the 10,240-leaf root's launches (one a
+    level) and time."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import merkle
+
+    gen = np.random.default_rng(SEED + 6)
+    for hasher in HASH_KERNELS:
+        for n in MERKLE_LEAVES:
+            leaves = gen.integers(0, 256, (n, 32), dtype=np.uint8)
+            on_card = torch.from_numpy(leaves).to(device)
+            roots = {
+                "oracle": oracle_merkle_root(leaves, hasher),
+                "card": merkle.merkle_root(leaves, hasher=hasher),
+                "card leaves": merkle.merkle_root(on_card, hasher=hasher),
+                "plain": merkle.merkle_root(leaves, hasher=hasher, device="cpu"),
+            }
+            if len(set(roots.values())) != 1:
+                raise AssertionError(f"{hasher} merkle roots differ at {n} leaves: {roots}")
+        # the largest tree (the last of MERKLE_LEAVES): proofs, launches, time
+        tree = merkle.MerkleTree(leaves, hasher=hasher)
+        if tree.root != roots["oracle"]:
+            raise AssertionError(f"{hasher} MerkleTree root != oracle at {n} leaves")
+        for i in (0, n // 2 + 1, n - 1):
+            proof = tree.proof(i)
+            if not merkle.MerkleTree.verify_proof(bytes(leaves[i]), i, n, proof, tree.root, hasher=hasher):
+                raise AssertionError(f"{hasher} proof of leaf {i} rejected")
+            if merkle.MerkleTree.verify_proof(bytes(leaves[i]), i ^ 1, n, proof, tree.root, hasher=hasher):
+                raise AssertionError(f"{hasher} proof of leaf {i} accepted at another position")
+        levels = len(tree.levels) - 1
+        _, launches = counted_run(
+            lambda: merkle.merkle_root(on_card, hasher=hasher), {hasher: levels}, f"merkle_root ({hasher})"
+        )
+        ms = host_ms(lambda: merkle.merkle_root(on_card, hasher=hasher), reps=5)
+        bind_ms = host_ms(lambda: merkle.bind_root(tree.padded_root, n, hasher), reps=5)
+        log(f"[{card}] merkle_root ({hasher}, width 16) == host oracle == plain path at "
+            f"{', '.join(map(str, MERKLE_LEAVES))} leaves; proofs of the {n}-leaf tree verify; "
+            f"{n} leaves on the card: {ms:.3f} ms, {launches[hasher]} launches ({levels} levels), "
+            f"of which the root binding on the host {bind_ms:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1123,8 +1367,10 @@ def load_kernels_module(checkout: str):
 
 
 def timed_kernel_args(device, block, verify_block, sm_block) -> dict:
-    """Each kernel's wrapper arguments on its timed block, comb included."""
+    """Each kernel's wrapper arguments on its timed block, comb included;
+    the hash kernels' on the tx payloads."""
     from fisco_bcos_tpu_torch.ops import secp256k1, sm2
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
 
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
     *arrays, _ = verify_arrays(verify_block, BLOCK_TXS)
@@ -1133,6 +1379,8 @@ def timed_kernel_args(device, block, verify_block, sm_block) -> dict:
         "secp256k1_recover": (*recover_inputs(payloads, sigs65, device), secp256k1.comb_words(device)),
         "secp256k1_verify": (verify_row_tensor(*arrays, device), secp256k1.verify_comb_words(device)),
         "sm2_verify": (*sm2_device_inputs(sm_payloads, sigs128, device), sm2.comb_words(device)),
+        "keccak256": upload_packed(payloads, device),
+        "sm3": upload_packed(sm_payloads, device),
     }
 
 
@@ -1157,6 +1405,12 @@ def parent_kernel_args(parent, device, verify_block) -> dict:
     return {"secp256k1_verify": (*verify_limbs(*arrays, device), secp256k1.comb_words(device))}
 
 
+def kernel_wrapper(kernels, name: str):
+    """A kernels module's wrapper of kernel `name` (a hash kernel's is
+    `<name>_packed`)."""
+    return getattr(kernels, name, None) or getattr(kernels, f"{name}_packed")
+
+
 def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) -> None:
     """Each kernel and the parent checkout's on the same timed block (each
     fed its own input layout, from `parent_args` where the layouts differ):
@@ -1167,7 +1421,10 @@ def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) 
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
-        new, old = getattr(_kernels, name), getattr(parent, name)
+        if name not in parent.SOURCES:
+            log(f"[{card}] {name}: the parent checkout has no such kernel; not timed against it")
+            continue
+        new, old = kernel_wrapper(_kernels, name), kernel_wrapper(parent, name)
         old_args = parent_args.get(name, args)
         got, want = new(*args), old(*old_args)
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -1206,17 +1463,20 @@ def sass_by_function(lib: Path) -> dict[str, int]:
 
 def lane_scaling(card: str, timed_args: dict) -> None:
     """Each kernel on the first 32, 4,224 and 10,240 lanes of its timed
-    block: one warp, one warp a SM, the block."""
+    block (one warp, one warp a SM, the block): CUDA-event time a call, and
+    the device time of its kernel alone (profiler)."""
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
-        fn = getattr(_kernels, name)
-        times = []
+        fn = kernel_wrapper(_kernels, name)
+        times, device = [], []
         for n in (32, 132 * 32, BLOCK_TXS):
             part = tuple(a[:n] if a.shape[0] == BLOCK_TXS else a for a in args)
             times.append(cuda_ms(lambda: fn(*part)))
+            device.append(kernel_device_ms(lambda: fn(*part)))
         log(f"[{card}] {name} at 32 / 4,224 / {BLOCK_TXS:,} lanes: "
-            + " / ".join(f"{t:.4f}" for t in times) + " ms")
+            + " / ".join(f"{t:.4f}" for t in times) + " ms a call; the kernel alone (profiler) "
+            + " / ".join(map(show_device_ms, device)))
 
 
 def build_field_bench(checkout: str | Path) -> Path:
@@ -1295,9 +1555,12 @@ ROW_KEYS = (
 
 
 def log_kernel(card: str, row: dict) -> None:
+    if "device_ms" in row:
+        log(f"[{card}] {row['name']} @ {BLOCK_TXS} lanes: the kernel alone, median over a profiled "
+            f"run of 20 calls: {show_device_ms(row['device_ms'])}")
     log(f"[{card}] {row['name']} @ {BLOCK_TXS} lanes: kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.1f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}, {row['int32_multiplies']} int32 multiplies), "
+        f"({row['bound_by']}, {row['ops']} {row['ops_kind']}), "
         f"{row['launches']} launch(es) on its path")
 
 
@@ -1325,7 +1588,7 @@ def main() -> int:
     if args.parent:
         checkouts["parent"] = Path(args.parent)
     builds = [lambda n=n: _kernels.build(n) for n in names]
-    builds += [lambda n=n: parent.build(n) for n in names] if parent else []
+    builds += [lambda n=n: parent.build(n) for n in names if n in parent.SOURCES] if parent else []
     builds += [lambda c=c: build_field_bench(c) for c in checkouts.values()]
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all started together
         results = list(pool.map(lambda f: f(), builds))
@@ -1394,7 +1657,7 @@ def main() -> int:
     sm_mixed_err, _ = check_sm2_mixed_block(sm_cases, device)
     sm_launches, sm_admit_ms = run_sm_path(sm_block)
     sm2_row, sm2_verify_batch_ms = measure_sm2(sm_block, device)
-    sm2_row.update(launches=sm_launches, max_abs_err=max(sm2_row["max_abs_err"], sm_mixed_err))
+    sm2_row.update(launches=sm_launches["sm2_verify"], max_abs_err=max(sm2_row["max_abs_err"], sm_mixed_err))
     log_kernel(card, sm2_row)
     log(f"[{card}] sm2.verify_batch @ {BLOCK_TXS} signatures: {sm2_verify_batch_ms:.2f} ms "
         f"end to end ({BLOCK_TXS / sm2_verify_batch_ms * 1e3:.0f} verifies/s)")
@@ -1406,13 +1669,26 @@ def main() -> int:
     sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
     log_busy(card, "admit_batch_sm", lambda: admit_batch_sm(sm_payloads, sigs128))
 
+    # -- hash kernels and the merkle root --
+    hash_errs = check_hash_kernels(device)
+    hash_rows = []
+    for name, path_payloads, path_launches in (
+        ("keccak256", payloads, launches), ("sm3", sm_payloads, sm_launches)
+    ):
+        row = measure_hash_kernel(name, path_payloads, device)
+        row.update(launches=path_launches[name], max_abs_err=max(row["max_abs_err"], hash_errs[name]))
+        log_kernel(card, row)
+        hash_rows.append(row)
+    check_merkle(card, device)
+
     timed_args = timed_kernel_args(device, block, verify_block, sm_block)
     if parent:
         time_against_parent(card, parent, timed_args, parent_kernel_args(parent, device, verify_block))
     lane_scaling(card, timed_args)
     field_bench(card, bench_libs)
 
-    log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in (recover, verify, sm2_row)]}))
+    rows = (recover, verify, sm2_row, *hash_rows)
+    log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))
     log(json.dumps({
         "ok": True,
         "device": {

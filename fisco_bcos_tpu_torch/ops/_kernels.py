@@ -33,6 +33,8 @@ SOURCES = {
     "secp256k1_recover": CSRC / "secp256k1_recover.cu",
     "secp256k1_verify": CSRC / "secp256k1_verify.cu",
     "sm2_verify": CSRC / "sm2_verify.cu",
+    "keccak256": CSRC / "keccak256.cu",
+    "sm3": CSRC / "sm3.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -258,3 +260,49 @@ def sm2_verify(e, r, s, qx, qy, comb):
     _check_launch(lib, "sm2_verify", err)
     LAUNCHES["sm2_verify"] += 1
     return ok
+
+
+# data, starts, lengths, out pointers; messages; bytes of data; CUDA device index; stream
+_HASH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def _packed_hash(name: str, data, starts, lengths):
+    """Launch hash kernel `name` over a packed batch: message i is
+    data[starts[i] : starts[i] + lengths[i]]. data uint8 [N], starts int64
+    [B], lengths int32 [B], contiguous, on one CUDA device; every range must
+    lie inside data (the kernel reads no byte outside it and gives a lane
+    whose range does not a zero digest). Returns the digests, [B, 32] uint8."""
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    b = starts.shape[0]
+    _require(data, "data", torch.uint8, (data.numel(),), dev)
+    _require(starts, "starts", torch.int64, (b,), dev)
+    _require(lengths, "lengths", torch.int32, (b,), dev)
+    out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+    if b == 0:
+        return out
+    lib = _library(name)
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = _HASH_ARGTYPES
+    launch.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = launch(
+            data.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, data.numel(), dev.index, _stream(dev),
+        )
+    _check_launch(lib, name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def keccak256_packed(data, starts, lengths):
+    """keccak-256 of each message of a packed batch on the card ([B, 32]
+    uint8); see :func:`_packed_hash`."""
+    return _packed_hash("keccak256", data, starts, lengths)
+
+
+def sm3_packed(data, starts, lengths):
+    """SM3 of each message of a packed batch on the card ([B, 32] uint8);
+    see :func:`_packed_hash`."""
+    return _packed_hash("sm3", data, starts, lengths)

@@ -74,43 +74,14 @@ def limbs_to_bytes_be(limbs: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _bswap32(w: torch.Tensor) -> torch.Tensor:
-    """Byte-swap 32-bit words held in int64 (values < 2^32)."""
-    return (
-        ((w & 0xFF) << 24)
-        | ((w & 0xFF00) << 8)
-        | ((w >> 8) & 0xFF00)
-        | ((w >> 24) & 0xFF)
-    )
-
-
-def digest_words_le_to_limbs(words: torch.Tensor) -> torch.Tensor:
-    """Keccak digest words ([..., 8] little-endian byte order, values
-    < 2^32, digest read as a big-endian 256-bit integer) -> [..., 16] int32
-    limbs."""
-    rc = _bswap32(words.to(torch.int64)).flip(-1)  # word 7 = least significant
-    lo = rc & 0xFFFF
-    hi = (rc >> 16) & 0xFFFF
-    return torch.stack([lo, hi], dim=-1).reshape(*words.shape[:-1], LIMBS).to(torch.int32)
+def bytes_be_to_limbs_device(data: torch.Tensor) -> torch.Tensor:
+    """[..., 32] big-endian byte values (a digest read as a 256-bit integer)
+    -> [..., 16] int32 limbs."""
+    pairs = data.to(torch.int32).reshape(*data.shape[:-1], 16, 2)
+    return (pairs[..., 0] * 256 + pairs[..., 1]).flip(-1)
 
 
 def limbs_to_bytes_device(limbs: torch.Tensor) -> torch.Tensor:
     """[..., 16] limbs -> [..., 32] big-endian byte values (input dtype)."""
     rev = limbs.flip(-1)
     return torch.stack([rev >> 8, rev & 0xFF], dim=-1).reshape(*limbs.shape[:-1], 32)
-
-
-def words_be_to_limbs(words: torch.Tensor) -> torch.Tensor:
-    """SM3 digest words ([..., 8] big-endian order, values < 2^32, digest
-    read as a big-endian 256-bit integer) -> [..., 16] int32 limbs."""
-    rc = words.to(torch.int64).flip(-1)  # word 7 = least significant
-    lo = rc & 0xFFFF
-    hi = (rc >> 16) & 0xFFFF
-    return torch.stack([lo, hi], dim=-1).reshape(*words.shape[:-1], LIMBS).to(torch.int32)
-
-
-def limbs_to_words_be(limbs: torch.Tensor) -> torch.Tensor:
-    """[..., 16] limbs -> [..., 8] int64 big-endian 32-bit words (the
-    inverse of :func:`words_be_to_limbs`)."""
-    l64 = limbs.to(torch.int64)
-    return (l64[..., 0::2] | (l64[..., 1::2] << 16)).flip(-1)

@@ -1,9 +1,16 @@
-"""Host-side batch padding for the device hash programs (the port's copy).
+"""Batch layouts of the hash functions (the port's copy of the JAX
+package's host padding, and the packed form the port's kernels take).
 
-A whole batch is padded into a dense ``[B, M, words]`` block tensor plus a
-per-lane block count; the device program runs over the M block slots and
-masks inactive lanes. B and M follow a bounded bucket ladder, the same as
-the JAX package's, so the two packages pad every batch identically.
+The packed form: one byte buffer plus per-message starts and lengths; the
+hash kernels pad each message themselves (:func:`pack_messages`,
+:func:`rows_as_packed`).
+
+The JAX padding: a whole batch padded into a dense ``[B, M, words]`` block
+tensor plus a per-lane block count; the device program runs over the M
+block slots and masks inactive lanes. B and M follow a bounded bucket
+ladder, the same as the JAX package's, so the two packages pad every batch
+identically. The tests hold the port's blocks-form functions against the
+JAX ones through it.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ import os
 from collections.abc import Sequence
 
 import numpy as np
+import torch
 
 
 def _bucket(n: int) -> int:
@@ -41,6 +49,49 @@ def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
         return a
     pad = np.zeros((rows - a.shape[0],) + a.shape[1:], dtype=a.dtype)
     return np.concatenate([a, pad], axis=0)
+
+
+def pack_messages(msgs: Sequence[bytes]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Messages (bytes-like) -> (data uint8 [N], starts int64 [B], lengths
+    int32 [B]): message i is data[starts[i] : starts[i] + lengths[i]]. One
+    join, no loop over the messages in Python."""
+    data = np.frombuffer(bytearray().join(msgs), dtype=np.uint8)
+    lengths = np.fromiter(map(len, msgs), dtype=np.int32, count=len(msgs))
+    starts = np.zeros(len(msgs), dtype=np.int64)
+    np.cumsum(lengths[:-1], out=starts[1:])
+    return data, starts, lengths
+
+
+def rows_as_packed(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A [B, L] uint8 tensor of equal-length messages as a packed batch on
+    its device: (data [B·L], starts = arange(B)·L int64, lengths = L int32)."""
+    rows = rows.contiguous()
+    bsz, length = rows.shape
+    starts = torch.arange(bsz, dtype=torch.int64, device=rows.device) * length
+    lengths = torch.full((bsz,), length, dtype=torch.int32, device=rows.device)
+    return rows.reshape(-1), starts, lengths
+
+
+def gather_padded(data, starts, lengths, block_bytes: int, nblocks) -> torch.Tensor:
+    """The messages of a packed batch as zero-filled rows of
+    nblocks.max() blocks: [B, M·block_bytes] int64 byte values."""
+    width = block_bytes * int(nblocks.max())
+    pos = torch.arange(width, device=data.device)
+    inside = pos < lengths[:, None]
+    idx = torch.where(inside, starts[:, None] + pos, data.numel())  # past the end: the zero
+    return torch.nn.functional.pad(data, (0, 1))[idx].to(torch.int64)
+
+
+def digest_bytes(words: torch.Tensor, shifts) -> torch.Tensor:
+    """[B, 8] 32-bit digest words -> [B, 32] uint8, each word's bytes taken
+    at `shifts`."""
+    shifts = torch.tensor(shifts, device=words.device)
+    return ((words[..., None] >> shifts) & 0xFF).reshape(words.shape[0], 32).to(torch.uint8)
+
+
+def upload_packed(msgs, dev) -> tuple[torch.Tensor, ...]:
+    """pack_messages(msgs) as tensors on `dev`."""
+    return tuple(torch.from_numpy(a).to(dev) for a in pack_messages(msgs))
 
 
 def pad_keccak(
@@ -98,23 +149,6 @@ def pad_md64(
         buf[len(msgs):, 0] = 0x80
     words = buf.view(">u4").reshape(b_pad, m_max, 16)
     return words.astype(np.uint32), nblocks
-
-
-def pad_md64_rows(data: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """:func:`pad_md64` for a [B, L] uint8 batch of equal-length messages,
-    vectorised and unbucketed: (blocks [B, M, 16] uint32 big-endian words,
-    nblocks [B] int32), M = (L + 8) // 64 + 1 exactly. The blocks a message
-    uses are the ones pad_md64 gives it; pad_md64's extra masked block slots
-    and pad rows change no digest."""
-    data = np.asarray(data, dtype=np.uint8)
-    bsz, length = data.shape
-    m = (length + 8) // 64 + 1
-    buf = np.zeros((bsz, m * 64), dtype=np.uint8)
-    buf[:, :length] = data
-    buf[:, length] = 0x80
-    buf[:, -8:] = np.frombuffer((length * 8).to_bytes(8, "big"), dtype=np.uint8)
-    words = buf.view(">u4").reshape(bsz, m, 16).astype(np.uint32)
-    return words, np.full(bsz, m, dtype=np.int32)
 
 
 def digest_words_to_bytes_le(words: np.ndarray) -> np.ndarray:

@@ -1,20 +1,28 @@
-"""Batch Keccak-256 in plain PyTorch.
+"""Batch Keccak-256: the hand-written CUDA kernel and its plain PyTorch
+version.
 
-The port of the JAX package's ``keccak256_blocks``: a lane-parallel sponge
-over pre-padded blocks with per-lane multi-block masking. A 64-bit keccak
-lane is one int64 (the JAX lo/hi uint32 split is a TPU artifact); the state
-is a ``[25, B]`` tensor and each round is a handful of whole-state ops.
-Right shifts of int64 are arithmetic, so every rotation masks the bits it
-brings down.
+:func:`keccak256_packed` hashes a packed batch (one byte buffer, per-message
+starts and lengths; ``hash_common.pack_messages``): on a CUDA tensor it
+launches ``csrc/keccak256.cu``, which pads each message itself; on a CPU
+tensor it runs :func:`keccak256_packed_plain`, which gathers and pads on the
+tensor's device and runs the sponge below.
 
-This runs as plain PyTorch on the card too — the JAX package computes it
-outside any Pallas kernel. Its hand-written CUDA kernel is queued in
-ROADMAP.md.
+The sponge is the port of the JAX package's ``keccak256_blocks``: a
+lane-parallel sponge over pre-padded blocks with per-lane multi-block
+masking. A 64-bit keccak lane is one int64 (the JAX lo/hi uint32 split is a
+TPU artifact); the state is a ``[25, B]`` tensor and each round is a
+handful of whole-state ops. Right shifts of int64 are arithmetic, so every
+rotation masks the bits it brings down.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from . import _kernels
+from ..device import resolve_device
+from .hash_common import digest_bytes, gather_padded, upload_packed
 
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -45,6 +53,7 @@ for _x in range(5):
         _PI_ROT[_dst] = _ROT[_x][_y]
 
 RATE_LANES = 17
+RATE_BYTES = 8 * RATE_LANES
 _LO32 = 0xFFFFFFFF
 
 
@@ -96,3 +105,45 @@ def keccak256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tenso
     lanes = (b[..., 0] & _LO32) | (b[..., 1] << 32)
     return keccak256_lanes(lanes, nblocks)
 
+
+def keccak256_packed_plain(data, starts, lengths) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: keccak-256 of each message
+    of a packed batch (data uint8 [N], starts int64 [B], lengths int32 [B])
+    -> [B, 32] uint8, on the inputs' device."""
+    bsz = starts.shape[0]
+    if bsz == 0:
+        return torch.empty((0, 32), dtype=torch.uint8, device=data.device)
+    lengths = lengths.to(torch.int64)
+    nblocks = lengths // RATE_BYTES + 1
+    buf = gather_padded(data, starts, lengths, RATE_BYTES, nblocks)
+    pos = torch.arange(buf.shape[1], device=data.device)
+    buf ^= (pos == lengths[:, None]) * 0x01  # multi-rate padding, 0x81 where both meet
+    buf ^= (pos == nblocks[:, None] * RATE_BYTES - 1) * 0x80
+    # little-endian bytes -> 64-bit lanes (the top byte lands in the sign bit)
+    shifts = torch.arange(0, 64, 8, device=data.device)
+    lanes = (buf.view(bsz, -1, RATE_LANES, 8) << shifts).sum(-1)
+    return digest_bytes(keccak256_lanes(lanes, nblocks), (0, 8, 16, 24))
+
+
+def keccak256_packed(data, starts, lengths) -> torch.Tensor:
+    """keccak-256 of each message of a packed batch -> [B, 32] uint8. CUDA
+    tensors go to the kernel (or an exception); CPU tensors to the plain
+    version."""
+    if data.device.type == "cuda":
+        return _kernels.keccak256_packed(data, starts, lengths)
+    if data.device.type == "cpu":
+        return keccak256_packed_plain(data, starts, lengths)
+    raise ValueError(f"keccak256_packed: unsupported device {data.device}")
+
+
+def keccak256_batch(msgs, device=None) -> np.ndarray:
+    """Host convenience: list of bytes -> [B, 32] uint8 digests. Runs on the
+    CUDA card unless ``device`` names another."""
+    return keccak256_batch_async(msgs, device)()
+
+
+def keccak256_batch_async(msgs, device=None):
+    """Dispatch the batch and defer the copy to the host: returns a resolver
+    () -> [B, 32] uint8."""
+    digests = keccak256_packed(*upload_packed(msgs, resolve_device(device)))
+    return lambda: digests.cpu().numpy()

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .bigint import limb_tensor, limbs_to_words_be, words_be_to_limbs
+from .bigint import bytes_be_to_limbs_device, limb_tensor, limbs_to_bytes_device
 from .ec import (
     CurveOps,
     add_mod_n,
@@ -35,9 +35,9 @@ from .ec import (
     reduce_mod_n,
     valid_scalar,
 )
-from .hash_common import bucket_batch, digest_words_to_bytes_be, pad_md64_rows, pad_rows
+from .hash_common import bucket_batch, pad_rows, rows_as_packed
 from .limb import eq, is_zero, lt
-from .sm3 import md64_pad_512bit, sm3_blocks
+from .sm3 import sm3_packed
 from ..crypto.ref.ecdsa import SM2_CURVE, SM2_DEFAULT_ID
 from ..device import resolve_device
 from ..params import default_sm2_tables
@@ -129,31 +129,17 @@ def za_prefix(user_id: bytes = SM2_DEFAULT_ID) -> bytes:
     )
 
 
-def za_blocks(pubkeys: np.ndarray, user_id: bytes = SM2_DEFAULT_ID) -> tuple[np.ndarray, np.ndarray]:
-    """Host half of ZA: [B, 64] uint8 pubkeys -> the padded SM3 blocks of
-    prefix ‖ Px ‖ Py ([B, M, 16] uint32, nblocks [B]); fixed-length rows,
-    so one vectorised pad."""
-    pubkeys = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
-    prefix = np.frombuffer(za_prefix(user_id), dtype=np.uint8)
-    rows = np.concatenate([np.broadcast_to(prefix, (len(pubkeys), len(prefix))), pubkeys], axis=1)
-    return pad_md64_rows(rows)
-
-
-def e_device(hash_words: torch.Tensor, za_blk: torch.Tensor, za_nblocks: torch.Tensor) -> torch.Tensor:
-    """Both SM3 passes of e = SM3(SM3(prefix ‖ pub) ‖ M) on the device:
-    hash_words [B, 8] (M as big-endian words), the padded ZA blocks ->
-    e as [B, 16] int32 limbs."""
-    za = sm3_blocks(za_blk, za_nblocks)
-    msg = torch.cat([za, hash_words.to(torch.int64)], dim=1)  # 64 bytes
-    blocks = md64_pad_512bit(msg)
-    e_words = sm3_blocks(blocks, torch.full_like(za_nblocks, 2))
-    return words_be_to_limbs(e_words)
-
-
-def _hash_words(msg_hashes: np.ndarray) -> np.ndarray:
-    """[B, 32] uint8 -> [B, 8] int64 big-endian words."""
-    h = np.ascontiguousarray(np.asarray(msg_hashes, dtype=np.uint8).reshape(-1, 32))
-    return h.view(">u4").astype(np.int64)
+def e_device(
+    hash_bytes: torch.Tensor, pubkeys: torch.Tensor, user_id: bytes = SM2_DEFAULT_ID
+) -> torch.Tensor:
+    """Both SM3 passes of e = SM3(SM3(prefix ‖ pub) ‖ M) on the tensors'
+    device: hash_bytes [B, 32] and pubkeys [B, 64] uint8 -> e as [B, 16]
+    int32 limbs. The ZA rows are built there from :func:`za_prefix` (210
+    bytes a row for the default ID)."""
+    prefix = torch.tensor(list(za_prefix(user_id)), dtype=torch.uint8, device=pubkeys.device)
+    za_rows = torch.cat([prefix.expand(pubkeys.shape[0], -1), pubkeys], dim=1)
+    za = sm3_packed(*rows_as_packed(za_rows))
+    return bytes_be_to_limbs_device(sm3_packed(*rows_as_packed(torch.cat([za, hash_bytes], dim=1))))
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +149,9 @@ def _hash_words(msg_hashes: np.ndarray) -> np.ndarray:
 
 def _e_limbs(msg_hashes: np.ndarray, pubkeys: np.ndarray, user_id: bytes, dev) -> torch.Tensor:
     """e = SM3(ZA ‖ M) of each row as [B, 16] int32 limbs on ``dev``."""
-    blocks, nblocks = za_blocks(pubkeys, user_id)
-    return e_device(
-        torch.from_numpy(_hash_words(msg_hashes)).to(dev),
-        torch.from_numpy(blocks.astype(np.int64)).to(dev),
-        torch.from_numpy(nblocks).to(dev),
-    )
+    hashes = np.asarray(msg_hashes, dtype=np.uint8).reshape(-1, 32)
+    pubs = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
+    return e_device(torch.tensor(hashes, device=dev), torch.tensor(pubs, device=dev), user_id)
 
 
 def sm2_e_batch(
@@ -177,7 +160,7 @@ def sm2_e_batch(
     """e = SM3(ZA ‖ M) for a batch: [B,32] hashes + [B,64] pubkeys ->
     [B,32] uint8. Runs on the CUDA card unless ``device`` names another."""
     e = _e_limbs(msg_hashes, pubkeys, user_id, resolve_device(device))
-    return digest_words_to_bytes_be(limbs_to_words_be(e).cpu().numpy())
+    return limbs_to_bytes_device(e).to(torch.uint8).cpu().numpy()
 
 
 def verify_batch(

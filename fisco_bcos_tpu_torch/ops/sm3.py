@@ -1,15 +1,18 @@
-"""Batch SM3 (GB/T 32905) in plain PyTorch — the 国密 hash of sm_crypto
-chains (reference: bcos-crypto hash/SM3.h, OpenSSL-tassl EVP).
+"""Batch SM3 (GB/T 32905) — the 国密 hash of sm_crypto chains (reference:
+bcos-crypto hash/SM3.h, OpenSSL-tassl EVP): the hand-written CUDA kernel and
+its plain PyTorch version.
 
-The port of the JAX package's ``sm3_blocks``: a lane-parallel
+:func:`sm3_packed` hashes a packed batch (one byte buffer, per-message
+starts and lengths; ``hash_common.pack_messages``): on a CUDA tensor it
+launches ``csrc/sm3.cu``, which pads each message itself; on a CPU tensor
+it runs :func:`sm3_packed_plain`, which gathers and pads on the tensor's
+device and runs the chain below.
+
+The chain is the port of the JAX package's ``sm3_blocks``: a lane-parallel
 Merkle–Damgård chain over pre-padded blocks with per-lane multi-block
 masking. A 32-bit word rides an int64 (PyTorch on the CPU has no uint32
 arithmetic); every sum and left shift is masked back to 32 bits. The state
 is ``[8, B]`` and each round a handful of whole-batch ops.
-
-This runs as plain PyTorch on the card too — the JAX package computes SM3
-outside any Pallas kernel. Its hand-written CUDA kernel is queued in
-ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _kernels
 from ..device import resolve_device
-from .hash_common import digest_words_to_bytes_be, pad_md64
+from .hash_common import digest_bytes, gather_padded, upload_packed
 
 _IV = [
     0x7380166F, 0x4914B2B9, 0x172442D7, 0xDA8A0600,
@@ -91,6 +95,37 @@ def sm3_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     return state.T.contiguous()
 
 
+def sm3_packed_plain(data, starts, lengths) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: SM3 of each message of a
+    packed batch (data uint8 [N], starts int64 [B], lengths int32 [B]) ->
+    [B, 32] uint8, on the inputs' device."""
+    bsz = starts.shape[0]
+    if bsz == 0:
+        return torch.empty((0, 32), dtype=torch.uint8, device=data.device)
+    lengths = lengths.to(torch.int64)
+    nblocks = (lengths + 8) // 64 + 1
+    buf = gather_padded(data, starts, lengths, 64, nblocks)
+    pos = torch.arange(buf.shape[1], device=data.device)
+    buf |= (pos == lengths[:, None]) * 0x80
+    # the 64-bit big-endian bit length in the last block's last 8 bytes
+    from_end = nblocks[:, None] * 64 - 1 - pos
+    in_len = (from_end >= 0) & (from_end < 8)
+    buf |= torch.where(in_len, ((lengths * 8)[:, None] >> (8 * from_end.clamp(0, 7))) & 0xFF, 0)
+    shifts = torch.tensor([24, 16, 8, 0], device=data.device)
+    words = (buf.view(bsz, -1, 16, 4) << shifts).sum(-1)
+    return digest_bytes(sm3_blocks(words, nblocks), (24, 16, 8, 0))
+
+
+def sm3_packed(data, starts, lengths) -> torch.Tensor:
+    """SM3 of each message of a packed batch -> [B, 32] uint8. CUDA tensors
+    go to the kernel (or an exception); CPU tensors to the plain version."""
+    if data.device.type == "cuda":
+        return _kernels.sm3_packed(data, starts, lengths)
+    if data.device.type == "cpu":
+        return sm3_packed_plain(data, starts, lengths)
+    raise ValueError(f"sm3_packed: unsupported device {data.device}")
+
+
 def sm3_batch(msgs, device=None) -> np.ndarray:
     """Host convenience: list of bytes -> [B, 32] uint8 digests. Runs on the
     CUDA card unless ``device`` names another."""
@@ -100,23 +135,5 @@ def sm3_batch(msgs, device=None) -> np.ndarray:
 def sm3_batch_async(msgs, device=None):
     """Dispatch the batch and defer the copy to the host: returns a resolver
     () -> [B, 32] uint8."""
-    dev = resolve_device(device)
-    n = len(msgs)
-    blocks, nblocks = pad_md64(msgs)  # batch dim bucketed; sliced below
-    words = sm3_blocks(torch.from_numpy(blocks.astype(np.int64)).to(dev), torch.from_numpy(nblocks).to(dev))
-    return lambda: digest_words_to_bytes_be(words.cpu().numpy())[:n]
-
-
-def words_be_to_bytes_device(words: torch.Tensor) -> torch.Tensor:
-    """[..., 8] big-endian 32-bit words (int64) -> [..., 32] byte values."""
-    shifts = torch.tensor([24, 16, 8, 0], device=words.device)
-    return ((words[..., None] >> shifts) & 0xFF).reshape(*words.shape[:-1], 32)
-
-
-def md64_pad_512bit(words16: torch.Tensor) -> torch.Tensor:
-    """[B, 16] big-endian words of a 64-byte message -> its SM3 blocks
-    [B, 2, 16]: the message, then 0x80‖0…‖bitlen 512."""
-    tail = torch.zeros_like(words16)
-    tail[:, 0] = 0x80000000
-    tail[:, 15] = 512
-    return torch.stack([words16, tail], dim=1)
+    digests = sm3_packed(*upload_packed(msgs, resolve_device(device)))
+    return lambda: digests.cpu().numpy()

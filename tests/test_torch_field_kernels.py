@@ -149,7 +149,7 @@ def test_field_ops_match_the_plain_fields(field_op, kind):
     assert field_op(sqr, sq, sq) == field_op(mul, sq, sq)
 
 
-@pytest.mark.parametrize("name", sorted(_kernels.SOURCES))
+@pytest.mark.parametrize("name", ["secp256k1_recover", "secp256k1_verify", "sm2_verify"])
 def test_kernel_launch_design(name):
     """One warp a block with up to 255 registers a thread, the lanes' slots
     in dynamic shared memory whose size is set before the launch, every

@@ -50,7 +50,7 @@ def test_digest_limb_adapters_match_jax():
     rng = np.random.default_rng(7)
     digests = rng.integers(0, 256, size=(9, 32), dtype=np.uint8)
     words = np.ascontiguousarray(digests).view("<u4").astype(np.uint32)
-    got = bigint.digest_words_le_to_limbs(torch.from_numpy(words.astype(np.int64)))
+    got = bigint.bytes_be_to_limbs_device(torch.from_numpy(digests))
     ref = np.asarray(jbigint.digest_words_le_to_limbs(jnp.asarray(words)))
     np.testing.assert_array_equal(got.numpy(), ref.astype(np.int32))
     np.testing.assert_array_equal(got.numpy(), bigint.bytes_be_to_limbs(digests).astype(np.int32))

@@ -138,6 +138,19 @@ def test_sm2_e_batch_matches_jax_and_reference(sm2_run):
         assert int.from_bytes(bytes(port["e"][i]), "big") == ref.sm2_e(bytes(hashes[i]), pub), i
 
 
+@pytest.mark.parametrize("id_len", [0, 1, 16, 53])
+def test_sm2_e_batch_user_ids_match_jax_and_reference(sm2_run, id_len):
+    """Non-default SM2 user IDs. Up to 53 bytes, ZA stays 4 SM3 blocks, so
+    the JAX side runs at the shape the fixture already traced."""
+    rows, hashes, sigs, _, _, _, _ = sm2_run
+    user_id = bytes(random.Random(id_len).randrange(256) for _ in range(id_len))
+    pubs = sigs[:, 64:]
+    got = sm2.sm2_e_batch(hashes, pubs, user_id=user_id, device="cpu")
+    np.testing.assert_array_equal(got, np.asarray(jsm2.sm2_e_batch(hashes, pubs, user_id=user_id)))
+    for i in range(len(rows)):
+        assert bytes(got[i]) == ref.sm2_e_bytes(bytes(pubs[i]), bytes(hashes[i]), user_id), i
+
+
 def test_verify_batch_matches_jax_and_reference(sm2_run):
     rows, hashes, _, _, _, port, jax_out = sm2_run
     np.testing.assert_array_equal(port["verify"], jax_out["verify"])

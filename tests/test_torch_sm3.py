@@ -69,22 +69,3 @@ def test_pad_md64_matches_jax():
     np.testing.assert_array_equal(
         hash_common.digest_words_to_bytes_be(words), jhash_common.digest_words_to_bytes_be(words)
     )
-
-
-@pytest.mark.parametrize("length", [0, 55, 56, 64, 210])
-def test_pad_md64_rows_equals_pad_md64(length):
-    rng = np.random.default_rng(length)
-    rows = np.frombuffer(rng.bytes(3 * length), dtype=np.uint8).reshape(3, length)
-    blocks, nblocks = hash_common.pad_md64_rows(rows)
-    want, want_n = hash_common.pad_md64([bytes(r) for r in rows])
-    m = int(want_n[0])
-    assert nblocks.tolist() == [m] * 3
-    np.testing.assert_array_equal(blocks, want[:3, :m])
-
-
-def test_md64_pad_512bit_equals_pad_md64():
-    rng = np.random.default_rng(5)
-    msg = np.frombuffer(rng.bytes(2 * 64), dtype=np.uint8).reshape(2, 64)
-    words = torch.from_numpy(msg.copy().view(">u4").astype(np.int64))
-    want, _ = hash_common.pad_md64_rows(msg)
-    np.testing.assert_array_equal(sm3.md64_pad_512bit(words).numpy(), want.astype(np.int64))
