@@ -31,25 +31,39 @@ exits non-zero, printing no result, without them. In order it:
    times the kernel, its plain version, ``sm2.verify_batch``,
    ``admit_batch_sm``, its stages and the card's busy time in one profiled
    call;
-6. the hash kernels (keccak-256, SM3): each held against its plain version
-   and the host oracle (the port's ``crypto/ref`` hashes) on every lane of
-   a seeded mixed block of 4,096 messages of 0-700 bytes (every padding
-   edge included), of ``[B, 64]`` and ``[B, 210]`` row blocks and of the
-   10,240 97-byte payloads, which also time each kernel, its plain version
-   and its bound; ``merkle_root`` of each hasher at 1, 16, 257, 4,097 and
-   10,240 leaves against a host oracle tree and the plain path, proofs of
-   the 10,240-leaf tree, and its time and launches (one a level). The
-   admission paths of phases 3 and 5 run their hashes through these
-   kernels, with every plain hash made to raise while the counted run is
-   driven, and their launch counts are checked: ``admit_batch`` keccak256
-   2 and secp256k1_recover 1, ``admit_batch_sm`` sm3 4 and sm2_verify 1;
+6. the hash kernels (keccak-256, SM3): the packed form of each held
+   against its plain version and the host oracle (the port's ``crypto/ref``
+   hashes) on every lane of a seeded mixed block of 4,096 messages of 0-700
+   bytes (every padding edge included), of ``[B, 64]`` and ``[B, 210]`` row
+   blocks, of the mixed block with shuffled starts, with starts off 16-byte
+   alignment and of a block whose warps' spans exceed the staging buffer
+   (how many warps staged and how many read directly is printed), and of
+   the 10,240 97-byte payloads, which also time each kernel, its plain
+   version and its bound; each form held against its plain version on
+   every lane: keccak's tx-hash form on the mixed block, the sender forms
+   on the EC blocks' keys (zero keys and not-ok lanes included), SM3's e
+   form on the SM2 mixed block for user IDs of 0, 1, 16, 53 and 300 bytes
+   and the default; each form timed with its bound on its path's inputs;
+   ``merkle_root`` of each hasher at 1, 16, 257, 4,097 and 10,240 leaves
+   against a host oracle tree and the plain path, proofs of the 10,240-leaf
+   tree, and its time and launches (one a level). Every path of phases 3-5
+   runs with every plain hash and plain form made to raise while it is
+   counted, and its launches are checked kernel by kernel, none other
+   allowed: ``admit_batch`` keccak256 2 (tx hash, sender) and
+   secp256k1_recover 1, ``admit_batch_sm`` sm3 3 (packed tx hash, e,
+   sender) and sm2_verify 1, ``sm2.verify_batch`` sm3 1 (e) and sm2_verify
+   1, ``verify_batch`` secp256k1_verify 1; each profiled admission call
+   prints the device kernels and copies its trace holds;
 7. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
    byte-row redesign takes five limb tensors and the 60-row comb): equal
    on every lane, timed in turns parent, new, new, parent; a kernel the
-   parent lacks is not timed against it;
+   parent lacks is not timed against it; and times both admission paths'
+   stages as the parent composes them (its packed hash kernel and the
+   torch ops around it) and as this checkout does, in turns parent, new,
+   new, parent;
 8. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
@@ -138,6 +152,13 @@ KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS + 17 * 2
 # LOP3, two more rotations and LOP3s). The chaining value's 8 XORs.
 SM3_ROUND_OPS = 1 + 2 + 1 + 1 + 1 + 1 + 2 + 2 + 2 + 3
 SM3_COMPRESS_OPS = 64 * SM3_ROUND_OPS + 52 * 7 + 8
+
+# Each path's counted run, launches a kernel (a hash kernel's forms are
+# kernels of their own; every kernel not named must make none): keccak256 2
+# + secp256k1_recover 1; sm3 3 + sm2_verify 1; sm3 1 + sm2_verify 1
+ADMIT_LAUNCHES = {"keccak256_tx_hash": 1, "keccak256_sender": 1, "secp256k1_recover": 1}
+ADMIT_SM_LAUNCHES = {"sm3_packed": 1, "sm3_e": 1, "sm3_sender": 1, "sm2_verify": 1}
+SM2_VERIFY_LAUNCHES = {"sm3_e": 1, "sm2_verify": 1}
 
 
 def log(*args) -> None:
@@ -542,15 +563,18 @@ def check_mixed_block(cases, device) -> int:
 
 @contextlib.contextmanager
 def plain_hashes_forbidden():
-    """While open, every plain hash of the port raises: a counted path run
-    inside it shows that no plain hash runs on a CUDA path."""
-    from fisco_bcos_tpu_torch.ops import keccak, sm3
+    """While open, every plain hash of the port and every plain form of a
+    hash kernel raises: a counted path run inside it shows that no plain
+    hash runs on a CUDA path."""
+    from fisco_bcos_tpu_torch.ops import address, keccak, sm2, sm3
 
     def refuse(*_args, **_kwargs):
         raise AssertionError("a plain hash ran on a CUDA path")
 
     names = ((keccak, "keccak256_packed_plain"), (keccak, "keccak256_lanes"),
-             (sm3, "sm3_packed_plain"), (sm3, "sm3_blocks"))
+             (keccak, "keccak256_tx_hash_plain"), (sm3, "sm3_packed_plain"), (sm3, "sm3_blocks"),
+             (address, "sender_address_plain"), (address, "sm3_sender_address_plain"),
+             (sm2, "e_plain"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -564,34 +588,44 @@ def plain_hashes_forbidden():
 def counted_run(fn, expected: dict, what: str):
     """`fn()` with every launch counter set to 0 just before and read just
     after, no plain hash allowed; each kernel of `expected` must have made
-    exactly its launches. Returns (fn's result, the counts)."""
+    exactly its launches, and every other kernel none. Returns (fn's
+    result, the counts a kernel)."""
     from fisco_bcos_tpu_torch.ops import _kernels
 
     _kernels.reset_launches()
     with plain_hashes_forbidden():
         out = fn()
     launches = dict(_kernels.LAUNCHES)
-    for name, n in expected.items():
-        if launches[name] != n:
-            raise AssertionError(f"kernel {name} launched {launches[name]} times on {what}, not {n}")
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            raise AssertionError(f"kernel {name} launched {n} times on {what}, not {expected.get(name, 0)}")
     return out, launches
+
+
+def show_launches(launches: dict) -> str:
+    """The launches of a counted run, a library (every form of a hash
+    kernel together) and then each kernel that ran."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    libs = {k: v for k, v in _kernels.library_launches(launches).items() if v}
+    return f"{libs} ({ {k: v for k, v in launches.items() if v} })"
 
 
 def run_main_path(block, device) -> tuple[dict, float]:
     """The main path: admit_batch on the 10,240-tx block on the default
     device, counted (counted_run: the tx hash and sender through the keccak
-    kernel, recovery through the recover kernel), its outputs held against
-    the host oracle. Returns the launch counts and the median end-to-end ms
-    of warm calls."""
+    kernel's tx-hash and sender forms, recovery through the recover kernel),
+    its outputs held against the host oracle. Returns the launch counts and
+    the median end-to-end ms of warm calls."""
     from fisco_bcos_tpu_torch.crypto.admission import admit_batch
 
     payloads, sigs65, picked = tile(block, BLOCK_TXS)
     out, launches = counted_run(
-        lambda: admit_batch(payloads, sigs65), {"keccak256": 2, "secp256k1_recover": 1}, "admit_batch"
+        lambda: admit_batch(payloads, sigs65), ADMIT_LAUNCHES, "admit_batch"
     )
     check_outputs(out, expected_admission(picked), "main path's block")
     log(f"main path: admit_batch on {BLOCK_TXS} txs == host oracle ({int(out[1].sum())} ok); "
-        f"launches {launches}")
+        f"launches {show_launches(launches)}")
     return launches, host_ms(lambda: admit_batch(payloads, sigs65), reps=5)
 
 
@@ -620,15 +654,20 @@ def measure_recover_kernel(block, device) -> dict:
     return row
 
 
-def admission_stages(block, device) -> dict[str, float]:
+def admission_stages(block, device, parent=None) -> dict[str, float]:
     """Median ms of each stage of admit_batch on the block, each stage run
-    warm and ending synchronised (the stages of admission_core, in order)."""
+    warm and ending synchronised (the stages of admission_core, in order).
+    With `parent` (another checkout's kernels module from before the hash
+    kernels' forms), the stages as that checkout composed them: its packed
+    keccak kernel, the tx hash converted to limbs, the keys to byte rows
+    for the sender, and the pack converting both back."""
     import torch
 
     from fisco_bcos_tpu_torch.crypto import admission
     from fisco_bcos_tpu_torch.ops import keccak, secp256k1
-    from fisco_bcos_tpu_torch.ops.address import sender_address_device
-    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs_device
+    from fisco_bcos_tpu_torch.ops.address import pubkey_rows, sender_address_device
+    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs_device, limbs_to_bytes_device
+    from fisco_bcos_tpu_torch.ops.hash_common import rows_as_packed
 
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
     st: dict = {}
@@ -640,50 +679,68 @@ def admission_stages(block, device) -> dict[str, float]:
         st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
 
     def tx_hash():
-        st["z"] = bytes_be_to_limbs_device(keccak.keccak256_packed(*st["dev"][:3]))
+        if parent is None:
+            st["h"], st["z"] = keccak.keccak256_tx_hash(*st["dev"][:3])
+        else:
+            st["z"] = bytes_be_to_limbs_device(parent.keccak256_packed(*st["dev"][:3]))
 
     def recover():
         st["q"] = secp256k1.recover_device(st["z"], *st["dev"][3:])
 
     def address():
-        st["addr"] = sender_address_device(st["q"][0], st["q"][1])
+        qx, qy, _ = st["q"]
+        if parent is None:
+            st["addr"], st["pub"] = sender_address_device(qx, qy)
+        else:
+            st["addr"] = parent.keccak256_packed(*rows_as_packed(pubkey_rows(qx, qy)))[:, 12:]
 
     def pack_download():
         qx, qy, ok = st["q"]
-        admission.pack_admission_device(st["addr"], ok, qx, qy, st["z"]).cpu()
+        if parent is None:
+            admission.pack_admission_device(st["addr"], ok, st["pub"], st["h"]).cpu()
+        else:
+            u8 = torch.uint8
+            torch.cat([st["addr"], ok.to(u8)[:, None], pubkey_rows(qx, qy),
+                       limbs_to_bytes_device(st["z"]).to(u8)], dim=1).cpu()
 
     stages = (host_pad, upload, tx_hash, recover, address, pack_download)
     return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
 
 
-def device_busy_ms(fn) -> tuple[float, float]:
-    """(busy, wall) ms of one warm call of `fn` under torch.profiler: busy
-    is the union of the device-side event intervals of the trace (0.0 when
-    the profiler records no device events), wall the host clock around the
-    same call, profiler overhead included."""
+def device_busy_ms(fn, tries: int = 3) -> tuple[float, float, int, int]:
+    """(busy, wall, kernels, copies) of one warm call of `fn` under
+    torch.profiler: busy ms is the union of the device-side event intervals
+    of the trace (0.0 when the profiler records no device events), wall ms
+    the host clock around the same call, profiler overhead included;
+    kernels and copies (memcpy, memset) count the trace's device events.
+    The profiler drops the device events of some traces, so `fn` is
+    profiled `tries` times and the trace that holds the most is kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
+    best = None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
         # the profiler's own buffer bookkeeping is not the program's work
-        if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"
-    )
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"]
+        if best is None or len(events) > len(best[0]):
+            best = events, wall_ms
+    events, wall_ms = best
     busy_us, end = 0.0, float("-inf")
-    for lo, hi in spans:
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in events):
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
-    return busy_us / 1e3, wall_ms
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in events)
+    return busy_us / 1e3, wall_ms, len(events) - copies, copies
 
 
 # ---------------------------------------------------------------------------
@@ -831,19 +888,17 @@ def run_verify_path(rows) -> tuple[int, float]:
     kernel, median end-to-end ms)."""
     import numpy as np
 
-    from fisco_bcos_tpu_torch.ops import _kernels, secp256k1
+    from fisco_bcos_tpu_torch.ops import secp256k1
 
     *arrays, want = verify_arrays(rows, BLOCK_TXS)
-    _kernels.reset_launches()
-    got = secp256k1.verify_batch(*arrays)
-    launches = _kernels.LAUNCHES["secp256k1_verify"]
-    if launches == 0:
-        raise AssertionError("kernel secp256k1_verify was not launched on the verify path")
+    got, launches = counted_run(
+        lambda: secp256k1.verify_batch(*arrays), {"secp256k1_verify": 1}, "verify_batch"
+    )
     if not np.array_equal(got, want) or not got.all():
         raise AssertionError("verify_batch != host oracle on the timed block")
     log(f"verify path: verify_batch on {BLOCK_TXS} signatures == host oracle; "
-        f"launches {dict(_kernels.LAUNCHES)}")
-    return launches, host_ms(lambda: secp256k1.verify_batch(*arrays), reps=5)
+        f"launches {show_launches(launches)}")
+    return launches["secp256k1_verify"], host_ms(lambda: secp256k1.verify_batch(*arrays), reps=5)
 
 
 def verify_stages(rows, device, parent=None) -> dict[str, float]:
@@ -1029,12 +1084,11 @@ def sm2_device_inputs(payloads, sigs128, device):
 
     from fisco_bcos_tpu_torch.crypto import admission
     from fisco_bcos_tpu_torch.ops import sm2, sm3
-    from fisco_bcos_tpu_torch.ops.address import pubkey_rows
 
     data, starts, lengths, r, s, qx, qy = (
         torch.from_numpy(a).to(device) for a in admission.host_inputs_sm(payloads, sigs128)
     )
-    e = sm2.e_device(sm3.sm3_packed(data, starts, lengths), pubkey_rows(qx, qy))
+    e = sm2.e_device(sm3.sm3_packed(data, starts, lengths), qx, qy)
     return [e, r, s, qx, qy]
 
 
@@ -1080,18 +1134,19 @@ def check_sm2_mixed_block(rows, device) -> tuple[int, float]:
 
 def run_sm_path(rows) -> tuple[dict, float]:
     """The SM admission path: admit_batch_sm on the timed block, counted
-    (counted_run: the tx hash, ZA, e and the sender through the SM3 kernel,
-    verification through the SM2 kernel), outputs against the host oracle.
-    Returns (the launch counts, median ms)."""
+    (counted_run: the tx hash, e and the sender through the SM3 kernel's
+    packed, e and sender forms, verification through the SM2 kernel),
+    outputs against the host oracle. Returns (the launch counts, median
+    ms)."""
     from fisco_bcos_tpu_torch.crypto.admission import admit_batch_sm
 
     payloads, sigs128, picked = sm2_tile(rows, BLOCK_TXS)
     out, launches = counted_run(
-        lambda: admit_batch_sm(payloads, sigs128), {"sm3": 4, "sm2_verify": 1}, "admit_batch_sm"
+        lambda: admit_batch_sm(payloads, sigs128), ADMIT_SM_LAUNCHES, "admit_batch_sm"
     )
     check_outputs(out, expected_admission_sm(picked), "timed block", "admit_batch_sm")
     log(f"SM admission path: admit_batch_sm on {BLOCK_TXS} txs == host oracle "
-        f"({int(out[1].sum())} ok); launches {launches}")
+        f"({int(out[1].sum())} ok); launches {show_launches(launches)}")
     return launches, host_ms(lambda: admit_batch_sm(payloads, sigs128), reps=5)
 
 
@@ -1117,20 +1172,29 @@ def measure_sm2(rows, device) -> tuple[dict, float]:
     row.update(max_abs_err=err, plain_ms=plain_ms)
     hashes = np.stack([np.frombuffer(sm3(p), dtype=np.uint8) for p in payloads])
     verify_args = (hashes, sigs128[:, :32], sigs128[:, 32:64], sigs128[:, 64:])
-    if not sm2.verify_batch(*verify_args).all():
+    got, launches = counted_run(
+        lambda: sm2.verify_batch(*verify_args), SM2_VERIFY_LAUNCHES, "sm2.verify_batch"
+    )
+    if not got.all():
         raise AssertionError("sm2.verify_batch rejected a valid signature of the timed block")
+    log(f"sm2.verify_batch on {BLOCK_TXS} signatures == host oracle; launches {show_launches(launches)}")
     return row, host_ms(lambda: sm2.verify_batch(*verify_args), reps=5)
 
 
-def sm_admission_stages(rows, device) -> dict[str, float]:
+def sm_admission_stages(rows, device, parent=None) -> dict[str, float]:
     """Median ms of each stage of admit_batch_sm on the timed block, each
-    run warm and ending synchronised (the stages of admission_sm_core)."""
+    run warm and ending synchronised (the stages of admission_sm_core).
+    With `parent` (another checkout's kernels module from before the hash
+    kernels' forms), the stages as that checkout composed them: its packed
+    SM3 kernel for the tx hash, ZA and e (the ZA rows built on the card),
+    the sender from zeroed keys' byte rows, and the pack converting back."""
     import torch
 
     from fisco_bcos_tpu_torch.crypto import admission
     from fisco_bcos_tpu_torch.ops import sm2, sm3
     from fisco_bcos_tpu_torch.ops.address import pubkey_rows, sm3_sender_address_device
-    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs_device
+    from fisco_bcos_tpu_torch.ops.bigint import bytes_be_to_limbs_device, limbs_to_bytes_device
+    from fisco_bcos_tpu_torch.ops.hash_common import rows_as_packed
 
     payloads, sigs128, _ = sm2_tile(rows, BLOCK_TXS)
     st: dict = {}
@@ -1142,22 +1206,38 @@ def sm_admission_stages(rows, device) -> dict[str, float]:
         st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
 
     def tx_hash():
-        st["h"] = sm3.sm3_packed(*st["dev"][:3])
+        st["h"] = (parent or sm3).sm3_packed(*st["dev"][:3])
 
     def sm2_e():
-        st["e"] = sm2.e_device(st["h"], pubkey_rows(*st["dev"][5:7]))
+        qx, qy = st["dev"][5:7]
+        if parent is None:
+            st["e"] = sm2.e_device(st["h"], qx, qy)
+            return
+        prefix = torch.tensor(list(sm2.za_prefix()), dtype=torch.uint8, device=device)
+        za_rows = torch.cat([prefix.expand(BLOCK_TXS, -1), pubkey_rows(qx, qy)], dim=1)
+        za = parent.sm3_packed(*rows_as_packed(za_rows))
+        st["e"] = bytes_be_to_limbs_device(parent.sm3_packed(*rows_as_packed(torch.cat([za, st["h"]], dim=1))))
 
     def verify():
         st["ok"] = sm2.verify_device(st["e"], *st["dev"][3:])
 
     def address():
+        qx, qy = st["dev"][5:7]
+        if parent is None:
+            st["addr"], st["pub"] = sm3_sender_address_device(qx, qy, st["ok"])
+            return
         ok = st["ok"][:, None]
-        st["q"] = [torch.where(ok, q, torch.zeros_like(q)) for q in st["dev"][5:7]]
-        st["addr"] = sm3_sender_address_device(*st["q"])
+        st["q"] = [torch.where(ok, q, torch.zeros_like(q)) for q in (qx, qy)]
+        st["addr"] = parent.sm3_packed(*rows_as_packed(pubkey_rows(*st["q"])))[:, 12:]
 
     def pack_download():
-        z = bytes_be_to_limbs_device(st["h"])
-        admission.pack_admission_device(st["addr"], st["ok"], *st["q"], z).cpu()
+        if parent is None:
+            admission.pack_admission_device(st["addr"], st["ok"], st["pub"], st["h"]).cpu()
+        else:
+            u8 = torch.uint8
+            z = bytes_be_to_limbs_device(st["h"])
+            torch.cat([st["addr"], st["ok"].to(u8)[:, None], pubkey_rows(*st["q"]),
+                       limbs_to_bytes_device(z).to(u8)], dim=1).cpu()
 
     stages = (host_pad, upload, tx_hash, sm2_e, verify, address, pack_download)
     return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
@@ -1188,10 +1268,11 @@ def show_device_ms(m: tuple[float, int] | None) -> str:
 
 
 def log_busy(card: str, what: str, fn) -> None:
-    busy, wall = device_busy_ms(fn)
+    busy, wall, kernels, copies = device_busy_ms(fn)
     if busy > 0:
         log(f"[{card}] {what}, one profiled call: device busy {busy:.3f} ms of "
-            f"{wall:.2f} ms wall (device idle share {1 - busy / wall:.3f})")
+            f"{wall:.2f} ms wall (device idle share {1 - busy / wall:.3f}); the trace holds "
+            f"{kernels} device kernels and {copies} copies")
     else:
         log(f"[{card}] {what} device busy: not measured (no device events in the trace)")
 
@@ -1207,17 +1288,17 @@ MERKLE_LEAVES = (1, 16, 257, 4097, BLOCK_TXS)
 
 
 def hash_fns(name: str):
-    """(kernel entry, plain version, host oracle, blocks a message of n
+    """(kernel wrapper, plain version, host oracle, blocks a message of n
     bytes takes, operations a block, JAX function replaced) of a hash
-    kernel."""
+    kernel's packed form."""
     from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
     from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3 as ref_sm3
-    from fisco_bcos_tpu_torch.ops import keccak, sm3
+    from fisco_bcos_tpu_torch.ops import _kernels, keccak, sm3
 
     if name == "keccak256":
-        return (keccak.keccak256_packed, keccak.keccak256_packed_plain, keccak256,
+        return (_kernels.keccak256_packed, keccak.keccak256_packed_plain, keccak256,
                 lambda n: n // 136 + 1, KECCAK_F_OPS, "fisco_bcos_tpu/ops/keccak.py:132")
-    return (sm3.sm3_packed, sm3.sm3_packed_plain, ref_sm3,
+    return (_kernels.sm3_packed, sm3.sm3_packed_plain, ref_sm3,
             lambda n: (n + 8) // 64 + 1, SM3_COMPRESS_OPS, "fisco_bcos_tpu/ops/sm3.py:92")
 
 
@@ -1230,11 +1311,15 @@ def hash_mixed_messages() -> list[bytes]:
 
 
 def check_hash_lanes(name: str, args, msgs, what: str) -> tuple[int, float]:
-    """A hash kernel == its plain version == the host oracle on every lane
-    of the packed batch `args` holding `msgs`. Returns (largest difference
-    from the plain version, plain ms)."""
+    """A hash kernel's packed form == its plain version == the host oracle
+    on every lane of the packed batch `args` holding `msgs`; prints how
+    many warps staged their messages and how many read them directly.
+    Returns (largest difference from the plain version, plain ms)."""
+    import torch
+
     kernel, plain, oracle = hash_fns(name)[:3]
-    got, err, plain_ms = compare_and_time(kernel, plain, args, name, what)
+    routes = torch.zeros(2, dtype=torch.int32, device=args[0].device)
+    got, err, plain_ms = compare_and_time(lambda *a: kernel(*a, routes=routes), plain, args, name, what)
     got = got.cpu().numpy()
     memo: dict = {}
     for i, m in enumerate(msgs):
@@ -1242,53 +1327,205 @@ def check_hash_lanes(name: str, args, msgs, what: str) -> tuple[int, float]:
             memo[m] = oracle(m)
         if bytes(got[i]) != memo[m]:
             raise AssertionError(f"{name} kernel != host oracle on the {what}, lane {i} ({len(m)} bytes)")
+    staged, direct = routes.tolist()
+    log(f"  {name} packed, {what}: {staged} warps staged through shared memory, {direct} read directly")
     return err, plain_ms
 
 
-def check_hash_kernels(device) -> dict[str, int]:
-    """Each hash kernel on the mixed block and on [B, 64] and [B, 210] row
-    blocks (the sender's and ZA's forms). Returns each kernel's largest
-    difference from its plain version."""
+def packed_layouts(device) -> list[tuple]:
+    """(what, packed args, messages) of the packed form's layouts: the
+    mixed block as pack_messages lays it out, its messages in shuffled
+    order (starts scattered through the buffer), the block 5 bytes off
+    16-byte alignment, [B, 64] and [B, 210] row blocks, and 1,024 messages
+    of 600-700 bytes (a warp's span past the staging buffer)."""
     import numpy as np
     import torch
 
     from fisco_bcos_tpu_torch.ops.hash_common import rows_as_packed, upload_packed
 
     mixed = hash_mixed_messages()
+    data, starts, lengths = upload_packed(mixed, device)
+    order = torch.randperm(len(mixed), generator=torch.Generator().manual_seed(SEED)).to(device)
+    shifted = torch.cat([torch.zeros(5, dtype=torch.uint8, device=device), data])
     gen = np.random.default_rng(SEED + 5)
     rows = {w: gen.integers(0, 256, (HASH_MIXED, w), dtype=np.uint8) for w in (64, 210)}
+    rng = random.Random(SEED + 7)
+    long_msgs = [rng.randbytes(rng.randrange(600, 701)) for _ in range(1024)]
+    layouts = [
+        ("mixed hash block", (data, starts, lengths), mixed),
+        ("mixed block, shuffled starts", (data, starts[order].contiguous(), lengths[order].contiguous()),
+         [mixed[i] for i in order.tolist()]),
+        ("mixed block, starts 5 bytes off 16-byte alignment", (shifted, starts + 5, lengths), mixed),
+    ]
+    for w, r in rows.items():
+        layouts.append((f"[{HASH_MIXED}, {w}] row block", rows_as_packed(torch.from_numpy(r).to(device)),
+                        [bytes(x) for x in r]))
+    layouts.append(("1,024 messages of 600-700 bytes", upload_packed(long_msgs, device), long_msgs))
+    return layouts
+
+
+def check_hash_kernels(device) -> dict[str, int]:
+    """Each hash kernel's packed form on every layout of packed_layouts.
+    Returns each kernel's largest difference from its plain version."""
+    layouts = packed_layouts(device)
     errs = {}
     for name in HASH_KERNELS:
-        errs[name], _ = check_hash_lanes(name, upload_packed(mixed, device), mixed, "mixed hash block")
-        for w, r in rows.items():
-            args = rows_as_packed(torch.from_numpy(r).to(device))
-            err, _ = check_hash_lanes(name, args, [bytes(x) for x in r], f"[{HASH_MIXED}, {w}] row block")
-            errs[name] = max(errs[name], err)
-        log(f"{name}: kernel == plain == host oracle on the mixed block ({HASH_MIXED} messages of "
-            f"0-700 bytes) and on [{HASH_MIXED}, 64] and [{HASH_MIXED}, 210] row blocks")
+        errs[f"{name}_packed"] = max(check_hash_lanes(name, args, msgs, what)[0] for what, args, msgs in layouts)
+        log(f"{name}: packed kernel == plain == host oracle on the {', the '.join(w for w, _, _ in layouts)}")
+    return errs
+
+
+SM2_USER_IDS = (None, 0, 1, 16, 53, 300)  # None: the default ID
+
+
+def sm2_user_id(n: int | None) -> bytes:
+    from fisco_bcos_tpu_torch.crypto.ref.ecdsa import SM2_DEFAULT_ID
+
+    return SM2_DEFAULT_ID if n is None else random.Random(SEED + n).randbytes(n)
+
+
+def check_hash_forms(cases, sm_cases, device) -> dict[str, int]:
+    """Each form of the hash kernels == its plain version on every lane:
+    keccak's tx-hash form on the mixed hash block; the keccak sender form on
+    the keys the recover kernel gives for the mixed admission block (the
+    zero key on its not-ok lanes); the SM3 sender form and the e form on the
+    SM2 mixed block's keys, with the SM2 kernel's ok bits (not-ok lanes
+    zeroed) and, for e, the SM3 digests of its payloads and user IDs of
+    0, 1, 16, 53 and 300 bytes and the default. Returns each form's largest
+    difference from its plain version."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import admission
+    from fisco_bcos_tpu_torch.ops import address, keccak, secp256k1, sm2, sm3
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    errs = {}
+    args = upload_packed(hash_mixed_messages(), device)
+    _, errs["keccak256_tx_hash"], _ = compare_and_time(
+        keccak.keccak256_tx_hash, keccak.keccak256_tx_hash_plain, args, "keccak256_tx_hash", "mixed hash block"
+    )
+    payloads, sigs65, _ = tile(cases, BLOCK_TXS)
+    qx, qy, ok = secp256k1.recover_device(*recover_inputs(payloads, sigs65, device))
+    _, errs["keccak256_sender"], _ = compare_and_time(
+        address.sender_address_device, address.sender_address_plain, (qx, qy), "keccak256_sender",
+        f"recover mixed block's keys ({int((~ok).sum())} zero keys)",
+    )
+    payloads, sigs128, _ = sm2_tile(sm_cases, BLOCK_TXS)
+    data, starts, lengths, r, s, qx, qy = (
+        torch.from_numpy(a).to(device) for a in admission.host_inputs_sm(payloads, sigs128)
+    )
+    h = sm3.sm3_packed(data, starts, lengths)
+    ok = sm2.verify_device(sm2.e_device(h, qx, qy), r, s, qx, qy)
+    _, errs["sm3_sender"], _ = compare_and_time(
+        address.sm3_sender_address_device, address.sm3_sender_address_plain, (qx, qy, ok), "sm3_sender",
+        f"SM2 mixed block's keys ({int((~ok).sum())} not-ok lanes)",
+    )
+    errs["sm3_e"] = 0
+    for n in SM2_USER_IDS:
+        uid = sm2_user_id(n)
+        _, err, _ = compare_and_time(
+            lambda *a: sm2.e_device(*a, user_id=uid), lambda *a: sm2.e_plain(*a, user_id=uid),
+            (h, qx, qy), "sm3_e", f"SM2 mixed block, user ID of {len(uid)} bytes",
+        )
+        errs["sm3_e"] = max(errs["sm3_e"], err)
+    log(f"hash forms == plain on every lane: keccak256_tx_hash on the mixed hash block, keccak256_sender "
+        f"on the recover mixed block's keys, sm3_sender and sm3_e on the SM2 mixed block's keys "
+        f"(e for user IDs of {', '.join(str(len(sm2_user_id(n))) for n in SM2_USER_IDS)} bytes)")
     return errs
 
 
 def measure_hash_kernel(name: str, payloads, device) -> dict:
-    """A hash kernel on the main path's payloads (the 10,240 97-byte tx
-    payloads): equal to its plain version and the host oracle on every
-    lane, both timed, and its bound from these messages' blocks."""
+    """A hash kernel's packed form on a path's payloads (the 10,240
+    97-byte tx payloads): equal to its plain version and the host oracle on
+    every lane, both timed, and its bound from these messages' blocks."""
     from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
 
-    _, _, _, blocks, block_ops, replaces = hash_fns(name)
+    kernel, _, _, blocks, block_ops, replaces = hash_fns(name)
     args = upload_packed(payloads, device)
     err, plain_ms = check_hash_lanes(name, args, payloads, "timed payload block")
-    kernel = hash_fns(name)[0]
-    kernel_ms = cuda_ms(lambda: kernel(*args))
-    device_ms = kernel_device_ms(lambda: kernel(*args))
     n_bytes = sum(len(p) for p in payloads)
     row = kernel_row(
-        name, f"fisco_bcos_tpu_torch/csrc/{name}.cu", replaces, kernel_ms,
+        f"{name}_packed", f"fisco_bcos_tpu_torch/csrc/{name}.cu", replaces, cuda_ms(lambda: kernel(*args)),
         sum(blocks(len(p)) for p in payloads) * block_ops,
         io_bytes=n_bytes + len(payloads) * (8 + 4 + 32), ops_kind="int32 instructions",
     )
-    row.update(max_abs_err=err, plain_ms=plain_ms, device_ms=device_ms)
+    row.update(max_abs_err=err, plain_ms=plain_ms, device_ms=kernel_device_ms(lambda: kernel(*args)))
     return row
+
+
+def form_inputs(block, sm_block, device) -> dict:
+    """Each form's wrapper arguments on its path's timed block: the tx
+    payloads; the recover kernel's keys; the SM block's keys with the SM2
+    kernel's ok bits; its SM3 digests, keys and the default ID's
+    midstate."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import admission
+    from fisco_bcos_tpu_torch.ops import secp256k1, sm2, sm3
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    payloads, sigs65, _ = tile(block, BLOCK_TXS)
+    qx, qy, _ = secp256k1.recover_device(*recover_inputs(payloads, sigs65, device))
+    sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
+    data, starts, lengths, r, s, sqx, sqy = (
+        torch.from_numpy(a).to(device) for a in admission.host_inputs_sm(sm_payloads, sigs128)
+    )
+    h = sm3.sm3_packed(data, starts, lengths)
+    za = sm2.za_state(sm2_user_id(None), device)
+    ok = sm2.verify_device(sm2.e_device(h, sqx, sqy), r, s, sqx, sqy)
+    return {
+        "keccak256_tx_hash": upload_packed(payloads, device),
+        "keccak256_sender": (qx, qy),
+        "sm3_sender": (sqx, sqy, ok),
+        "sm3_e": (h, sqx, sqy, za),
+    }
+
+
+def measure_hash_forms(inputs: dict, launches: dict) -> list[dict]:
+    """Each form on its path's timed inputs: equal to its plain version on
+    every lane, both timed (CUDA events a call, the profiler's device time
+    of the kernel alone), and its bound from the work its method does on
+    these inputs: keccak's tx hash a permutation a 136-byte block of each
+    payload; a sender one permutation or two compressions a key; e the
+    compressions of ZA's rest after the midstate and two for e."""
+    from fisco_bcos_tpu_torch.ops import _kernels, address, keccak, sm2
+
+    plains = {
+        "keccak256_tx_hash": keccak.keccak256_tx_hash_plain,
+        "keccak256_sender": address.sender_address_plain,
+        "sm3_sender": address.sm3_sender_address_plain,
+        "sm3_e": lambda h, qx, qy, _za: sm2.e_plain(h, qx, qy),
+    }
+    data, starts, lengths = inputs["keccak256_tx_hash"]
+    n_bytes = int(lengths.sum())
+    za = sm2.za_midstate()
+    e_blocks = (int(za[8]) + 64 + 8) // 64 + 1 + 2
+    work = {  # (operations, bytes read and written, file:line replaced)
+        "keccak256_tx_hash": (
+            int((lengths.long() // 136 + 1).sum()) * KECCAK_F_OPS,
+            n_bytes + BLOCK_TXS * (8 + 4 + 32 + 64), "fisco_bcos_tpu/ops/keccak.py:132"),
+        "keccak256_sender": (BLOCK_TXS * KECCAK_F_OPS, BLOCK_TXS * (128 + 20 + 64),
+                             "fisco_bcos_tpu/ops/address.py:32"),
+        "sm3_sender": (BLOCK_TXS * 2 * SM3_COMPRESS_OPS, BLOCK_TXS * (128 + 1 + 20 + 64),
+                       "fisco_bcos_tpu/ops/sm3.py:92"),
+        "sm3_e": (BLOCK_TXS * e_blocks * SM3_COMPRESS_OPS, BLOCK_TXS * (32 + 128 + 64) + 128,
+                  "fisco_bcos_tpu/ops/sm2.py:116"),
+    }
+    rows = []
+    for name, args in inputs.items():
+        kernel = getattr(_kernels, name)
+        _, err, plain_ms = compare_and_time(kernel, plains[name], args, name, "timed block")
+        ops, io, replaces = work[name]
+        library = _kernels.KERNELS[name]
+        row = kernel_row(name, f"fisco_bcos_tpu_torch/csrc/{library}.cu", replaces,
+                         cuda_ms(lambda: kernel(*args)), ops, io, ops_kind="int32 instructions")
+        row.update(max_abs_err=err, plain_ms=plain_ms, launches=launches[name],
+                   device_ms=kernel_device_ms(lambda: kernel(*args)))
+        rows.append(row)
+    six = BLOCK_TXS * 6 * SM3_COMPRESS_OPS / INT32_MUL_PER_S * 1e3
+    log(f"sm3_e bound: {e_blocks} compressions a lane after the midstate; {six:.4f} ms with the 6 of "
+        f"two whole SM3 passes")
+    return rows
 
 
 def oracle_merkle_root(leaves, hasher: str, width: int = 16) -> bytes:
@@ -1305,17 +1542,18 @@ def oracle_merkle_root(leaves, hasher: str, width: int = 16) -> bytes:
     return h(level[0] + n.to_bytes(8, "big"))
 
 
-def check_merkle(card: str, device) -> None:
+def check_merkle(card: str, device) -> dict[str, int]:
     """merkle_root of each hasher at MERKLE_LEAVES leaves == the host
     oracle == the plain path, leaves given as numpy and on the card; the
     10,240-leaf tree's proofs; the 10,240-leaf root's launches (one a
-    level) and time."""
+    level) and time. Returns each packed kernel's launches on that root."""
     import numpy as np
     import torch
 
     from fisco_bcos_tpu_torch.ops import merkle
 
     gen = np.random.default_rng(SEED + 6)
+    counts = {}
     for hasher in HASH_KERNELS:
         for n in MERKLE_LEAVES:
             leaves = gen.integers(0, 256, (n, 32), dtype=np.uint8)
@@ -1339,15 +1577,18 @@ def check_merkle(card: str, device) -> None:
             if merkle.MerkleTree.verify_proof(bytes(leaves[i]), i ^ 1, n, proof, tree.root, hasher=hasher):
                 raise AssertionError(f"{hasher} proof of leaf {i} accepted at another position")
         levels = len(tree.levels) - 1
+        kernel = f"{hasher}_packed"
         _, launches = counted_run(
-            lambda: merkle.merkle_root(on_card, hasher=hasher), {hasher: levels}, f"merkle_root ({hasher})"
+            lambda: merkle.merkle_root(on_card, hasher=hasher), {kernel: levels}, f"merkle_root ({hasher})"
         )
         ms = host_ms(lambda: merkle.merkle_root(on_card, hasher=hasher), reps=5)
         bind_ms = host_ms(lambda: merkle.bind_root(tree.padded_root, n, hasher), reps=5)
         log(f"[{card}] merkle_root ({hasher}, width 16) == host oracle == plain path at "
             f"{', '.join(map(str, MERKLE_LEAVES))} leaves; proofs of the {n}-leaf tree verify; "
-            f"{n} leaves on the card: {ms:.3f} ms, {launches[hasher]} launches ({levels} levels), "
+            f"{n} leaves on the card: {ms:.3f} ms, {launches[kernel]} launches ({levels} levels), "
             f"of which the root binding on the host {bind_ms:.3f} ms")
+        counts[kernel] = launches[kernel]
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1366,9 +1607,10 @@ def load_kernels_module(checkout: str):
     return mod
 
 
-def timed_kernel_args(device, block, verify_block, sm_block) -> dict:
+def timed_kernel_args(device, block, verify_block, sm_block, forms: dict) -> dict:
     """Each kernel's wrapper arguments on its timed block, comb included;
-    the hash kernels' on the tx payloads."""
+    the hash kernels' packed forms' on the tx payloads, their other forms'
+    `forms` (form_inputs)."""
     from fisco_bcos_tpu_torch.ops import secp256k1, sm2
     from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
 
@@ -1379,8 +1621,9 @@ def timed_kernel_args(device, block, verify_block, sm_block) -> dict:
         "secp256k1_recover": (*recover_inputs(payloads, sigs65, device), secp256k1.comb_words(device)),
         "secp256k1_verify": (verify_row_tensor(*arrays, device), secp256k1.verify_comb_words(device)),
         "sm2_verify": (*sm2_device_inputs(sm_payloads, sigs128, device), sm2.comb_words(device)),
-        "keccak256": upload_packed(payloads, device),
-        "sm3": upload_packed(sm_payloads, device),
+        "keccak256_packed": upload_packed(payloads, device),
+        "sm3_packed": upload_packed(sm_payloads, device),
+        **forms,
     }
 
 
@@ -1405,12 +1648,6 @@ def parent_kernel_args(parent, device, verify_block) -> dict:
     return {"secp256k1_verify": (*verify_limbs(*arrays, device), secp256k1.comb_words(device))}
 
 
-def kernel_wrapper(kernels, name: str):
-    """A kernels module's wrapper of kernel `name` (a hash kernel's is
-    `<name>_packed`)."""
-    return getattr(kernels, name, None) or getattr(kernels, f"{name}_packed")
-
-
 def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) -> None:
     """Each kernel and the parent checkout's on the same timed block (each
     fed its own input layout, from `parent_args` where the layouts differ):
@@ -1421,10 +1658,11 @@ def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) 
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
-        if name not in parent.SOURCES:
+        old = getattr(parent, name, None)
+        if old is None:
             log(f"[{card}] {name}: the parent checkout has no such kernel; not timed against it")
             continue
-        new, old = kernel_wrapper(_kernels, name), kernel_wrapper(parent, name)
+        new = getattr(_kernels, name)
         old_args = parent_args.get(name, args)
         got, want = new(*args), old(*old_args)
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -1461,6 +1699,116 @@ def sass_by_function(lib: Path) -> dict[str, int]:
     return counts
 
 
+STAGE_SIZES = (4096, 8192, 32768)  # staging buffers other than csrc/hash_kernel.cuh's 16 KiB
+
+
+def build_stage_variant(stage_bytes: int) -> Path:
+    """nvcc of csrc/keccak256.cu with a staging buffer of `stage_bytes`
+    (-DHASH_STAGE_BYTES) into the build directory; returns the library."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    out = _kernels.BUILD_DIR / f"libkeccak256-stage{stage_bytes}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, f"-DHASH_STAGE_BYTES={stage_bytes}", "-o", str(out),
+         str(_kernels.SOURCES["keccak256"])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for keccak256 with a {stage_bytes}-byte stage:\n{proc.stdout}")
+    return out
+
+
+def stage_sweep(card: str, libs: dict, device) -> None:
+    """The keccak packed form with each staging buffer size ({bytes:
+    library}, the default build's 16 KiB included) on the 10,240 tx
+    payloads, a merkle level over 10,240 leaves (640 groups of 512 bytes)
+    and the mixed hash block: equal digests, the warps that staged, and the
+    CUDA-event time a call, sizes in turns."""
+    import ctypes
+
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    payloads = [b"bench parallel-transfer tx %06d" % (i % BENCH_SIGNERS) + b"\xab" * 64 for i in range(BLOCK_TXS)]
+    leaves = torch.randint(0, 256, (BLOCK_TXS * 32,), dtype=torch.uint8, generator=torch.Generator().manual_seed(SEED))
+    first = torch.arange(0, BLOCK_TXS, 16)
+    level = (leaves.to(device), (first * 32).to(device), torch.full(first.shape, 512, dtype=torch.int32).to(device))
+    blocks = {"tx payloads": upload_packed(payloads, device), "merkle level": level,
+              "mixed hash block": upload_packed(hash_mixed_messages(), device)}
+    fns = {}
+    for size, path in libs.items():
+        fn = ctypes.CDLL(str(path)).keccak256_launch
+        fn.argtypes = _kernels._ENTRIES["keccak256_packed"][2] + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[size] = fn
+    for what, (data, starts, lengths) in blocks.items():
+        b = starts.shape[0]
+        want = _kernels.keccak256_packed(data, starts, lengths)
+        out = torch.empty_like(want)
+        routes = torch.zeros(2, dtype=torch.int32, device=device)
+
+        def call(fn, count=False):
+            err = fn(data.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                     routes.data_ptr() if count else None, b, data.numel(), device.index,
+                     torch.cuda.current_stream(device).cuda_stream)
+            if err:
+                raise RuntimeError(f"keccak256 stage variant launch failed: CUDA error {err}")
+
+        shown = []
+        for size in sorted(fns):
+            routes.zero_()
+            call(fns[size], count=True)
+            if not torch.equal(out, want):
+                raise AssertionError(f"keccak256 with a {size}-byte stage != the default build on the {what}")
+            staged = routes.tolist()[0]
+            times = [cuda_ms(lambda f=f: call(f)) for f in (fns[size], fns[size])]
+            shown.append(f"{size // 1024} KiB {statistics.mean(times):.4f} ms ({staged} of {routes.sum().item()} "
+                         f"warps staged)")
+        log(f"[{card}] keccak256 packed, staging buffer sweep on the {what} (equal digests): " + "; ".join(shown))
+
+
+def call_anatomy(card: str, args) -> None:
+    """Where the host time of one packed keccak call goes, on the tx
+    payloads (`args`): the wrapper's checks, an output allocation, the
+    current stream read as an object and as the raw handle, the bound C
+    entry point alone, the whole wrapper, and one small torch op beside
+    them. Host clock a call, the best of 5 runs of 1,000 calls."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    data, starts, lengths = args
+    dev, b = data.device, starts.shape[0]
+    out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+    fn, _ = _kernels._entry("keccak256_packed")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    parts = {
+        "checks": lambda: _kernels._packed_args("keccak256_packed", data, starts, lengths, None),
+        "torch.empty": lambda: torch.empty((b, 32), dtype=torch.uint8, device=dev),
+        "current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "the raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "the C entry point": lambda: fn(data.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                                        None, b, data.numel(), dev.index, stream),
+        "the whole wrapper": lambda: _kernels.keccak256_packed(data, starts, lengths),
+        "one small torch op (starts + 1)": lambda: starts + 1,
+    }
+    shown = []
+    for what, part in parts.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                part()
+            runs.append((time.perf_counter() - t0) * 1e3)  # ms for 1,000 calls: µs a call
+        torch.cuda.synchronize()
+        shown.append(f"{what} {min(runs):.2f}")
+    log(f"[{card}] keccak256_packed call anatomy, host µs a call: " + ", ".join(shown))
+
+
 def lane_scaling(card: str, timed_args: dict) -> None:
     """Each kernel on the first 32, 4,224 and 10,240 lanes of its timed
     block (one warp, one warp a SM, the block): CUDA-event time a call, and
@@ -1468,7 +1816,7 @@ def lane_scaling(card: str, timed_args: dict) -> None:
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
-        fn = kernel_wrapper(_kernels, name)
+        fn = getattr(_kernels, name)
         times, device = [], []
         for n in (32, 132 * 32, BLOCK_TXS):
             part = tuple(a[:n] if a.shape[0] == BLOCK_TXS else a for a in args)
@@ -1590,20 +1938,27 @@ def main() -> int:
     builds = [lambda n=n: _kernels.build(n) for n in names]
     builds += [lambda n=n: parent.build(n) for n in names if n in parent.SOURCES] if parent else []
     builds += [lambda c=c: build_field_bench(c) for c in checkouts.values()]
+    builds += [lambda n=n: build_stage_variant(n) for n in STAGE_SIZES]
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all started together
         results = list(pool.map(lambda f: f(), builds))
     built = dict(zip(names, results))  # this checkout's kernels
-    bench_libs = dict(zip(checkouts, results[-len(checkouts):]))
+    stage_libs = dict(zip(STAGE_SIZES, results[-len(STAGE_SIZES):]))
+    bench_libs = dict(zip(checkouts, results[-len(checkouts) - len(STAGE_SIZES):-len(STAGE_SIZES)]))
     log(f"build: {json.dumps({k: round(v['seconds'], 3) for k, v in built.items()})} "
         f"({time.perf_counter() - t0:.3f} s, field bench{' and parent checkout' if parent else ''} too)")
     for name, b in built.items():  # ptxas -v: registers, stack and spills; size; launch geometry
         for line in (ln.strip() for ln in b["log"].splitlines()):
-            if "Used" in line or ("spill" in line and not line.startswith("0 bytes stack frame")):
+            if ("Used" in line or "Compiling entry function" in line
+                    or ("spill" in line and not line.startswith("0 bytes stack frame"))):
                 log(f"  {name}: {line}")
-        size = sum(sass_by_function(_kernels.library_path(name)).values())
+        sizes = sass_by_function(_kernels.library_path(name))
+        size = sum(sizes.values())
         log(f"  {name}: " + (f"{size} SASS instructions ({size * 16 / 1024:.0f} KiB)" if size else
                              "SASS size not measured (no cuobjdump)")
-            + f"; launch geometry at {BLOCK_TXS} lanes {json.dumps(_kernels.geometry(name, BLOCK_TXS))}")
+            + f"; launch geometry of the first kernel at {BLOCK_TXS} lanes "
+            + json.dumps(_kernels.geometry(name, BLOCK_TXS)))
+        if len(sizes) > 1:
+            log(f"  {name}: SASS instructions a kernel {json.dumps(sizes)}")
 
     device = resolve_device()
     t0 = time.perf_counter()
@@ -1626,9 +1981,12 @@ def main() -> int:
     log_kernel(card, recover)
     log(f"[{card}] admit_batch @ {BLOCK_TXS} txs: {admit_ms:.2f} ms end to end "
         f"({BLOCK_TXS / admit_ms * 1e3:.0f} tx/s)")
-    stages = admission_stages(block, device)
-    log(f"[{card}] admit_batch stages (ms): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    # with --parent, the stages as the parent composes them too, in turns parent, new, new, parent
+    turns = (parent, None, None, parent) if parent else (None,)
+    for who in turns:
+        stages = admission_stages(block, device, who)
+        log(f"[{card}] admit_batch stages{' (parent checkout)' if who else ''} (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
     log_busy(card, "admit_batch", lambda: admit_batch(payloads, sigs65))
 
@@ -1646,8 +2004,6 @@ def main() -> int:
         f"{adds4:.2f}, signed 5-bit windows {adds5:.2f}")
     log(f"[{card}] secp256k1 verify_batch @ {BLOCK_TXS} signatures: {verify_batch_ms:.2f} ms "
         f"end to end ({BLOCK_TXS / verify_batch_ms * 1e3:.0f} verifies/s)")
-    # with --parent, the parent checkout's stages too, in turns parent, new, new, parent
-    turns = (parent, None, None, parent) if parent else (None,)
     for who in turns:
         v_stages = verify_stages(verify_block, device, who)
         log(f"[{card}] verify_batch stages{' (parent checkout)' if who else ''} (ms): "
@@ -1663,28 +2019,39 @@ def main() -> int:
         f"end to end ({BLOCK_TXS / sm2_verify_batch_ms * 1e3:.0f} verifies/s)")
     log(f"[{card}] admit_batch_sm @ {BLOCK_TXS} txs: {sm_admit_ms:.2f} ms end to end "
         f"({BLOCK_TXS / sm_admit_ms * 1e3:.0f} tx/s)")
-    sm_stages = sm_admission_stages(sm_block, device)
-    log(f"[{card}] admit_batch_sm stages (ms): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in sm_stages.items()))
+    for who in turns:
+        sm_stages = sm_admission_stages(sm_block, device, who)
+        log(f"[{card}] admit_batch_sm stages{' (parent checkout)' if who else ''} (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sm_stages.items()))
     sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
     log_busy(card, "admit_batch_sm", lambda: admit_batch_sm(sm_payloads, sigs128))
 
-    # -- hash kernels and the merkle root --
+    # -- hash kernels: the packed forms, the forms, the merkle root --
     hash_errs = check_hash_kernels(device)
+    hash_errs.update(check_hash_forms(cases, sm_cases, device))
+    merkle_launches = check_merkle(card, device)
     hash_rows = []
     for name, path_payloads, path_launches in (
-        ("keccak256", payloads, launches), ("sm3", sm_payloads, sm_launches)
+        ("keccak256", payloads, merkle_launches), ("sm3", sm_payloads, sm_launches)
     ):
         row = measure_hash_kernel(name, path_payloads, device)
-        row.update(launches=path_launches[name], max_abs_err=max(row["max_abs_err"], hash_errs[name]))
+        row.update(launches=path_launches[row["name"]],
+                   max_abs_err=max(row["max_abs_err"], hash_errs[row["name"]]))
         log_kernel(card, row)
         hash_rows.append(row)
-    check_merkle(card, device)
+    forms = form_inputs(block, sm_block, device)
+    path_launches = {k: v for counts in (launches, sm_launches) for k, v in counts.items() if v}
+    for row in measure_hash_forms(forms, path_launches):
+        row["max_abs_err"] = max(row["max_abs_err"], hash_errs[row["name"]])
+        log_kernel(card, row)
+        hash_rows.append(row)
 
-    timed_args = timed_kernel_args(device, block, verify_block, sm_block)
+    timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms)
     if parent:
         time_against_parent(card, parent, timed_args, parent_kernel_args(parent, device, verify_block))
     lane_scaling(card, timed_args)
+    call_anatomy(card, timed_args["keccak256_packed"])
+    stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
     field_bench(card, bench_libs)
 
     rows = (recover, verify, sm2_row, *hash_rows)

@@ -16,7 +16,12 @@ starts and lengths, which the hash kernels pad themselves) plus signature
 limb tensors, and leaves as one packed ``[B, 117]`` uint8 tensor, copied to
 the host once. The same body runs on either device: each hash and EC call
 dispatches on its tensors' device, so on the card the path is the kernels
-or an exception, with no host fallback. Invalid lanes never raise — they
+or an exception, with no host fallback. On the card each hash is a form of
+its kernel that reads and writes what the EC kernel beside it gives and
+takes (the tx hash also as limbs, the sender from the key's limbs, SM2's e
+from the digests and key limbs), so no torch op runs between the launches:
+``admit_batch`` is keccak256 2 + secp256k1_recover 1 launches,
+``admit_batch_sm`` sm3 3 + sm2_verify 1. Invalid lanes never raise — they
 lower a validity bit.
 """
 
@@ -27,8 +32,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops import keccak, secp256k1, sm2, sm3
-from ..ops.address import pubkey_rows, sender_address_device, sm3_sender_address_device
-from ..ops.bigint import bytes_be_to_limbs, bytes_be_to_limbs_device, limbs_to_bytes_device
+from ..ops.address import sender_address_device, sm3_sender_address_device
+from ..ops.bigint import bytes_be_to_limbs
 from ..ops.hash_common import bucket_batch, pack_messages, pad_rows
 
 
@@ -37,21 +42,17 @@ def admission_core(data, starts, lengths, r, s, v):
     signed payloads, one per lane; (r, s) [B, 16] int32 limbs and v [B]
     int32 are the 65-byte signature split.
 
-    Returns (addr [B, 20] uint8, ok bool[B], qx, qy, z [B, 16] limbs); z is
-    the tx hash as limbs."""
-    z = bytes_be_to_limbs_device(keccak.keccak256_packed(data, starts, lengths))
+    Returns (addr [B, 20] uint8, ok bool[B], pubkey [B, 64] uint8, tx hash
+    [B, 32] uint8); a not-ok lane's pubkey is zero."""
+    h, z = keccak.keccak256_tx_hash(data, starts, lengths)
     qx, qy, ok = secp256k1.recover_device(z, r, s, v)
-    addr = sender_address_device(qx, qy)
-    return addr, ok, qx, qy, z
+    addr, pub = sender_address_device(qx, qy)
+    return addr, ok, pub, h
 
 
-def pack_admission_device(addr, ok, qx, qy, z) -> torch.Tensor:
+def pack_admission_device(addr, ok, pub, h) -> torch.Tensor:
     """[B, 117] uint8 = addr(20) ‖ ok(1) ‖ pubkey(64) ‖ tx_hash(32)."""
-    u8 = torch.uint8
-    return torch.cat(
-        [addr.to(u8), ok.to(u8)[:, None], pubkey_rows(qx, qy), limbs_to_bytes_device(z).to(u8)],
-        dim=1,
-    )
+    return torch.cat([addr, ok.to(torch.uint8)[:, None], pub, h], dim=1)
 
 
 def _admission_packed(data, starts, lengths, r, s, v) -> torch.Tensor:
@@ -120,14 +121,14 @@ def admission_sm_core(data, starts, lengths, r, s, qx, qy):
     """The SM admission body. (data, starts, lengths) are the packed signed
     payloads, one per lane; r, s, qx, qy [B, 16] int32 limbs of r‖s‖pub.
 
-    Returns (addr [B, 20] uint8, ok bool[B], qx, qy [B, 16] limbs zeroed on
-    not-ok lanes, z [B, 16] the tx hash as limbs)."""
+    Returns (addr [B, 20] uint8, ok bool[B], pubkey [B, 64] uint8 zeroed on
+    not-ok lanes, tx hash [B, 32] uint8). The tx hash is the packed form:
+    nothing on this path reads it as limbs (SM2 takes e)."""
     h = sm3.sm3_packed(data, starts, lengths)
-    e = sm2.e_device(h, pubkey_rows(qx, qy))
+    e = sm2.e_device(h, qx, qy)
     ok = sm2.verify_device(e, r, s, qx, qy)
-    qx = torch.where(ok[:, None], qx, torch.zeros_like(qx))
-    qy = torch.where(ok[:, None], qy, torch.zeros_like(qy))
-    return sm3_sender_address_device(qx, qy), ok, qx, qy, bytes_be_to_limbs_device(h)
+    addr, pub = sm3_sender_address_device(qx, qy, ok)
+    return addr, ok, pub, h
 
 
 def admit_batch_sm(

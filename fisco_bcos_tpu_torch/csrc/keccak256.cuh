@@ -1,6 +1,7 @@
 // Keccak-256 (legacy 0x01 padding, the reference's Keccak256 hasher) of one
 // message, padded in registers: the arithmetic of keccak256.cu, host
-// compilable.
+// compilable. A message comes through a reader (hash_kernel.cuh), or as a
+// public key's 16 big-endian words.
 //
 // The state is 25 64-bit lanes in registers (lane x + 5y). A round is
 // theta, rho and pi together (each lane of b is a rotated lane of a, with
@@ -81,10 +82,12 @@ HDEV void keccak_f1600(uint64_t* a) {
   }
 }
 
-// keccak256(msg[0..len)) -> out[0..32). The sponge absorbs len / 136 + 1
-// blocks; the last one carries 0x01 after the message and 0x80 in its byte
-// 135 (0x81 where the two coincide).
-HDEV void keccak256_message(const uint8_t* msg, int64_t len, uint8_t* out) {
+// The sponge over msg[0..len) (a ByteReader or a WordReader) -> the digest's
+// 32 bytes as 8 little-endian words (d[j] = bytes 4j..4j+3). The sponge
+// absorbs len / 136 + 1 blocks; the last one carries 0x01 after the message
+// and 0x80 in its byte 135 (0x81 where the two coincide).
+template <class R>
+HDEV void keccak256_absorb(const R& msg, int64_t len, uint32_t* d) {
   uint64_t a[25];
 #pragma unroll
   for (int i = 0; i < 25; i++) a[i] = 0;
@@ -96,7 +99,7 @@ HDEV void keccak256_message(const uint8_t* msg, int64_t len, uint8_t* out) {
 #pragma unroll
     for (int w = 0; w < 17; w++) {
       const int64_t k = rem - 8 * w;  // message bytes from this lane's start on
-      uint64_t lane = load_bytes<uint64_t, 8, false>(msg + off + 8 * w, bytes_in_word(k, 8));
+      uint64_t lane = msg.le64(off + 8 * w, k);
       if (last && k >= 0 && k < 8) lane ^= (uint64_t)0x01 << (8 * k);
       a[w] ^= lane;
     }
@@ -104,7 +107,43 @@ HDEV void keccak256_message(const uint8_t* msg, int64_t len, uint8_t* out) {
     keccak_f1600(a);
   }
 #pragma unroll
-  for (int i = 0; i < 32; i++) out[i] = (uint8_t)(a[i >> 3] >> (8 * (i & 7)));
+  for (int j = 0; j < 4; j++) {
+    d[2 * j] = (uint32_t)a[j];
+    d[2 * j + 1] = (uint32_t)(a[j] >> 32);
+  }
 }
+
+// keccak256(msg[0..len)) -> out[0..32), the bytes read where they lie.
+HDEV void keccak256_message(const uint8_t* msg, int64_t len, uint8_t* out) {
+  uint32_t d[8];
+  keccak256_absorb(ByteReader{msg}, len, d);
+#pragma unroll
+  for (int i = 0; i < 32; i++) out[i] = (uint8_t)(d[i >> 2] >> (8 * (i & 3)));
+}
+
+// keccak-256 of a public key's 64 bytes, given as 16 big-endian words (x ‖
+// y): one block, its padding constant -> the digest words as above.
+HDEV void keccak256_key(const uint32_t* be, uint32_t* d) {
+  uint64_t a[25];
+#pragma unroll
+  for (int i = 0; i < 25; i++) a[i] = 0;
+#pragma unroll
+  for (int w = 0; w < 8; w++) a[w] = bswap32(be[2 * w]) | ((uint64_t)bswap32(be[2 * w + 1]) << 32);
+  a[8] = 0x01;
+  a[16] = 0x8000000000000000ull;
+  keccak_f1600(a);
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    d[2 * j] = (uint32_t)a[j];
+    d[2 * j + 1] = (uint32_t)(a[j] >> 32);
+  }
+}
+
+// The kernel bodies' hash policy (hash_kernel.cuh).
+struct Keccak256 {
+  template <class R>
+  HDEV void message(const R& msg, int64_t len, uint32_t* d) { keccak256_absorb(msg, len, d); }
+  HDEV void key(const uint32_t* be, uint32_t* d) { keccak256_key(be, d); }
+};
 
 #endif  // FISCO_KECCAK256_CUH

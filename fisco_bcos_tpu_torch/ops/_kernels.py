@@ -8,8 +8,15 @@ together with every header it includes (:func:`source_digest`, so an edited
 source or header is rebuilt), and loaded with ``ctypes``. Nothing here runs
 at import: the CPU tests import every module.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches its kernel and nowhere else.
+Every C entry point's ``argtypes`` is bound once, when its library loads
+(:data:`_ENTRIES`). A wrapper checks device, type, shape and contiguity,
+allocates its outputs and launches on PyTorch's current stream; the C entry
+point sets the device itself.
+
+A library may hold several kernels, one C entry point each (the hash
+kernels' forms: :data:`KERNELS`). ``LAUNCHES`` counts, per kernel, the
+launches its wrapper made; a wrapper adds one where it launches its kernel
+and nowhere else. :func:`library_launches` sums them per library.
 """
 
 from __future__ import annotations
@@ -42,12 +49,44 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # registers, stack and spills per kernel, into the build log
 ]
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# kernel -> (library, C entry point, argtypes); the last two arguments of
+# every entry point are the CUDA device index and the stream
+_ENTRIES = {
+    # z, r, s, v, comb, qx, qy, ok pointers; lanes
+    "secp256k1_recover": ("secp256k1_recover", "secp256k1_recover_launch", [_P] * 8 + [_I]),
+    # rows, comb, ok pointers; lanes
+    "secp256k1_verify": ("secp256k1_verify", "secp256k1_verify_launch", [_P] * 3 + [_I]),
+    # e, r, s, qx, qy, comb, ok pointers; lanes
+    "sm2_verify": ("sm2_verify", "sm2_verify_launch", [_P] * 7 + [_I]),
+    # data, starts, lengths, out, routes; messages; bytes of data
+    "keccak256_packed": ("keccak256", "keccak256_launch", [_P] * 5 + [_I, _LL]),
+    # data, starts, lengths, out, limbs, routes; messages; bytes of data
+    "keccak256_tx_hash": ("keccak256", "keccak256_tx_hash_launch", [_P] * 6 + [_I, _LL]),
+    # qx, qy, ok, addr, pub; lanes
+    "keccak256_sender": ("keccak256", "keccak256_sender_launch", [_P] * 5 + [_I]),
+    "sm3_packed": ("sm3", "sm3_launch", [_P] * 5 + [_I, _LL]),
+    "sm3_sender": ("sm3", "sm3_sender_launch", [_P] * 5 + [_I]),
+    # h, qx, qy, za, e; lanes
+    "sm3_e": ("sm3", "sm3_e_launch", [_P] * 5 + [_I]),
+}
+KERNELS = {kernel: entry[0] for kernel, entry in _ENTRIES.items()}
+
+LAUNCHES: dict[str, int] = {kernel: 0 for kernel in KERNELS}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def library_launches(launches: dict[str, int] | None = None) -> dict[str, int]:
+    """Launch counts summed per library (every form of a hash kernel)."""
+    launches = LAUNCHES if launches is None else launches
+    out = {name: 0 for name in SOURCES}
+    for kernel, n in launches.items():
+        out[KERNELS[kernel]] += n
+    return out
 
 
 def _nvcc() -> str:
@@ -115,7 +154,34 @@ def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path(name)))
     lib.fisco_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fisco_cuda_error_string.restype = ctypes.c_char_p
+    for library, entry, argtypes in _ENTRIES.values():
+        if library == name:
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=None)
+def _entry(kernel: str):
+    """`kernel`'s bound C entry point and its library."""
+    library, entry, _ = _ENTRIES[kernel]
+    lib = _library(library)
+    return getattr(lib, entry), lib
+
+
+def _launch(kernel: str, dev: torch.device, *args) -> None:
+    """Call `kernel`'s C entry point with `args`, then the device index and
+    the current stream; raise on a CUDA error, count the launch."""
+    fn, lib = _entry(kernel)
+    # the raw handle of PyTorch's current stream: what current_stream(dev)
+    # .cuda_stream returns, without building a Stream object (chip_smoke.py
+    # call_anatomy times both)
+    err = fn(*args, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err:
+        msg = lib.fisco_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")
+    LAUNCHES[kernel] += 1
 
 
 def geometry(name: str, lanes: int) -> dict:
@@ -129,38 +195,33 @@ def geometry(name: str, lanes: int) -> dict:
     return {"threads": out[0], "blocks": out[1], "dynamic_shared_bytes": out[2]}
 
 
-def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err:
-        msg = lib.fisco_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-
-
 def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} must be on {device}, got {t.device}")
+    if t.device == device and t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return  # one test on the launch path; the reasons only on failure
     if t.dtype != dtype:
         raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{what} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+    raise ValueError(
+        f"{what} must be a contiguous tensor of shape {shape} on {device}, got "
+        f"{tuple(t.shape)} on {t.device}" + ("" if t.is_contiguous() else ", not contiguous")
+    )
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+    return t.device
 
 
-# z, r, s, v, comb, qx, qy, ok pointers; lanes; CUDA device index; stream
-_RECOVER_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _aligned16(t: torch.Tensor, what: str, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must be 16-byte aligned (read in 16-byte quads)")
 
 
 def secp256k1_recover(z, r, s, v, comb):
     """Launch the recover kernel: z, r, s [B, 16] int32 16-bit limbs, v [B]
     int32, comb [60, 8] int32 (uint32 words of the G / 2^128·G combs), all
     on one CUDA device. Returns (qx, qy [B, 16] int32, ok bool[B])."""
-    dev = z.device
-    if dev.type != "cuda":
-        raise ValueError(f"secp256k1_recover needs CUDA tensors, got {dev}")
+    dev = _cuda_device(z, "secp256k1_recover")
     b = z.shape[0]
     for what, t, dt, shape in (
         ("z", z, torch.int32, (b, 16)),
@@ -173,18 +234,11 @@ def secp256k1_recover(z, r, s, v, comb):
     qx = torch.empty((b, 16), dtype=torch.int32, device=dev)
     qy = torch.empty((b, 16), dtype=torch.int32, device=dev)
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
-    if b == 0:
-        return qx, qy, ok
-    lib = _library("secp256k1_recover")
-    lib.secp256k1_recover_launch.argtypes = _RECOVER_ARGTYPES
-    lib.secp256k1_recover_launch.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = lib.secp256k1_recover_launch(
-            z.data_ptr(), r.data_ptr(), s.data_ptr(), v.data_ptr(), comb.data_ptr(),
-            qx.data_ptr(), qy.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
+    if b:
+        _launch(
+            "secp256k1_recover", dev, z.data_ptr(), r.data_ptr(), s.data_ptr(), v.data_ptr(),
+            comb.data_ptr(), qx.data_ptr(), qy.data_ptr(), ok.data_ptr(), b,
         )
-    _check_launch(lib, "secp256k1_recover", err)
-    LAUNCHES["secp256k1_recover"] += 1
     return qx, qy, ok
 
 
@@ -195,18 +249,12 @@ def _require_verify_args(
     ([B, 16] int32 limbs for SM2, [B, 160] uint8 rows for secp256k1) and a
     [comb_rows, 8] int32 comb, contiguous, on one CUDA device."""
     first = next(iter(inputs.values()))
-    dev = first.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    dev = _cuda_device(first, name)
     b = first.shape[0]
     for what, t in inputs.items():
         _require(t, what, dtype, (b, width), dev)
     _require(comb, "comb", torch.int32, (comb_rows, 8), dev)
     return dev, b
-
-
-# rows, comb, ok pointers; lanes; CUDA device index; stream
-_SECP_VERIFY_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def secp256k1_verify(rows, comb):
@@ -217,25 +265,11 @@ def secp256k1_verify(rows, comb):
     dev, b = _require_verify_args(
         "secp256k1_verify", {"rows": rows}, comb, 64, dtype=torch.uint8, width=160
     )
-    if rows.data_ptr() % 16:
-        raise ValueError("secp256k1_verify: rows must be 16-byte aligned (read in 16-byte quads)")
+    _aligned16(rows, "rows", "secp256k1_verify")
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
-    if b == 0:
-        return ok
-    lib = _library("secp256k1_verify")
-    lib.secp256k1_verify_launch.argtypes = _SECP_VERIFY_ARGTYPES
-    lib.secp256k1_verify_launch.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = lib.secp256k1_verify_launch(
-            rows.data_ptr(), comb.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
-        )
-    _check_launch(lib, "secp256k1_verify", err)
-    LAUNCHES["secp256k1_verify"] += 1
+    if b:
+        _launch("secp256k1_verify", dev, rows.data_ptr(), comb.data_ptr(), ok.data_ptr(), b)
     return ok
-
-
-# e, r, s, qx, qy, comb, ok pointers; lanes; CUDA device index; stream
-_SM2_VERIFY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def sm2_verify(e, r, s, qx, qy, comb):
@@ -247,62 +281,129 @@ def sm2_verify(e, r, s, qx, qy, comb):
         "sm2_verify", {"e": e, "r": r, "s": s, "qx": qx, "qy": qy}, comb, 30
     )
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
-    if b == 0:
-        return ok
-    lib = _library("sm2_verify")
-    lib.sm2_verify_launch.argtypes = _SM2_VERIFY_ARGTYPES
-    lib.sm2_verify_launch.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = lib.sm2_verify_launch(
-            e.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(), qy.data_ptr(),
-            comb.data_ptr(), ok.data_ptr(), b, dev.index, _stream(dev),
+    if b:
+        _launch(
+            "sm2_verify", dev, e.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(),
+            qy.data_ptr(), comb.data_ptr(), ok.data_ptr(), b,
         )
-    _check_launch(lib, "sm2_verify", err)
-    LAUNCHES["sm2_verify"] += 1
     return ok
 
 
-# data, starts, lengths, out pointers; messages; bytes of data; CUDA device index; stream
-_HASH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# ---------------------------------------------------------------------------
+# Hash kernels (csrc/keccak256.cu, csrc/sm3.cu): one C entry point a form
+# ---------------------------------------------------------------------------
 
 
-def _packed_hash(name: str, data, starts, lengths):
-    """Launch hash kernel `name` over a packed batch: message i is
-    data[starts[i] : starts[i] + lengths[i]]. data uint8 [N], starts int64
-    [B], lengths int32 [B], contiguous, on one CUDA device; every range must
-    lie inside data (the kernel reads no byte outside it and gives a lane
-    whose range does not a zero digest). Returns the digests, [B, 32] uint8."""
-    dev = data.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+def _packed_args(name: str, data, starts, lengths, routes):
+    """Checks of a packed batch: data uint8 [N], starts int64 [B], lengths
+    int32 [B] and routes (None, or int32 [2]), contiguous, on one CUDA
+    device. Returns (device, B, the routes pointer)."""
+    dev = _cuda_device(data, name)
     b = starts.shape[0]
     _require(data, "data", torch.uint8, (data.numel(),), dev)
     _require(starts, "starts", torch.int64, (b,), dev)
     _require(lengths, "lengths", torch.int32, (b,), dev)
+    if routes is None:
+        return dev, b, None
+    _require(routes, "routes", torch.int32, (2,), dev)
+    return dev, b, routes.data_ptr()
+
+
+def _packed_hash(kernel: str, data, starts, lengths, routes=None):
+    """Launch a hash kernel's packed form over a packed batch: message i is
+    data[starts[i] : starts[i] + lengths[i]] (every range inside data; the
+    kernel reads no byte outside it and gives a lane whose range is not a
+    zero digest). `routes`, an int32 [2] tensor or None, gains the warps
+    that staged their messages through shared memory and those that read
+    them where they lie. Returns the digests, [B, 32] uint8."""
+    dev, b, routes_ptr = _packed_args(kernel, data, starts, lengths, routes)
     out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
-    if b == 0:
-        return out
-    lib = _library(name)
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = _HASH_ARGTYPES
-    launch.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = launch(
-            data.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, data.numel(), dev.index, _stream(dev),
+    if b:
+        _launch(
+            kernel, dev, data.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            routes_ptr, b, data.numel(),
         )
-    _check_launch(lib, name, err)
-    LAUNCHES[name] += 1
     return out
 
 
-def keccak256_packed(data, starts, lengths):
+def keccak256_packed(data, starts, lengths, routes=None):
     """keccak-256 of each message of a packed batch on the card ([B, 32]
     uint8); see :func:`_packed_hash`."""
-    return _packed_hash("keccak256", data, starts, lengths)
+    return _packed_hash("keccak256_packed", data, starts, lengths, routes)
 
 
-def sm3_packed(data, starts, lengths):
+def sm3_packed(data, starts, lengths, routes=None):
     """SM3 of each message of a packed batch on the card ([B, 32] uint8);
     see :func:`_packed_hash`."""
-    return _packed_hash("sm3", data, starts, lengths)
+    return _packed_hash("sm3_packed", data, starts, lengths, routes)
+
+
+def keccak256_tx_hash(data, starts, lengths):
+    """The tx-hash form: keccak-256 of each message of a packed batch (as
+    :func:`_packed_hash`) -> (digests [B, 32] uint8, the digests as [B, 16]
+    int32 16-bit limbs, the recover kernel's z)."""
+    dev, b, routes_ptr = _packed_args("keccak256_tx_hash", data, starts, lengths, None)
+    out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+    limbs = torch.empty((b, 16), dtype=torch.int32, device=dev)
+    if b:
+        _launch(
+            "keccak256_tx_hash", dev, data.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), limbs.data_ptr(), routes_ptr, b, data.numel(),
+        )
+    return out, limbs
+
+
+def _limb_rows(name: str, dev, b: int, **tensors) -> None:
+    for what, t in tensors.items():
+        _require(t, what, torch.int32, (b, 16), dev)
+        _aligned16(t, what, name)
+
+
+def _sender(kernel: str, qx, qy, ok):
+    dev = _cuda_device(qx, kernel)
+    b = qx.shape[0]
+    _limb_rows(kernel, dev, b, qx=qx, qy=qy)
+    if ok is not None:
+        _require(ok, "ok", torch.bool, (b,), dev)
+    addr = torch.empty((b, 20), dtype=torch.uint8, device=dev)
+    pub = torch.empty((b, 64), dtype=torch.uint8, device=dev)
+    if b:
+        _launch(
+            kernel, dev, qx.data_ptr(), qy.data_ptr(), None if ok is None else ok.data_ptr(),
+            addr.data_ptr(), pub.data_ptr(), b,
+        )
+    return addr, pub
+
+
+def keccak256_sender(qx, qy):
+    """The keccak sender form: public keys as [B, 16] int32 limbs x, y (the
+    recover kernel's output, 16-byte aligned) -> (right160(keccak(x ‖ y))
+    [B, 20] uint8, the keys' bytes x ‖ y [B, 64] uint8)."""
+    return _sender("keccak256_sender", qx, qy, None)
+
+
+def sm3_sender(qx, qy, ok):
+    """The SM3 sender form: as :func:`keccak256_sender` with SM3, of the
+    key where ok (bool [B]) holds and of 0^64 where it does not; the key
+    rows come back zeroed there too."""
+    return _sender("sm3_sender", qx, qy, ok)
+
+
+def sm3_e(h, qx, qy, za):
+    """The e form: SM2's e = SM3(SM3(prefix ‖ x ‖ y) ‖ h) for digests h
+    [B, 32] uint8 and keys qx, qy [B, 16] int32 limbs (all 16-byte
+    aligned), continued from `za`, the user ID's int32 [32] midstate
+    (ops/sm2.py za_state). Returns e as [B, 16] int32 limbs."""
+    dev = _cuda_device(h, "sm3_e")
+    b = h.shape[0]
+    _require(h, "h", torch.uint8, (b, 32), dev)
+    _aligned16(h, "h", "sm3_e")
+    _limb_rows("sm3_e", dev, b, qx=qx, qy=qy)
+    _require(za, "za", torch.int32, (32,), dev)
+    e = torch.empty((b, 16), dtype=torch.int32, device=dev)
+    if b:
+        _launch(
+            "sm3_e", dev, h.data_ptr(), qx.data_ptr(), qy.data_ptr(), za.data_ptr(),
+            e.data_ptr(), b,
+        )
+    return e

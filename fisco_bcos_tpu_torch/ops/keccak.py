@@ -7,6 +7,11 @@ launches ``csrc/keccak256.cu``, which pads each message itself; on a CPU
 tensor it runs :func:`keccak256_packed_plain`, which gathers and pads on the
 tensor's device and runs the sponge below.
 
+:func:`keccak256_tx_hash` is the kernel's tx-hash form: the same hash,
+giving each digest also as the recover kernel's ``[B, 16]`` int32 limbs
+(z), with no torch op between the two kernels. The sender form sits in
+``ops/address.py``, beside its JAX counterpart.
+
 The sponge is the port of the JAX package's ``keccak256_blocks``: a
 lane-parallel sponge over pre-padded blocks with per-lane multi-block
 masking. A 64-bit keccak lane is one int64 (the JAX lo/hi uint32 split is a
@@ -22,6 +27,7 @@ import torch
 
 from . import _kernels
 from ..device import resolve_device
+from .bigint import bytes_be_to_limbs_device
 from .hash_common import digest_bytes, gather_padded, upload_packed
 
 _RC = [
@@ -134,6 +140,26 @@ def keccak256_packed(data, starts, lengths) -> torch.Tensor:
     if data.device.type == "cpu":
         return keccak256_packed_plain(data, starts, lengths)
     raise ValueError(f"keccak256_packed: unsupported device {data.device}")
+
+
+def keccak256_tx_hash_plain(data, starts, lengths) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the tx-hash form: (digests [B, 32] uint8, the
+    digests read as big-endian integers, [B, 16] int32 limbs)."""
+    digests = keccak256_packed_plain(data, starts, lengths)
+    return digests, bytes_be_to_limbs_device(digests)
+
+
+def keccak256_tx_hash(data, starts, lengths) -> tuple[torch.Tensor, torch.Tensor]:
+    """keccak-256 of each message of a packed batch -> (digests [B, 32]
+    uint8, z [B, 16] int32 limbs). CUDA tensors go to the kernel's tx-hash
+    form (or an exception); CPU tensors to the plain version. The JAX
+    counterpart: ``keccak256_blocks`` then ``digest_words_le_to_limbs`` in
+    ``admission_core``."""
+    if data.device.type == "cuda":
+        return _kernels.keccak256_tx_hash(data, starts, lengths)
+    if data.device.type == "cpu":
+        return keccak256_tx_hash_plain(data, starts, lengths)
+    raise ValueError(f"keccak256_tx_hash: unsupported device {data.device}")
 
 
 def keccak256_batch(msgs, device=None) -> np.ndarray:

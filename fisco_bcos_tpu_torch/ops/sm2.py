@@ -4,8 +4,9 @@ Reference counterpart: bcos-crypto signature/sm2/SM2Crypto.cpp:29-91. The
 signature is 64-byte r‖s with the 64-byte uncompressed public key appended,
 and "recover" = parse the pubkey, then verify (SM2Crypto.cpp:81-91). The
 digest is e = SM3(ZA ‖ M), ZA = SM3(ENTL ‖ ID ‖ a ‖ b ‖ Gx ‖ Gy ‖ Px ‖ Py)
-with the default user id "1234567812345678"; both SM3 passes run on the
-port's batch SM3. Verification: t = (r + s) mod n ≠ 0; (x1, y1) = s·G +
+with the default user id "1234567812345678"; on the card both SM3 passes
+are one launch of the SM3 kernel's e form, continued from a per-ID
+midstate of ZA's shared blocks (:func:`e_device`). Verification: t = (r + s) mod n ≠ 0; (x1, y1) = s·G +
 t·Q; valid iff (e + x1) mod n == r.
 
 ``verify_device`` keeps the JAX package's public layout (``[B, 16]`` limbs
@@ -37,8 +38,11 @@ from .ec import (
 )
 from .hash_common import bucket_batch, pad_rows, rows_as_packed
 from .limb import eq, is_zero, lt
-from .sm3 import sm3_packed
+from .address import pubkey_rows
+from .sm3 import sm3_packed_plain
 from ..crypto.ref.ecdsa import SM2_CURVE, SM2_DEFAULT_ID
+from ..crypto.ref.sm3 import _IV as _SM3_IV
+from ..crypto.ref.sm3 import _compress as sm3_compress
 from ..device import resolve_device
 from ..params import default_sm2_tables
 
@@ -129,17 +133,58 @@ def za_prefix(user_id: bytes = SM2_DEFAULT_ID) -> bytes:
     )
 
 
-def e_device(
-    hash_bytes: torch.Tensor, pubkeys: torch.Tensor, user_id: bytes = SM2_DEFAULT_ID
-) -> torch.Tensor:
-    """Both SM3 passes of e = SM3(SM3(prefix ‖ pub) ‖ M) on the tensors'
-    device: hash_bytes [B, 32] and pubkeys [B, 64] uint8 -> e as [B, 16]
-    int32 limbs. The ZA rows are built there from :func:`za_prefix` (210
-    bytes a row for the default ID)."""
-    prefix = torch.tensor(list(za_prefix(user_id)), dtype=torch.uint8, device=pubkeys.device)
-    za_rows = torch.cat([prefix.expand(pubkeys.shape[0], -1), pubkeys], dim=1)
-    za = sm3_packed(*rows_as_packed(za_rows))
-    return bytes_be_to_limbs_device(sm3_packed(*rows_as_packed(torch.cat([za, hash_bytes], dim=1))))
+@lru_cache(maxsize=None)
+def za_midstate(user_id: bytes = SM2_DEFAULT_ID) -> np.ndarray:
+    """The e form's per-ID table, int32 [32] (layout in csrc/sm3.cuh): the
+    SM3 chain after ZA's whole 64-byte blocks of :func:`za_prefix`, computed
+    once on the host with the port's reference compression, then the count
+    t of the prefix's bytes after those blocks, ZA's whole length (prefix
+    and the 64-byte key), and those t bytes at the end of 64."""
+    prefix = za_prefix(user_id)
+    whole = len(prefix) // 64 * 64
+    v = list(_SM3_IV)
+    for off in range(0, whole, 64):
+        v = sm3_compress(v, prefix[off : off + 64])
+    tail = prefix[whole:]
+    table = np.zeros(32, dtype=np.uint32)
+    table[:8] = v
+    table[8] = len(tail)
+    table[9] = len(prefix) + 64
+    table[16:] = np.frombuffer(bytes(64 - len(tail)) + tail, dtype="<u4")
+    table = table.view(np.int32)
+    table.setflags(write=False)  # one cached array for every caller
+    return table
+
+
+@lru_cache(maxsize=None)
+def za_state(user_id: bytes, device: torch.device) -> torch.Tensor:
+    """:func:`za_midstate` uploaded once per (user ID, device)."""
+    return torch.tensor(za_midstate(user_id), device=device)
+
+
+def e_plain(hash_bytes, qx, qy, user_id: bytes = SM2_DEFAULT_ID) -> torch.Tensor:
+    """The plain version of the e form, both SM3 passes whole (no
+    midstate): e = SM3(SM3(prefix ‖ key) ‖ h) for digests h [B, 32] uint8
+    and keys qx, qy [B, 16] int32 limbs -> e as [B, 16] int32 limbs."""
+    pub = pubkey_rows(qx, qy)
+    prefix = torch.tensor(list(za_prefix(user_id)), dtype=torch.uint8, device=pub.device)
+    za = sm3_packed_plain(*rows_as_packed(torch.cat([prefix.expand(pub.shape[0], -1), pub], dim=1)))
+    e = sm3_packed_plain(*rows_as_packed(torch.cat([za, hash_bytes], dim=1)))
+    return bytes_be_to_limbs_device(e)
+
+
+def e_device(hash_bytes, qx, qy, user_id: bytes = SM2_DEFAULT_ID) -> torch.Tensor:
+    """e = SM3(ZA ‖ h), ZA = SM3(ENTL ‖ ID ‖ a ‖ b ‖ Gx ‖ Gy ‖ x ‖ y), for
+    digests h [B, 32] uint8 and keys qx, qy [B, 16] int32 limbs -> e as
+    [B, 16] int32 limbs, the SM2 kernel's input. CUDA tensors go to the SM3
+    kernel's e form, one launch continued from the ID's midstate (or an
+    exception); CPU tensors to :func:`e_plain`. The JAX counterpart is
+    ``sm2_e_batch``'s two SM3 passes."""
+    if hash_bytes.device.type == "cuda":
+        return _kernels.sm3_e(hash_bytes, qx, qy, za_state(user_id, hash_bytes.device))
+    if hash_bytes.device.type == "cpu":
+        return e_plain(hash_bytes, qx, qy, user_id)
+    raise ValueError(f"e_device: unsupported device {hash_bytes.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +192,9 @@ def e_device(
 # ---------------------------------------------------------------------------
 
 
-def _e_limbs(msg_hashes: np.ndarray, pubkeys: np.ndarray, user_id: bytes, dev) -> torch.Tensor:
-    """e = SM3(ZA ‖ M) of each row as [B, 16] int32 limbs on ``dev``."""
-    hashes = np.asarray(msg_hashes, dtype=np.uint8).reshape(-1, 32)
-    pubs = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
-    return e_device(torch.tensor(hashes, device=dev), torch.tensor(pubs, device=dev), user_id)
+def _hash_tensor(msg_hashes: np.ndarray, rows: int, dev) -> torch.Tensor:
+    """[B, 32] digests zero-padded to [rows, 32] uint8 on ``dev``."""
+    return torch.from_numpy(pad_rows(np.asarray(msg_hashes, dtype=np.uint8).reshape(-1, 32), rows)).to(dev)
 
 
 def sm2_e_batch(
@@ -159,7 +202,11 @@ def sm2_e_batch(
 ) -> np.ndarray:
     """e = SM3(ZA ‖ M) for a batch: [B,32] hashes + [B,64] pubkeys ->
     [B,32] uint8. Runs on the CUDA card unless ``device`` names another."""
-    e = _e_limbs(msg_hashes, pubkeys, user_id, resolve_device(device))
+    dev = resolve_device(device)
+    pubs = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
+    bsz = len(pubs)
+    qx, qy = limb_tensor(pubs[:, :32], bsz, dev), limb_tensor(pubs[:, 32:], bsz, dev)
+    e = e_device(_hash_tensor(msg_hashes, bsz, dev), qx, qy, user_id)
     return limbs_to_bytes_device(e).to(torch.uint8).cpu().numpy()
 
 
@@ -177,15 +224,10 @@ def verify_batch(
     dev = resolve_device(device)
     bsz = len(msg_hashes)
     bb = bucket_batch(bsz)
-    hashes = pad_rows(np.asarray(msg_hashes, dtype=np.uint8).reshape(-1, 32), bb)
-    pubkeys = pad_rows(np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64), bb)
-    ok = verify_device(
-        _e_limbs(hashes, pubkeys, user_id, dev),
-        limb_tensor(rs, bb, dev),
-        limb_tensor(ss, bb, dev),
-        limb_tensor(pubkeys[:, :32], bb, dev),
-        limb_tensor(pubkeys[:, 32:], bb, dev),
-    )
+    pubkeys = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
+    qx, qy = limb_tensor(pubkeys[:, :32], bb, dev), limb_tensor(pubkeys[:, 32:], bb, dev)
+    e = e_device(_hash_tensor(msg_hashes, bb, dev), qx, qy, user_id)
+    ok = verify_device(e, limb_tensor(rs, bb, dev), limb_tensor(ss, bb, dev), qx, qy)
     return ok.cpu().numpy()[:bsz]
 
 

@@ -6,7 +6,9 @@ its plain PyTorch version.
 starts and lengths; ``hash_common.pack_messages``): on a CUDA tensor it
 launches ``csrc/sm3.cu``, which pads each message itself; on a CPU tensor
 it runs :func:`sm3_packed_plain`, which gathers and pads on the tensor's
-device and runs the chain below.
+device and runs the chain below. The kernel's other forms sit beside their
+JAX counterparts, each with its plain version: the sender in
+``ops/address.py``, SM2's e in ``ops/sm2.py``.
 
 The chain is the port of the JAX package's ``sm3_blocks``: a lane-parallel
 Merkle–Damgård chain over pre-padded blocks with per-lane multi-block

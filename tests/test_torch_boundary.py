@@ -125,11 +125,24 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
         torch.zeros(2, dtype=torch.int64),
         torch.full((2,), 4, dtype=torch.int32),
     )
-    for wrapper in (_kernels.keccak256_packed, _kernels.sm3_packed):
+    for wrapper in (_kernels.keccak256_packed, _kernels.sm3_packed, _kernels.keccak256_tx_hash):
         with pytest.raises(ValueError):
             wrapper(*packed)
+    ok = torch.ones((4,), dtype=torch.bool)
+    h = torch.zeros((4, 32), dtype=torch.uint8)
+    for call in (
+        lambda: _kernels.keccak256_sender(z, z),
+        lambda: _kernels.sm3_sender(z, z, ok),
+        lambda: _kernels.sm3_e(h, z, z, torch.zeros((32,), dtype=torch.int32)),
+    ):
+        with pytest.raises(ValueError):
+            call()
     assert _kernels.LAUNCHES == before  # a refused call is not a launch
-    assert set(_kernels.LAUNCHES) == set(_kernels.SOURCES)
+    # one count a kernel (each C entry point, the hash kernels' forms too),
+    # every library's kernels among them
+    assert set(_kernels.LAUNCHES) == set(_kernels.KERNELS)
+    assert set(_kernels.KERNELS.values()) == set(_kernels.SOURCES)
+    assert set(_kernels.library_launches()) == set(_kernels.SOURCES)
 
 
 def test_kernel_build_is_content_addressed():

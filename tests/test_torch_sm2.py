@@ -151,6 +151,27 @@ def test_sm2_e_batch_user_ids_match_jax_and_reference(sm2_run, id_len):
         assert bytes(got[i]) == ref.sm2_e_bytes(bytes(pubs[i]), bytes(hashes[i]), user_id), i
 
 
+@pytest.mark.parametrize("id_len", [None, 0, 1, 16, 53])
+def test_e_form_cpu_entry_matches_jax(sm2_run, id_len, monkeypatch):
+    """The e form's CPU entry, sm2.e_device on [32, 32] digests and [32, 16]
+    key limbs (the 32-lane bucket, pad lanes zero), against the JAX
+    sm2_e_batch on the same rows: the default ID and the pinned ones."""
+    _, hashes, sigs, _, _, _, _ = sm2_run
+    user_id = ref.SM2_DEFAULT_ID if id_len is None else bytes(
+        random.Random(id_len).randrange(256) for _ in range(id_len)
+    )
+    pubs = np.zeros((BUCKET, 64), np.uint8)
+    pubs[: len(sigs)] = sigs[:, 64:]
+    h = np.zeros((BUCKET, 32), np.uint8)
+    h[: len(hashes)] = hashes
+    qx, qy = (torch.from_numpy(bigint.bytes_be_to_limbs(pubs[:, i : i + 32]).astype(np.int32)) for i in (0, 32))
+    monkeypatch.setattr(_kernels, "_library", lambda name: pytest.fail("kernel loader called on CPU"))
+    e = sm2.e_device(torch.from_numpy(h), qx, qy, user_id)
+    assert e.dtype == torch.int32 and e.shape == (BUCKET, 16)
+    want = np.asarray(jsm2.sm2_e_batch(h[: len(sigs)], pubs[: len(sigs)], user_id=user_id))
+    np.testing.assert_array_equal(bigint.limbs_to_bytes_be(e.numpy())[: len(sigs)], want)
+
+
 def test_verify_batch_matches_jax_and_reference(sm2_run):
     rows, hashes, _, _, _, port, jax_out = sm2_run
     np.testing.assert_array_equal(port["verify"], jax_out["verify"])
