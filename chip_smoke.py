@@ -47,14 +47,28 @@ exits non-zero, printing no result, without them. In order it:
    ``merkle_root`` of each hasher at 1, 16, 257, 4,097 and 10,240 leaves
    against a host oracle tree and the plain path, proofs of the 10,240-leaf
    tree, and its time and launches (one a level). Every path of phases 3-5
-   runs with every plain hash and plain form made to raise while it is
-   counted, and its launches are checked kernel by kernel, none other
+   runs with every plain version (hash, form, EC kernel) made to raise
+   while it is counted, and its launches are checked kernel by kernel, none other
    allowed: ``admit_batch`` keccak256 2 (tx hash, sender) and
    secp256k1_recover 1, ``admit_batch_sm`` sm3 3 (packed tx hash, e,
    sender) and sm2_verify 1, ``sm2.verify_batch`` sm3 1 (e) and sm2_verify
    1, ``verify_batch`` secp256k1_verify 1; each profiled admission call
    prints the device kernels and copies its trace holds;
-7. with ``--parent DIR`` (another checkout, for example the parent commit
+7. the CryptoSuite seam: ``ecdsa_suite()`` and ``sm_suite()`` built on the
+   card and driven as the JAX node drives its suite. The three-call
+   admission that ``batch_admit`` runs for a non-fused suite
+   (``hash_batch`` -> ``batch_recover`` -> ``calculate_address_batch``) on
+   the mixed and the timed blocks, counted: equal to ``admit_batch`` /
+   ``admit_batch_sm`` and the host oracle on every lane, with the fused
+   paths' launches a library (keccak256 2 + secp256k1_recover 1, the
+   packed form in the tx-hash form's place; sm3 3 + sm2_verify 1), timed
+   in turns with the fused path, with its stages and one profiled call;
+   each suite's ``batch_verify`` and ``batch_recover`` on the first 4, 32,
+   256 and 10,240 lanes of the mixed blocks, counted, equal to the ops
+   entry points and the host oracle, and timed; ``merkle_root_async`` and
+   ``merkle_tree`` through each suite over the 10,240 leaves of phase 6,
+   equal to ``ops.merkle``'s root, levels and proofs;
+8. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
@@ -64,13 +78,13 @@ exits non-zero, printing no result, without them. In order it:
    stages as the parent composes them (its packed hash kernel and the
    torch ops around it) and as this checkout does, in turns parent, new,
    new, parent;
-8. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
+9. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
    the cycles one warp spends on each field op and group-law op, on an
    inversion mod n (Fermat and safegcd divsteps) and on an SM2 product as
    the loop body around it grows (``clock64()``);
-9. prints every figure beside the card's name and power limit, one JSON
+10. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line.
 
 After the build it prints each kernel's registers, stack and spills
@@ -525,12 +539,12 @@ def host_ms(fn, reps: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def check_outputs(got, want, what: str, entry: str = "admit_batch") -> None:
+def check_outputs(got, want, what: str, entry: str = "admit_batch", against: str = "host oracle") -> None:
     import numpy as np
 
     for name, g, w in zip(("senders", "ok", "pubkeys", "tx hashes"), got, want):
         if g.shape != w.shape or not np.array_equal(g, w):
-            raise AssertionError(f"{entry} {name} != host oracle on the {what}")
+            raise AssertionError(f"{entry} {name} != {against} on the {what}")
 
 
 def check_mixed_block(cases, device) -> int:
@@ -562,19 +576,20 @@ def check_mixed_block(cases, device) -> int:
 
 
 @contextlib.contextmanager
-def plain_hashes_forbidden():
-    """While open, every plain hash of the port and every plain form of a
-    hash kernel raises: a counted path run inside it shows that no plain
-    hash runs on a CUDA path."""
-    from fisco_bcos_tpu_torch.ops import address, keccak, sm2, sm3
+def plain_versions_forbidden():
+    """While open, every plain hash of the port, every plain form of a hash
+    kernel and every plain EC version raises: a counted path run inside it
+    shows that no plain version runs on a CUDA path."""
+    from fisco_bcos_tpu_torch.ops import address, keccak, secp256k1, sm2, sm3
 
     def refuse(*_args, **_kwargs):
-        raise AssertionError("a plain hash ran on a CUDA path")
+        raise AssertionError("a plain version ran on a CUDA path")
 
     names = ((keccak, "keccak256_packed_plain"), (keccak, "keccak256_lanes"),
              (keccak, "keccak256_tx_hash_plain"), (sm3, "sm3_packed_plain"), (sm3, "sm3_blocks"),
              (address, "sender_address_plain"), (address, "sm3_sender_address_plain"),
-             (sm2, "e_plain"))
+             (sm2, "e_plain"), (secp256k1, "recover_plain"), (secp256k1, "verify_plain"),
+             (sm2, "verify_plain"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -587,13 +602,13 @@ def plain_hashes_forbidden():
 
 def counted_run(fn, expected: dict, what: str):
     """`fn()` with every launch counter set to 0 just before and read just
-    after, no plain hash allowed; each kernel of `expected` must have made
-    exactly its launches, and every other kernel none. Returns (fn's
+    after, no plain version allowed; each kernel of `expected` must have
+    made exactly its launches, and every other kernel none. Returns (fn's
     result, the counts a kernel)."""
     from fisco_bcos_tpu_torch.ops import _kernels
 
     _kernels.reset_launches()
-    with plain_hashes_forbidden():
+    with plain_versions_forbidden():
         out = fn()
     launches = dict(_kernels.LAUNCHES)
     for name, n in launches.items():
@@ -1542,18 +1557,19 @@ def oracle_merkle_root(leaves, hasher: str, width: int = 16) -> bytes:
     return h(level[0] + n.to_bytes(8, "big"))
 
 
-def check_merkle(card: str, device) -> dict[str, int]:
+def check_merkle(card: str, device) -> tuple[dict[str, int], dict]:
     """merkle_root of each hasher at MERKLE_LEAVES leaves == the host
     oracle == the plain path, leaves given as numpy and on the card; the
     10,240-leaf tree's proofs; the 10,240-leaf root's launches (one a
-    level) and time. Returns each packed kernel's launches on that root."""
+    level) and time. Returns each packed kernel's launches on that root,
+    and each hasher's (leaves, MerkleTree) of 10,240 leaves."""
     import numpy as np
     import torch
 
     from fisco_bcos_tpu_torch.ops import merkle
 
     gen = np.random.default_rng(SEED + 6)
-    counts = {}
+    counts, trees = {}, {}
     for hasher in HASH_KERNELS:
         for n in MERKLE_LEAVES:
             leaves = gen.integers(0, 256, (n, 32), dtype=np.uint8)
@@ -1588,7 +1604,179 @@ def check_merkle(card: str, device) -> dict[str, int]:
             f"{n} leaves on the card: {ms:.3f} ms, {launches[kernel]} launches ({levels} levels), "
             f"of which the root binding on the host {bind_ms:.3f} ms")
         counts[kernel] = launches[kernel]
-    return counts
+        trees[hasher] = (leaves, tree)
+    return counts, trees
+
+
+# ---------------------------------------------------------------------------
+# The CryptoSuite seam
+# ---------------------------------------------------------------------------
+
+# a 4-node committee's signature list, one warp, 256 lanes (the JAX suite's
+# host cutover), a block
+SUITE_LANES = (4, 32, 256, BLOCK_TXS)
+# batch_admit's branch for a suite other than the fused default: the fused
+# path's launches a library, the keccak packed form in the tx-hash form's
+# place (the SM suite's three calls launch exactly ADMIT_SM_LAUNCHES)
+THREE_CALL_LAUNCHES = {"keccak256_packed": 1, "secp256k1_recover": 1, "keccak256_sender": 1}
+
+
+def three_call_admission(suite, payloads, sigs):
+    """What the JAX node's batch_admit runs for a suite other than the fused
+    default (txpool/validator.py:143-149): hash_batch of the payloads ->
+    batch_recover -> calculate_address_batch, the keys back on the host in
+    between. Returns (senders, ok, pubkeys, tx hashes) as admit_batch
+    does."""
+    hashes = suite.hash_batch(payloads)
+    pubs, ok = suite.signature_impl.batch_recover(hashes, sigs)
+    return suite.calculate_address_batch(pubs), ok, pubs, hashes
+
+
+def check_three_call(card: str, suite, fused, blocks, expected: dict, fused_expected: dict) -> None:
+    """The suite's three-call admission on each (what, payloads, sigs, host
+    oracle) block, counted: == the fused entry point == the host oracle on
+    every lane; exactly `expected` launches, the same a library as the
+    fused path's. On the last block: its wall time in turns with the fused
+    entry's, its stages and one profiled call."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    name = suite.signature_impl.name
+    entry = f"the {name} suite's three-call admission"
+    if _kernels.library_launches(expected) != _kernels.library_launches(fused_expected):
+        raise AssertionError(f"{entry}: expected launches a library differ from the fused path's")
+    for what, payloads, sigs, want in blocks:
+        got, launches = counted_run(lambda: three_call_admission(suite, payloads, sigs), expected, entry)
+        check_outputs(got, want, what, entry)
+        check_outputs(got, fused(payloads, sigs), what, entry, against="the fused path")
+        log(f"{entry} on the {what}, {BLOCK_TXS} txs ({int(got[1].sum())} ok) == the fused path == "
+            f"host oracle; launches {show_launches(launches)}")
+    def three(p, s):
+        return three_call_admission(suite, p, s)
+
+    # the last block's payloads and signatures, fused and three-call in turns
+    turns = [host_ms(lambda f=f: f(payloads, sigs), reps=5) for f in (fused, three, three, fused)]
+    log(f"[{card}] {name} suite admission @ {BLOCK_TXS} txs, in turns (ms): fused {turns[0]:.2f}, "
+        f"three-call {turns[1]:.2f}, three-call {turns[2]:.2f}, fused {turns[3]:.2f}")
+    st: dict = {}
+
+    def hash_batch():
+        st["h"] = suite.hash_batch(payloads)
+
+    def batch_recover():
+        st["pubs"], _ = suite.signature_impl.batch_recover(st["h"], sigs)
+
+    def calculate_address_batch():
+        suite.calculate_address_batch(st["pubs"])
+
+    stages = {fn.__name__: host_ms(fn, reps=3) for fn in (hash_batch, batch_recover, calculate_address_batch)}
+    log(f"[{card}] {name} suite three-call stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    log_busy(card, f"{name} suite three-call admission", lambda: three_call_admission(suite, payloads, sigs))
+
+
+def same_outputs(got, want) -> bool:
+    """Arrays, or tuples of arrays, equal in shape and every element."""
+    import numpy as np
+
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    return len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def check_suite_batches(card: str, ecdsa, sm, verify_cases, cases, sm_cases) -> None:
+    """batch_verify and batch_recover of both suites on the first 4, 32,
+    256 and 10,240 lanes of the mixed blocks: == the ops entry point == the
+    host oracle, each call counted (its path's launches and none other, at
+    every size) and timed."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.ops import secp256k1, sm2
+
+    hashes, rs, ss, pubs, verdicts = verify_arrays(verify_cases, BLOCK_TXS)
+    sigs65 = np.concatenate([rs, ss, np.zeros((BLOCK_TXS, 1), np.uint8)], axis=1)  # v is not read
+    _, rec_sigs, picked = tile(cases, BLOCK_TXS)
+    _, rec_ok, rec_pubs, rec_hashes = expected_admission(picked)
+    _, sigs128, sm_picked = sm2_tile(sm_cases, BLOCK_TXS)
+    _, sm_ok, sm_pubs, sm_hashes = expected_admission_sm(sm_picked)
+    sm_keys = sigs128[:, 64:]
+    calls = (
+        ("secp256k1 batch_verify", lambda n: ecdsa.signature_impl.batch_verify(hashes[:n], pubs[:n], sigs65[:n]),
+         lambda n: secp256k1.verify_batch(hashes[:n], rs[:n], ss[:n], pubs[:n]),
+         lambda n: verdicts[:n], {"secp256k1_verify": 1}),
+        ("secp256k1 batch_recover", lambda n: ecdsa.signature_impl.batch_recover(rec_hashes[:n], rec_sigs[:n]),
+         lambda n: secp256k1.recover_batch(rec_hashes[:n], rec_sigs[:n]),
+         lambda n: (rec_pubs[:n], rec_ok[:n]), {"secp256k1_recover": 1}),
+        ("sm2 batch_verify", lambda n: sm.signature_impl.batch_verify(sm_hashes[:n], sm_keys[:n], sigs128[:n]),
+         lambda n: sm2.verify_batch(sm_hashes[:n], sigs128[:n, :32], sigs128[:n, 32:64], sm_keys[:n]),
+         lambda n: sm_ok[:n], SM2_VERIFY_LAUNCHES),
+        ("sm2 batch_recover", lambda n: sm.signature_impl.batch_recover(sm_hashes[:n], sigs128[:n]),
+         lambda n: sm2.recover_batch(sm_hashes[:n], sigs128[:n]),
+         lambda n: (sm_pubs[:n], sm_ok[:n]), SM2_VERIFY_LAUNCHES),
+    )
+    for what, suite_fn, ops_fn, oracle, launches in calls:
+        times, oks = [], []
+        for n in SUITE_LANES:
+            got, counts = counted_run(lambda: suite_fn(n), launches, f"the suite's {what} at {n} lanes")
+            if not same_outputs(got, ops_fn(n)) or not same_outputs(got, oracle(n)):
+                raise AssertionError(f"the suite's {what} != the ops entry point / host oracle at {n} lanes")
+            oks.append(int((got[1] if isinstance(got, tuple) else got).sum()))
+            times.append(host_ms(lambda: suite_fn(n), reps=5))
+        log(f"[{card}] suite {what} == ops entry point == host oracle at "
+            + " / ".join(f"{n:,}" for n in SUITE_LANES) + " lanes (" + " / ".join(map(str, oks))
+            + " ok); launches " + show_launches(counts) + " a call; " + " / ".join(f"{t:.3f}" for t in times)
+            + " ms a call")
+
+
+def check_suite_merkle(card: str, suites, trees: dict) -> None:
+    """merkle_root_async and merkle_tree through each suite over the
+    10,240 leaves of check_merkle's tree: the same root, levels and proofs,
+    one launch a level."""
+    import numpy as np
+
+    for suite in suites:
+        hasher = suite.hash_impl.name
+        leaves, tree = trees[hasher]
+        n, levels, kernel = len(leaves), len(tree.levels) - 1, f"{hasher}_packed"
+        what = f"the {suite.signature_impl.name} suite's merkle"
+        root, _ = counted_run(lambda: suite.merkle_root_async(leaves)(), {kernel: levels}, f"{what} root")
+        got, _ = counted_run(lambda: suite.merkle_tree(leaves), {kernel: levels}, f"{what} tree")
+        if root != tree.root or got.root != tree.root or len(got.levels) != len(tree.levels):
+            raise AssertionError(f"{what} root or depth != ops.merkle's at {n} leaves")
+        if not all(np.array_equal(a, b) for a, b in zip(got.levels, tree.levels)):
+            raise AssertionError(f"{what} tree levels != ops.merkle's at {n} leaves")
+        if any(got.proof(i) != tree.proof(i) for i in (0, n // 2 + 1, n - 1)):
+            raise AssertionError(f"{what} proofs != ops.merkle's at {n} leaves")
+        ms = host_ms(lambda: suite.merkle_root_async(leaves)(), reps=5)
+        log(f"[{card}] {what} root and tree ({hasher}) == ops.merkle at {n} leaves, {levels} launches "
+            f"each; root {ms:.3f} ms")
+
+
+def run_suite_phase(card: str, block, cases, sm_block, sm_cases, verify_cases, trees: dict) -> None:
+    """The CryptoSuite seam: ecdsa_suite() and sm_suite() built on the card
+    and driven as the JAX node drives its suite, on the blocks of the
+    earlier phases: the three-call admission, batch_verify and
+    batch_recover at SUITE_LANES lanes, the merkle root and tree."""
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch, admit_batch_sm
+    from fisco_bcos_tpu_torch.crypto.suite import ecdsa_suite, sm_suite
+
+    ecdsa, sm = ecdsa_suite(), sm_suite()
+    if ecdsa.device.type != "cuda" or sm.device != ecdsa.device:
+        raise AssertionError(f"the suites are not on the card: {ecdsa.device}, {sm.device}")
+
+    def secp_block(what, rows):
+        payloads, sigs65, picked = tile(rows, BLOCK_TXS)
+        return what, payloads, sigs65, expected_admission(picked)
+
+    def sm_block_of(what, rows):
+        payloads, sigs128, picked = sm2_tile(rows, BLOCK_TXS)
+        return what, payloads, sigs128, expected_admission_sm(picked)
+
+    check_three_call(card, ecdsa, admit_batch,
+                     [secp_block("mixed block", cases), secp_block("timed block", block)],
+                     THREE_CALL_LAUNCHES, ADMIT_LAUNCHES)
+    check_three_call(card, sm, admit_batch_sm,
+                     [sm_block_of("SM2 mixed block", sm_cases), sm_block_of("SM timed block", sm_block)],
+                     ADMIT_SM_LAUNCHES, ADMIT_SM_LAUNCHES)
+    check_suite_batches(card, ecdsa, sm, verify_cases, cases, sm_cases)
+    check_suite_merkle(card, (ecdsa, sm), trees)
 
 
 # ---------------------------------------------------------------------------
@@ -2029,7 +2217,7 @@ def main() -> int:
     # -- hash kernels: the packed forms, the forms, the merkle root --
     hash_errs = check_hash_kernels(device)
     hash_errs.update(check_hash_forms(cases, sm_cases, device))
-    merkle_launches = check_merkle(card, device)
+    merkle_launches, merkle_trees = check_merkle(card, device)
     hash_rows = []
     for name, path_payloads, path_launches in (
         ("keccak256", payloads, merkle_launches), ("sm3", sm_payloads, sm_launches)
@@ -2045,6 +2233,9 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], hash_errs[row["name"]])
         log_kernel(card, row)
         hash_rows.append(row)
+
+    # -- the CryptoSuite seam, driven as the node drives it --
+    run_suite_phase(card, block, cases, sm_block, sm_cases, verify_cases, merkle_trees)
 
     timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms)
     if parent:

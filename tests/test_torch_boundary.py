@@ -101,6 +101,15 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: merkle.merkle_root_async(np.zeros((3, 32), np.uint8), hasher="sm3"),
         lambda: merkle.MerkleTree(np.zeros((3, 32), np.uint8)),
         lambda: admission.admit_batch_sm(payloads, np.zeros((1, 128), np.uint8)),
+        lambda: suite.ecdsa_suite(),
+        lambda: suite.sm_suite(),
+        lambda: suite.ecdsa_suite("cuda"),
+        lambda: suite.Secp256k1Crypto().batch_verify(h, pub, np.zeros((1, 65), np.uint8)),
+        lambda: suite.Secp256k1Crypto().batch_recover(h, np.zeros((0, 65), np.uint8)),
+        lambda: suite.SM2Crypto().batch_verify(h, pub, np.zeros((1, 128), np.uint8)),
+        lambda: suite.SM2Crypto().batch_recover(h, np.zeros((1, 128), np.uint8)),
+        lambda: suite.Keccak256().address_batch(pub),
+        lambda: suite.SM3().address_batch(np.zeros((0, 64), np.uint8)),
     ):
         with pytest.raises(RuntimeError):
             call()

@@ -1,0 +1,223 @@
+"""The JAX node's own callers on the port's CryptoSuite, on the CPU
+(``device="cpu"``): a 4-node in-process chain, transaction admission,
+the signature-list check and the state and transaction roots.
+
+The chain swaps the port's ecdsa suite in by monkeypatching
+``fisco_bcos_tpu.node.node.ecdsa_suite``, and sends ``batch_admit``'s fused
+branch (txpool/validator.py:134) to the port by monkeypatching
+``fisco_bcos_tpu.crypto.admission.admit_batch`` with the port's
+``admit_batch``. While the port suite serves the node, every JAX batch
+entry the seam could reach (the signature impls' ``batch_verify`` and
+``batch_recover``, ``CryptoSuite.hash_batch(_async)``,
+``merkle_root_async`` and ``merkle_tree``) is patched to fail and to
+record the call, so a JAX batch call cannot pass unseen. The JAX suite then
+checks what the chain committed on its host legs: single-item hashes and
+recovery, its host merkle tree and the native verify loop of
+``BlockValidator``. The SM suite is held at the ``batch_admit`` level,
+where ``batch_admit`` takes its three-call branch (txpool/validator.py:
+143-149) through the port."""
+
+import contextlib
+from dataclasses import dataclass
+
+import numpy as np
+import pytest
+
+from fisco_bcos_tpu.codec.abi import ABICodec
+from fisco_bcos_tpu.consensus import BlockValidator
+from fisco_bcos_tpu.crypto import admission as jadmission
+from fisco_bcos_tpu.crypto import suite as jsuite
+from fisco_bcos_tpu.executor.precompiled import DAG_TRANSFER_ADDRESS
+from fisco_bcos_tpu.front import InprocGateway
+from fisco_bcos_tpu.ledger import ConsensusNode, GenesisConfig
+from fisco_bcos_tpu.node import Node, NodeConfig
+from fisco_bcos_tpu.node import node as node_module
+from fisco_bcos_tpu.ops.merkle import MerkleTree
+from fisco_bcos_tpu.protocol.block import Block
+from fisco_bcos_tpu.protocol.block_header import BlockHeader
+from fisco_bcos_tpu.protocol.transaction import Transaction, TransactionFactory
+from fisco_bcos_tpu.storage.entry import Entry
+from fisco_bcos_tpu.storage.state_storage import StateStorage
+from fisco_bcos_tpu.txpool.validator import batch_admit
+from fisco_bcos_tpu_torch.crypto import admission, suite
+from fisco_bcos_tpu_torch.ops import _kernels
+
+PORT = suite.ecdsa_suite(device="cpu")
+PORT_SM = suite.sm_suite(device="cpu")
+JAX = jsuite.ecdsa_suite()
+JAX_SM = jsuite.sm_suite()
+
+
+@dataclass(frozen=True)
+class HostLegs(jsuite.CryptoSuite):
+    """A JAX suite whose batch hash is its single-item host hash, a message
+    at a time (its own batch hash runs a JAX program)."""
+
+    def hash_batch(self, msgs) -> np.ndarray:
+        return np.frombuffer(b"".join(map(self.hash, msgs)), dtype=np.uint8).reshape(-1, 32)
+
+    def hash_batch_async(self, msgs):
+        out = self.hash_batch(msgs)
+        return lambda: out
+
+
+@contextlib.contextmanager
+def port_seam():
+    """The JAX node's JAX batch crypto entries made to fail (recording each
+    call) and its fused admission sent to the port; yields the calls."""
+    calls = []
+
+    def jax_batch(name):
+        def fail(*_args, **_kwargs):
+            calls.append(name)
+            pytest.fail(f"a JAX batch crypto entry ran: {name}")
+
+        return fail
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_kernels, "_library", lambda name: pytest.fail("kernel loader called on CPU"))
+        for cls, names in (
+            (jsuite.Secp256k1Crypto, ("batch_verify", "batch_recover")),
+            (jsuite.SM2Crypto, ("batch_verify", "batch_recover")),
+            (jsuite.CryptoSuite, ("hash_batch", "hash_batch_async", "merkle_root_async", "merkle_tree")),
+        ):
+            for name in names:
+                mp.setattr(cls, name, jax_batch(f"{cls.__name__}.{name}"))
+        mp.setattr(jadmission, "admit_batch", lambda payloads, sigs: admission.admit_batch(payloads, sigs, device="cpu"))
+        mp.setattr(node_module, "ecdsa_suite", lambda: PORT)
+        yield calls
+
+
+def _signed_txs(factory, kp, count, tag="n"):
+    codec = ABICodec(factory.suite.hash)
+    return [
+        factory.create_signed(
+            kp,
+            chain_id="chain0",
+            group_id="group0",
+            block_limit=500,
+            nonce=f"{tag}{i}",
+            to=DAG_TRANSFER_ADDRESS,
+            input=codec.encode_call("userAdd(string,uint256)", f"u{tag}{i}", 100),
+        )
+        for i in range(count)
+    ]
+
+
+@pytest.fixture(scope="module")
+def chain():
+    """Four nodes on the port's ecdsa suite commit one block of 4 txs (the
+    tests/test_pbft.py make_chain pattern)."""
+    with port_seam() as calls:
+        keypairs = [PORT.signature_impl.generate_keypair(secret=10_000 + i) for i in range(4)]
+        committee = [ConsensusNode(kp.pub, weight=1) for kp in keypairs]
+        gateway = InprocGateway(auto=True)
+        nodes = []
+        for kp in keypairs:
+            node = Node(NodeConfig(genesis=GenesisConfig(consensus_nodes=list(committee))), keypair=kp)
+            gateway.connect(node.front)
+            nodes.append(node)
+        assert all(n.suite is PORT for n in nodes)
+        leader = next(n for n in nodes if n.pbft_config.is_leader(1, 0))
+        user = PORT.signature_impl.generate_keypair(secret=777)
+        txs = _signed_txs(TransactionFactory(PORT), user, 4)
+        assert all(r.status == 0 for r in leader.txpool.submit_batch(txs))
+        leader.tx_sync.maintain()
+        assert leader.sealer.seal_and_submit()
+        proof = nodes[1].ledger.tx_proof(txs[2].hash(PORT))
+        committed_calls = list(calls)
+    yield nodes, txs, proof, committed_calls
+    for n in nodes:
+        n.stop()
+
+
+def test_chain_commits_on_the_port_suite(chain):
+    nodes, txs, _, calls = chain
+    assert not calls  # no JAX batch crypto entry ran
+    assert all(n.block_number() == 1 for n in nodes)
+    assert len({n.ledger.block_hash_by_number(1) for n in nodes}) == 1
+    roots = {n.ledger.header_by_number(1).state_root for n in nodes}
+    assert len(roots) == 1 and roots != {bytes(32)}
+    assert nodes[0].ledger.tx_hashes_by_number(1) == [t.hash(PORT) for t in txs]
+
+
+def test_jax_suite_recomputes_the_committed_block(chain):
+    """Roots, tx hashes and senders recomputed by the JAX suite on its host
+    legs, its BlockValidator accepting the header, and a tx proof the port
+    suite built verifying under the JAX verifier."""
+    nodes, txs, (items, idx, n), _ = chain
+    ledger = nodes[0].ledger
+    header = ledger.header_by_number(1)
+    block = ledger.block_by_number(1, with_receipts=True)
+    assert len(block.transactions) == len(block.receipts) == len(txs)
+    host = HostLegs(JAX.hash_impl, JAX.signature_impl)
+    hashes = [JAX.hash(t.encode_data()) for t in block.transactions]
+    assert hashes == ledger.tx_hashes_by_number(1)
+    leaves = np.frombuffer(b"".join(hashes), dtype=np.uint8).reshape(-1, 32)
+    assert JAX.merkle_root_async(leaves)() == header.txs_root
+    assert Block(transactions=block.transactions, receipts=block.receipts).calculate_receipts_root(host) == header.receipts_root
+    for t, h in zip(txs, hashes):
+        assert t.sender == JAX.calculate_address(JAX.signature_impl.recover(h, t.signature))
+    assert BlockValidator(JAX).check_block(header, ledger.consensus_nodes())
+    assert (idx, n) == (2, len(txs))
+    assert MerkleTree.verify_proof(hashes[2], idx, n, items, header.txs_root)
+
+
+def test_block_validator_on_the_port_suite(chain):
+    nodes, _, _, _ = chain
+    header = nodes[0].ledger.header_by_number(1)
+    committee = nodes[0].ledger.consensus_nodes()
+    with port_seam() as calls:
+        validator = BlockValidator(PORT)
+        assert validator.check_block(header, committee)
+        forged = BlockHeader.decode(header.encode())
+        forged.state_root = b"\xde" * 32
+        forged.clear_hash_cache()
+        assert not validator.check_block(forged, committee)
+    assert not calls
+
+
+def test_batch_admit_sm_takes_the_three_call_branch():
+    """batch_admit on the port's SM suite: hash_batch -> batch_recover ->
+    calculate_address_batch, a corrupted and a short signature among the
+    txs; the results the JAX SM suite gives one tx at a time on the host."""
+    kp = PORT_SM.signature_impl.generate_keypair(secret=0x5151)
+    txs = _signed_txs(TransactionFactory(PORT_SM), kp, 4, tag="sm")
+    bad = bytearray(txs[2].signature)
+    bad[40] ^= 1
+    txs[2].signature = bytes(bad)
+    txs[3].signature = txs[3].signature[:-1]
+    fresh = [Transaction.decode(t.encode()) for t in txs]  # no cached hash or sender
+    with port_seam() as calls:
+        ok = batch_admit(fresh, PORT_SM)
+    assert not calls
+    np.testing.assert_array_equal(ok, [True, True, False, False])
+    sender = JAX_SM.calculate_address(kp.pub)
+    for t, good in zip(fresh, ok):
+        assert t._hash == JAX_SM.hash(t.encode_data())
+        if good:
+            assert t.sender == sender == JAX_SM.calculate_address(JAX_SM.signature_impl.recover(t._hash, t.signature))
+        else:
+            assert t.sender != sender
+
+
+def test_state_and_tx_roots_match_the_jax_host_legs():
+    """StateStorage's XOR state root (storage/state_storage.py:140) and a
+    Block's transaction and receipt roots on the port suites equal the JAX
+    suites' on their host legs."""
+    for port, jax_suite in ((PORT, JAX), (PORT_SM, JAX_SM)):
+        host = HostLegs(jax_suite.hash_impl, jax_suite.signature_impl)
+        state = StateStorage()
+        for i in range(9):
+            state.set_row(f"t{i % 3}", b"key %d" % i, Entry().set(b"value %d" % i * (i + 1)))
+        with port_seam() as calls:
+            got = state.hash(port)
+        assert not calls
+        assert got == state.hash(host) and got != bytes(32)
+        kp = port.signature_impl.generate_keypair(secret=0xB10C)
+        txs = _signed_txs(TransactionFactory(port), kp, 5, tag="root")
+        with port_seam() as calls:
+            root = Block(transactions=list(txs)).calculate_txs_root(port)
+        assert not calls
+        fresh = [Transaction.decode(t.encode()) for t in txs]
+        assert root == Block(transactions=fresh).calculate_txs_root(host)
