@@ -68,7 +68,21 @@ exits non-zero, printing no result, without them. In order it:
    entry points and the host oracle, and timed; ``merkle_root_async`` and
    ``merkle_tree`` through each suite over the 10,240 leaves of phase 6,
    equal to ``ops.merkle``'s root, levels and proofs;
-8. with ``--parent DIR`` (another checkout, for example the parent commit
+8. Ed25519, the QC certificates' scheme: on a mixed 10,240-lane block of
+   128 cases (tampered signatures, messages and keys; keys and R with
+   y >= p, with x = 0 and the sign bit set, with no root; s >= L; the
+   small-order and mixed-order keys and R that the cofactored equation
+   accepts; the zero row) and a timed block of 10,240 valid signatures from
+   64 seeded signers, holds the Ed25519 kernel against its plain version on
+   every lane and ``ed25519.verify_batch`` against the host oracle; drives
+   ``verify_batch`` on the timed block between the counters (one launch,
+   the plain versions made to raise) and times it, its stages (host_pad:
+   the SHA-512 challenges; upload; verify; download) and the kernel at 4,
+   7, 100 and 10,240 lanes; drives ``Ed25519Crypto`` on the card, as
+   ``Ed25519QCScheme.verify_cert`` does, ``batch_verify`` and
+   ``batch_recover`` at the same sizes, counted, equal to the ops entry
+   point and the oracle, and timed;
+9. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
@@ -78,13 +92,13 @@ exits non-zero, printing no result, without them. In order it:
    stages as the parent composes them (its packed hash kernel and the
    torch ops around it) and as this checkout does, in turns parent, new,
    new, parent;
-9. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
+10. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
    the cycles one warp spends on each field op and group-law op, on an
    inversion mod n (Fermat and safegcd divsteps) and on an SM2 product as
    the loop body around it grows (``clock64()``);
-10. prints every figure beside the card's name and power limit, one JSON
+11. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line.
 
 After the build it prints each kernel's registers, stack and spills
@@ -580,7 +594,7 @@ def plain_versions_forbidden():
     """While open, every plain hash of the port, every plain form of a hash
     kernel and every plain EC version raises: a counted path run inside it
     shows that no plain version runs on a CUDA path."""
-    from fisco_bcos_tpu_torch.ops import address, keccak, secp256k1, sm2, sm3
+    from fisco_bcos_tpu_torch.ops import address, ed25519, keccak, secp256k1, sm2, sm3
 
     def refuse(*_args, **_kwargs):
         raise AssertionError("a plain version ran on a CUDA path")
@@ -589,7 +603,7 @@ def plain_versions_forbidden():
              (keccak, "keccak256_tx_hash_plain"), (sm3, "sm3_packed_plain"), (sm3, "sm3_blocks"),
              (address, "sender_address_plain"), (address, "sm3_sender_address_plain"),
              (sm2, "e_plain"), (secp256k1, "recover_plain"), (secp256k1, "verify_plain"),
-             (sm2, "verify_plain"))
+             (sm2, "verify_plain"), (ed25519, "verify_plain"), (ed25519, "verify_core"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -1411,7 +1425,7 @@ def check_hash_forms(cases, sm_cases, device) -> dict[str, int]:
     import torch
 
     from fisco_bcos_tpu_torch.crypto import admission
-    from fisco_bcos_tpu_torch.ops import address, keccak, secp256k1, sm2, sm3
+    from fisco_bcos_tpu_torch.ops import address, ed25519, keccak, secp256k1, sm2, sm3
     from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
 
     errs = {}
@@ -1780,6 +1794,322 @@ def run_suite_phase(card: str, block, cases, sm_block, sm_cases, verify_cases, t
 
 
 # ---------------------------------------------------------------------------
+# Ed25519: the kernel, verify_batch and the suite's Ed25519Crypto
+# ---------------------------------------------------------------------------
+
+# QC committees of 4 and 7 (consensus/qc.py verify_cert: one batch a
+# quorum), a few hundred lanes, a 10k block
+ED25519_LANES = (4, 7, 100, BLOCK_TXS)
+ED25519_VERIFY_LAUNCHES = {"ed25519_verify": 1}
+# the kernel's field ops mod 2^255 - 19 (csrc/ed25519_verify.cu): the 8x8
+# (or 36) word products, the fold of the high half by 38 (8) and of the top
+# by 19 (1)
+MULS_FE_MUL = 2 * (64 + 8 + 1)
+MULS_FE_SQR = 2 * (36 + 8 + 1)
+ED25519_RECODE = int("8" * 64, 16)  # 8 in every 4-bit window
+
+
+def ed25519_order8_point():
+    """T8 = L·P for decompressed P, the first whose order is 8 (reference
+    point arithmetic)."""
+    from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref
+
+    y = 2
+    while True:
+        pt = ref._decompress(y.to_bytes(32, "little"))
+        if pt is not None:
+            t = ref._mul(ref.L, pt)
+            if not ref._eq_points(ref._mul(4, t), ref.IDENT):
+                return t
+        y += 1
+
+
+def make_ed25519_cases(n_unique: int, seed: int):
+    """(msg, pub32, sig64, the host oracle's verdict) rows from seeded
+    signers, one lane in 16 of each kind: tampered R, S or message; another
+    signer's key; a key or an R with y >= p, with x = 0 and the sign bit
+    set, or with no root; s >= L; and lanes the cofactored equation
+    accepts: small-order keys (the identity, y = -1, y = 0 with either
+    sign, an order-8 point) with s = r, a small-order R with s = k·a,
+    mixed-order R = r·B + T8 and keys a·B + T8, and the all-zero row."""
+    from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref
+
+    P, L = ref.P, ref.L
+    rng = random.Random(seed)
+    t8 = ed25519_order8_point()
+    enc = lambda y, sign=0: (y | sign << 255).to_bytes(32, "little")  # noqa: E731
+    no_root = next(y for y in range(2, P) if ref._decompress(enc(y)) is None)
+    small = (enc(1), enc(P - 1), enc(0), enc(0, 1), ref._compress(t8))
+
+    def sign_with(a, pub, msg, r, extra=None):  # R = r·B (+ extra), s = r + k·a
+        rpt = ref._mul(r, ref.BASE)
+        rpt = rpt if extra is None else ref._add(rpt, extra)
+        rc = ref._compress(rpt)
+        k = int.from_bytes(ref._sha512(rc + pub + msg), "little") % L
+        return rc + ((r + k * a) % L).to_bytes(32, "little")
+
+    rows = []
+    for i in range(n_unique):
+        sk = rng.randbytes(32)
+        a, pub = ref._clamp(ref._sha512(sk)), ref.seed_to_pubkey(sk)
+        msg = rng.randbytes(rng.choice((0, 32, 32, 97)))
+        sig = ref.sign(sk, msg)
+        s = int.from_bytes(sig[32:], "little")
+        r = rng.randrange(1, L)
+        variant, j = i % 16, (i // 16) % 5
+        if variant == 1:
+            sig = bytes([sig[0] ^ 1]) + sig[1:]
+        elif variant == 2:
+            sig = sig[:33] + bytes([sig[33] ^ 0x10]) + sig[34:]
+        elif variant == 3:
+            msg = msg + b"!"
+        elif variant == 4:
+            pub = ref.seed_to_pubkey(rng.randbytes(32))
+        elif variant == 5:
+            bad = (enc(P), b"\xff" * 31 + b"\x7f", enc(P + 2, 1))[j % 3]
+            pub, sig = (bad, sig) if j % 2 else (pub, bad + sig[32:])
+        elif variant == 6:
+            bad = enc((1, P - 1)[j % 2], 1)  # x = 0, sign 1
+            pub, sig = (bad, sig) if j < 3 else (pub, bad + sig[32:])
+        elif variant == 7:
+            pub, sig = (enc(no_root), sig) if j % 2 else (pub, enc(no_root) + sig[32:])
+        elif variant == 8:
+            sig = sig[:32] + (L, (1 << 256) - 1, s + L)[j % 3].to_bytes(32, "little")
+        elif variant == 9:
+            pub = small[j]
+            sig = sign_with(0, pub, msg, r)
+        elif variant == 10:
+            sig = sign_with(a, pub, msg, 0, t8 if j % 2 else None)
+        elif variant == 11:
+            sig = sign_with(a, pub, msg, r, t8)
+        elif variant == 12:
+            pub = ref._compress(ref._add(ref._mul(a, ref.BASE), t8))
+            sig = sign_with(a, pub, msg, r)
+        elif variant == 13:
+            msg, pub, sig = b"", bytes(32), bytes(64)
+        rows.append((msg, pub, sig, ref.verify(pub, msg, sig)))
+    return rows
+
+
+def make_ed25519_bench_block(n_unique: int):
+    """Valid signatures of 32-byte messages (a QC vote preimage's size) from
+    seeded signers, over the timed admission block's payload hashes; rows
+    as make_ed25519_cases makes them."""
+    from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref
+    from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+
+    rows = []
+    for i in range(n_unique):
+        sk = (0xED25519 + 104729 * i).to_bytes(32, "little")
+        msg = keccak256(b"bench parallel-transfer tx %06d" % i + b"\xab" * 64)
+        pub, sig = ref.seed_to_pubkey(sk), ref.sign(sk, msg)
+        rows.append((msg, pub, sig, ref.verify(pub, msg, sig)))
+    return rows
+
+
+def ed25519_tile(rows, n: int):
+    """Tile (msg, pub, sig, verdict) rows to n lanes: (msgs, pubs, sigs)
+    lists and the host oracle's verdicts."""
+    import numpy as np
+
+    picked = [rows[i % len(rows)] for i in range(n)]
+    return tuple([r[k] for r in picked] for k in range(3)), np.array([r[3] for r in picked])
+
+
+def ed25519_digits(k: int) -> list[int]:
+    """The kernel's signed digits of a scalar (any 256-bit k), MSB first:
+    window i of k + 0x88..8 (mod 2^256), less 8."""
+    kk = (k + ED25519_RECODE) % (1 << 256)
+    return [((kk >> (4 * i)) & 15) - 8 for i in range(63, -1, -1)]
+
+
+def ed25519_verify_multiplies(s: int, k_neg: int) -> int:
+    """32-bit multiplies of the least work the Ed25519 kernel's method
+    needs for one lane, which runs it whole: two decompressions (255
+    squarings and 19 products each: the chain of (p-5)/8, v³, v⁷, the
+    checks; T and 2d·T, 2 products), the table of A (7 additions of 8
+    products and a cached form of 1), the ladder over this lane's signed
+    digits (a window's 4 doublings 4 squarings and 3 products each, and the
+    product of T where an addition follows; an addition of A 8 products,
+    of the B comb 7; the doublings of the still-identity accumulator and
+    the first addition to it are no work), then - R (8) and 3 doublings."""
+    sqr, mul = 2 * 255, 2 * (19 + 2) + 7 * 9 + 8 + 3 * 3
+    sqr += 3 * 4
+    started = False
+    for dk, ds in zip(ed25519_digits(k_neg), ed25519_digits(s)):
+        if started:
+            sqr, mul = sqr + 16, mul + 12 + (1 if dk or ds else 0)
+        for d, cost in ((dk, 8), (ds, 7)):
+            if d:
+                mul += cost if started else 0
+                started = True
+    return sqr * MULS_FE_SQR + mul * MULS_FE_MUL
+
+
+def ed25519_rows_tensor(msgs, pubs, sigs, device):
+    """The kernel's input on the card: [n, 128] uint8 rows (host challenges)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    return torch.from_numpy(ed25519.device_inputs(msgs, pubs, sigs, pad_to=len(msgs))).to(device)
+
+
+def check_ed25519_block(rows, device, what: str) -> tuple[int, float]:
+    """Ed25519 kernel == verify_plain on every lane of a 10,240-lane block;
+    verify_batch == the host oracle. Returns (max difference, plain ms)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    (msgs, pubs, sigs), want = ed25519_tile(rows, BLOCK_TXS)
+    _, err, plain_ms = compare_and_time(
+        ed25519.verify_device, ed25519.verify_plain, (ed25519_rows_tensor(msgs, pubs, sigs, device),),
+        "ed25519_verify", what,
+    )
+    if not np.array_equal(ed25519.verify_batch(msgs, pubs, sigs), want):
+        raise AssertionError(f"ed25519.verify_batch != host oracle on the {what}")
+    log(f"{what}, {BLOCK_TXS} lanes ({int(want.sum())} accepted): ed25519 kernel == plain; "
+        f"verify_batch == host oracle")
+    return err, plain_ms
+
+
+def run_ed25519_path(rows) -> tuple[int, float]:
+    """ed25519.verify_batch on the timed block, counted. Returns (launches
+    of the kernel, median end-to-end ms)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    (msgs, pubs, sigs), want = ed25519_tile(rows, BLOCK_TXS)
+    got, launches = counted_run(
+        lambda: ed25519.verify_batch(msgs, pubs, sigs), ED25519_VERIFY_LAUNCHES, "ed25519.verify_batch"
+    )
+    if not np.array_equal(got, want) or not got.all():
+        raise AssertionError("ed25519.verify_batch != host oracle on the timed block")
+    log(f"Ed25519 path: verify_batch on {BLOCK_TXS} signatures == host oracle; "
+        f"launches {show_launches(launches)}")
+    return launches["ed25519_verify"], host_ms(lambda: ed25519.verify_batch(msgs, pubs, sigs), reps=5)
+
+
+def ed25519_stages(rows, device) -> dict[str, float]:
+    """Median ms of each stage of ed25519.verify_batch on the timed block,
+    each run warm and ending synchronised: host_pad (the SHA-512 challenges
+    and the byte rows), upload, verify (the kernel), download; and, inside
+    host_pad, the challenges alone (one hashlib call a lane)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    (msgs, pubs, sigs), _ = ed25519_tile(rows, BLOCK_TXS)
+    st: dict = {}
+
+    def host_pad():
+        st["host"] = ed25519.device_inputs(msgs, pubs, sigs)
+
+    def upload():
+        st["dev"] = torch.from_numpy(st["host"]).to(device)
+
+    def verify():
+        st["ok"] = ed25519.verify_device(st["dev"])
+
+    def download():
+        st["ok"].cpu().numpy()
+
+    stages = {fn.__name__: host_ms(fn, reps=3) for fn in (host_pad, upload, verify, download)}
+    keys, rs = [p[:32] for p in pubs], [s[:64] for s in sigs]
+    stages["of which challenges"] = host_ms(lambda: ed25519.challenges(msgs, keys, rs), reps=3)
+    return stages
+
+
+def measure_ed25519_kernel(card: str, rows, device) -> dict:
+    """The kernel on the timed block: its time at ED25519_LANES lanes
+    (CUDA events) and its row, with the bound from this run's digits."""
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    (msgs, pubs, sigs), _ = ed25519_tile(rows, BLOCK_TXS)
+    dev_rows = ed25519_rows_tensor(msgs, pubs, sigs, device)
+    times = [cuda_ms(lambda n=n: ed25519.verify_device(dev_rows[:n])) for n in ED25519_LANES]
+    log(f"[{card}] ed25519_verify kernel at " + " / ".join(f"{n:,}" for n in ED25519_LANES)
+        + " lanes: " + " / ".join(f"{t:.4f}" for t in times) + " ms")
+    host = dev_rows[: len(rows)].cpu().numpy()
+    per_case = [ed25519_verify_multiplies(int.from_bytes(bytes(r[32:64]), "little"),
+                                          int.from_bytes(bytes(r[96:]), "little")) for r in host]
+    muls = sum(per_case[i % len(rows)] for i in range(BLOCK_TXS))
+    return kernel_row(
+        "ed25519_verify", "fisco_bcos_tpu_torch/csrc/ed25519_verify.cu",
+        "fisco_bcos_tpu/ops/ed25519.py:286", times[-1], muls,
+        io_bytes=BLOCK_TXS * (ed25519.ROW_BYTES + 1) + 24 * 8 * 4,
+    )
+
+
+def check_ed25519_suite(card: str, cases, device) -> None:
+    """Ed25519Crypto() on the card, as the QC scheme drives it
+    (Ed25519QCScheme.verify_cert: one batch_verify a quorum):
+    batch_verify and batch_recover (R ‖ S ‖ key signatures) on the first
+    4, 7, 100 and 10,240 lanes of the mixed block, counted, == the ops entry
+    point == the host oracle, and timed."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto.suite import Ed25519Crypto
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    impl = Ed25519Crypto(device)
+    (msgs, pubs, sigs), want = ed25519_tile(cases, BLOCK_TXS)
+    carried = [s + p for s, p in zip(sigs, pubs)]
+    keys = np.frombuffer(b"".join(pubs), np.uint8).reshape(-1, 32)
+    calls = (
+        ("batch_verify", lambda n: impl.batch_verify(msgs[:n], pubs[:n], sigs[:n]),
+         lambda n: ed25519.verify_batch(msgs[:n], pubs[:n], sigs[:n]), lambda n: want[:n]),
+        ("batch_recover", lambda n: impl.batch_recover(msgs[:n], carried[:n]),
+         lambda n: (np.where(want[:n, None], keys[:n], 0).astype(np.uint8),
+                    ed25519.verify_batch(msgs[:n], pubs[:n], sigs[:n])),
+         lambda n: (np.where(want[:n, None], keys[:n], 0).astype(np.uint8), want[:n])),
+    )
+    for what, suite_fn, ops_fn, oracle in calls:
+        times, oks = [], []
+        for n in ED25519_LANES:
+            got, counts = counted_run(lambda: suite_fn(n), ED25519_VERIFY_LAUNCHES,
+                                      f"Ed25519Crypto.{what} at {n} lanes")
+            if not same_outputs(got, ops_fn(n)) or not same_outputs(got, oracle(n)):
+                raise AssertionError(f"Ed25519Crypto.{what} != the ops entry point / host oracle at {n} lanes")
+            oks.append(int((got[1] if isinstance(got, tuple) else got).sum()))
+            times.append(host_ms(lambda: suite_fn(n), reps=5))
+        log(f"[{card}] Ed25519Crypto.{what} == ops entry point == host oracle at "
+            + " / ".join(f"{n:,}" for n in ED25519_LANES) + " lanes (" + " / ".join(map(str, oks))
+            + " ok); launches " + show_launches(counts) + " a call; " + " / ".join(f"{t:.3f}" for t in times)
+            + " ms a call")
+
+
+def run_ed25519_phase(card: str, device) -> tuple[dict, list]:
+    """Ed25519 (ROADMAP A3): the kernel against verify_plain on a mixed and
+    a timed block, verify_batch against the host oracle and counted, its
+    stages, the kernel's times and row, and the suite's Ed25519Crypto.
+    Returns (the kernel's row, the timed block)."""
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    t0 = time.perf_counter()
+    cases = make_ed25519_cases(UNIQUE_SIGNERS, SEED + 5)
+    block = make_ed25519_bench_block(BENCH_SIGNERS)
+    log(f"Ed25519: {len(cases)} mixed cases, {len(block)} valid signers; built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    mixed_err, _ = check_ed25519_block(cases, device, "Ed25519 mixed block")
+    err, plain_ms = check_ed25519_block(block, device, "Ed25519 timed block")
+    launches, batch_ms = run_ed25519_path(block)
+    row = measure_ed25519_kernel(card, block, device)
+    row.update(launches=launches, max_abs_err=max(err, mixed_err), plain_ms=plain_ms)
+    log_kernel(card, row)
+    log(f"[{card}] ed25519.verify_batch @ {BLOCK_TXS} signatures: {batch_ms:.2f} ms end to end "
+        f"({BLOCK_TXS / batch_ms * 1e3:.0f} verifies/s)")
+    stages = ed25519_stages(block, device)
+    log(f"[{card}] ed25519.verify_batch stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    (msgs, pubs, sigs), _ = ed25519_tile(block, BLOCK_TXS)
+    log_busy(card, "ed25519.verify_batch", lambda: ed25519.verify_batch(msgs, pubs, sigs))
+    check_ed25519_suite(card, cases, device)
+    return row, block
+
+
+# ---------------------------------------------------------------------------
 # Against another checkout's kernels
 # ---------------------------------------------------------------------------
 
@@ -1795,11 +2125,11 @@ def load_kernels_module(checkout: str):
     return mod
 
 
-def timed_kernel_args(device, block, verify_block, sm_block, forms: dict) -> dict:
+def timed_kernel_args(device, block, verify_block, sm_block, forms: dict, ed_block) -> dict:
     """Each kernel's wrapper arguments on its timed block, comb included;
     the hash kernels' packed forms' on the tx payloads, their other forms'
     `forms` (form_inputs)."""
-    from fisco_bcos_tpu_torch.ops import secp256k1, sm2
+    from fisco_bcos_tpu_torch.ops import ed25519, secp256k1, sm2
     from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
 
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
@@ -1812,6 +2142,8 @@ def timed_kernel_args(device, block, verify_block, sm_block, forms: dict) -> dic
         "keccak256_packed": upload_packed(payloads, device),
         "sm3_packed": upload_packed(sm_payloads, device),
         **forms,
+        "ed25519_verify": (ed25519_rows_tensor(*ed25519_tile(ed_block, BLOCK_TXS)[0], device),
+                           ed25519.comb_words(device)),
     }
 
 
@@ -2237,7 +2569,10 @@ def main() -> int:
     # -- the CryptoSuite seam, driven as the node drives it --
     run_suite_phase(card, block, cases, sm_block, sm_cases, verify_cases, merkle_trees)
 
-    timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms)
+    # -- Ed25519: the kernel, verify_batch, the suite's Ed25519Crypto --
+    ed_row, ed_block = run_ed25519_phase(card, device)
+
+    timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block)
     if parent:
         time_against_parent(card, parent, timed_args, parent_kernel_args(parent, device, verify_block))
     lane_scaling(card, timed_args)
@@ -2245,7 +2580,7 @@ def main() -> int:
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
     field_bench(card, bench_libs)
 
-    rows = (recover, verify, sm2_row, *hash_rows)
+    rows = (recover, verify, sm2_row, *hash_rows, ed_row)
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))
     log(json.dumps({
         "ok": True,

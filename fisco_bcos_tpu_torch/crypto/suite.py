@@ -16,9 +16,11 @@ kernel as a block of 10,240 does.
 Single-item calls (``hash``, ``generate_keypair``, ``sign``, ``verify``,
 ``recover``, ``calculate_address``) run on the host through the port's
 ``crypto/ref``, the pure-Python leg the JAX suite falls back to without its
-native core; both give the same bytes (RFC 6979 nonces). Ed25519, SHA-256
-and Poseidon are not ported (ROADMAP A3, A5, A6): ``hash_impl_by_name``
-raises for the two hashers.
+native core; both give the same bytes (RFC 6979 nonces; RFC 8032 for
+Ed25519). ``Ed25519Crypto`` is the signature scheme of the QC certificates
+(``consensus/qc.py``); its batch verify runs the Ed25519 kernel on the
+suite's device. SHA-256 and Poseidon are not ported (ROADMAP A5, A6):
+``hash_impl_by_name`` raises for them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import ed25519 as ed_ops
 from ..ops import keccak as keccak_ops
 from ..ops import merkle as merkle_ops
 from ..ops import secp256k1 as secp_ops
@@ -39,6 +42,7 @@ from ..ops.address import sender_address_device, sm3_sender_address_device
 from ..ops.bigint import limb_tensor
 from ..ops.merkle import hasher_fns
 from .ref import ecdsa as ref_ecdsa
+from .ref import ed25519 as ref_ed25519
 
 
 def right160(b: bytes) -> bytes:
@@ -302,6 +306,74 @@ class SM2Crypto(SignatureCrypto):
         if not len(sigs):
             return np.zeros((0, 64), dtype=np.uint8), np.zeros(0, dtype=bool)
         return sm2_ops.recover_batch(hashes, sigs, device=dev)
+
+
+class Ed25519Crypto(SignatureCrypto):
+    """96-byte R‖S‖pub32 signatures (reference: Ed25519Crypto.cpp, wedpr);
+    "recover" parses the appended key and verifies it, as SM2's does. The
+    secret is the 32-byte seed read as a little-endian integer.
+
+    The batch calls take lists of bytes, of any lengths: a key shorter than
+    32 bytes or a signature shorter than 64 (96 for ``batch_recover``)
+    lowers its lane's bit and never raises. Such a lane reaches the kernel
+    as the JAX suite's placeholder, and its mask drops the verdict."""
+
+    name = "ed25519"
+    sig_len = 96
+    # a malformed lane's stand-in (R, key zero; s = 1), as in the JAX suite
+    _PLACEHOLDER = b"\x00" * 32 + b"\x01" + b"\x00" * 63
+
+    def generate_keypair(self, secret: int | None = None) -> KeyPair:
+        if secret is None:
+            secret = int.from_bytes(secrets.token_bytes(32), "little")
+        seed = (secret % (1 << 256)).to_bytes(32, "little")
+        return KeyPair(int.from_bytes(seed, "little"), ref_ed25519.seed_to_pubkey(seed))
+
+    @staticmethod
+    def _seed(kp: KeyPair) -> bytes:
+        return (kp.secret % (1 << 256)).to_bytes(32, "little")
+
+    def sign(self, kp: KeyPair, msg_hash: bytes) -> bytes:
+        return ref_ed25519.sign(self._seed(kp), msg_hash) + kp.pub
+
+    def verify(self, pub: bytes, msg_hash: bytes, sig: bytes) -> bool:
+        return ref_ed25519.verify(pub[:32], msg_hash, sig[:64])
+
+    def recover(self, msg_hash: bytes, sig: bytes) -> bytes:
+        pub = sig[64:96]
+        if not self.verify(pub, msg_hash, sig[:64] + pub):
+            raise ValueError("ed25519 signature does not verify")
+        return pub
+
+    def batch_verify(self, msg_hashes, pubs, sigs) -> np.ndarray:
+        """Messages, keys and signatures (lists of bytes) -> ok bool[B]: the
+        challenges on the host, one launch of the Ed25519 kernel."""
+        dev = resolve_device(self.device)
+        hashes = [bytes(h) for h in msg_hashes]
+        keys = [bytes(p)[:32] for p in pubs]
+        rs = [bytes(s)[:64] for s in sigs]
+        if not len(hashes) == len(keys) == len(rs):
+            raise ValueError(f"ed25519: {len(hashes)} messages, {len(keys)} keys, {len(rs)} signatures")
+        if not rs:
+            return np.zeros(0, dtype=bool)
+        wellformed = np.array([len(p) == 32 and len(s) == 64 for p, s in zip(keys, rs)], dtype=bool)
+        if not wellformed.all():
+            keys = [p if good else self._PLACEHOLDER[64:] for p, good in zip(keys, wellformed)]
+            rs = [s if good else self._PLACEHOLDER[:64] for s, good in zip(rs, wellformed)]
+        return ed_ops.verify_batch(hashes, keys, rs, device=dev) & wellformed
+
+    def batch_recover(self, msg_hashes, sigs) -> tuple[np.ndarray, np.ndarray]:
+        """Messages and 96-byte signatures -> (the carried keys [B, 32]
+        uint8, zero where not ok, ok bool[B]); a signature shorter than 96
+        bytes is not ok."""
+        sigs = [bytes(s) for s in sigs]
+        wellformed = np.array([len(s) >= 96 for s in sigs], dtype=bool)
+        safe = [s if good else self._PLACEHOLDER for s, good in zip(sigs, wellformed)]
+        pubs = [s[64:96] for s in safe]
+        ok = self.batch_verify(msg_hashes, pubs, safe) & wellformed
+        out = np.zeros((len(sigs), 32), dtype=np.uint8)
+        out[ok] = np.frombuffer(b"".join(p for p, good in zip(pubs, ok) if good), np.uint8).reshape(-1, 32)
+        return out, ok
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ SOURCES = {
     "sm2_verify": CSRC / "sm2_verify.cu",
     "keccak256": CSRC / "keccak256.cu",
     "sm3": CSRC / "sm3.cu",
+    "ed25519_verify": CSRC / "ed25519_verify.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +70,8 @@ _ENTRIES = {
     "sm3_sender": ("sm3", "sm3_sender_launch", [_P] * 5 + [_I]),
     # h, qx, qy, za, e; lanes
     "sm3_e": ("sm3", "sm3_e_launch", [_P] * 5 + [_I]),
+    # rows, comb, ok pointers; lanes
+    "ed25519_verify": ("ed25519_verify", "ed25519_verify_launch", [_P] * 3 + [_I]),
 }
 KERNELS = {kernel: entry[0] for kernel, entry in _ENTRIES.items()}
 
@@ -246,8 +249,9 @@ def _require_verify_args(
     name: str, inputs: dict, comb, comb_rows: int, dtype=torch.int32, width: int = 16
 ) -> tuple[torch.device, int]:
     """Checks of a verify kernel's inputs: [B, width] tensors of `dtype`
-    ([B, 16] int32 limbs for SM2, [B, 160] uint8 rows for secp256k1) and a
-    [comb_rows, 8] int32 comb, contiguous, on one CUDA device."""
+    ([B, 16] int32 limbs for SM2, [B, 160] uint8 rows for secp256k1, [B,
+    128] for Ed25519) and a [comb_rows, 8] int32 comb, contiguous, on one
+    CUDA device."""
     first = next(iter(inputs.values()))
     dev = _cuda_device(first, name)
     b = first.shape[0]
@@ -286,6 +290,21 @@ def sm2_verify(e, r, s, qx, qy, comb):
             "sm2_verify", dev, e.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(),
             qy.data_ptr(), comb.data_ptr(), ok.data_ptr(), b,
         )
+    return ok
+
+
+def ed25519_verify(rows, comb):
+    """Launch the Ed25519 verify kernel: rows [B, 128] uint8, R ‖ S ‖ A ‖
+    k_neg little-endian a lane, 16-byte aligned; comb [24, 8] int32 (uint32
+    words of (y+x, y-x, 2dxy) of the affine c·B, c = 1..8); both on one CUDA
+    device. Returns ok bool[B]."""
+    dev, b = _require_verify_args(
+        "ed25519_verify", {"rows": rows}, comb, 24, dtype=torch.uint8, width=128
+    )
+    _aligned16(rows, "rows", "ed25519_verify")
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b:
+        _launch("ed25519_verify", dev, rows.data_ptr(), comb.data_ptr(), ok.data_ptr(), b)
     return ok
 
 

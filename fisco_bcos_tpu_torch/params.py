@@ -3,7 +3,9 @@
 secp256k1 (recover and verify): the affine comb table of G and 2^128·G and
 the GLV split constants, and the verify kernel's wider comb (c = 1..16).
 SM2 (verify): the Montgomery-domain affine comb of G and the Montgomery
-constants of its field (−p⁻¹, R mod p, R² mod p). The
+constants of its field (−p⁻¹, R mod p, R² mod p). Ed25519 (verify): the
+kernel's comb of B, the first 8 entries of the JAX package's 15-entry
+``b_comb_table`` (:func:`ed25519_comb_words`). The
 port builds both itself from its reference copy (:func:`build_tables`,
 :func:`build_sm2_tables`); :func:`tables_from_jax` and
 :func:`sm2_tables_from_jax` carry the JAX package's numpy arrays of the same
@@ -163,3 +165,17 @@ def sm2_tables_from_jax(g_comb_table_sm2: np.ndarray, mont_field) -> Sm2Tables:
         r1=_limbs_int(mont_field.r1),
         r2=_limbs_int(mont_field.r2),
     )
+
+
+ED25519_COMB_ENTRIES = 8  # c = 1..8: the kernel's signed 4-bit digits reach |d| = 8
+
+
+@lru_cache(maxsize=None)
+def ed25519_comb_words() -> np.ndarray:
+    """The Ed25519 kernel's [24, 8] uint32 comb: rows 3c-3..3c-1 hold the
+    words of (y+x, y-x, 2dxy) mod p of the affine c·B, c = 1..8 — the
+    first 24 rows of :func:`~.ops.ed25519.b_comb_table`, which builds them
+    from Python integers as the JAX package does."""
+    from .ops.ed25519 import b_comb_table
+
+    return limbs16_to_words(b_comb_table()[: 3 * ED25519_COMB_ENTRIES])

@@ -16,7 +16,7 @@ import torch
 import fisco_bcos_tpu_torch
 from fisco_bcos_tpu_torch.crypto import admission, suite
 from fisco_bcos_tpu_torch.device import resolve_device
-from fisco_bcos_tpu_torch.ops import _kernels, keccak, merkle, secp256k1, sm2, sm3
+from fisco_bcos_tpu_torch.ops import _kernels, ed25519, keccak, merkle, secp256k1, sm2, sm3
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -69,7 +69,10 @@ def test_importing_the_port_loads_no_jax():
         "import fisco_bcos_tpu_torch.crypto.admission, fisco_bcos_tpu_torch.crypto.suite, "
         "fisco_bcos_tpu_torch.ops.merkle, chip_smoke"
     )
-    assert {"fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle"} <= port
+    assert {
+        "fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle",
+        "fisco_bcos_tpu_torch.ops.ed25519", "fisco_bcos_tpu_torch.crypto.ref.ed25519",
+    } <= port
     assert not sorted(m for m in port - bare if _forbidden(m))
 
 
@@ -110,6 +113,10 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: suite.SM2Crypto().batch_recover(h, np.zeros((1, 128), np.uint8)),
         lambda: suite.Keccak256().address_batch(pub),
         lambda: suite.SM3().address_batch(np.zeros((0, 64), np.uint8)),
+        lambda: ed25519.verify_batch([b"m"], [bytes(32)], [bytes(64)]),
+        lambda: suite.Ed25519Crypto().batch_verify([b"m"], [bytes(32)], [bytes(64)]),
+        lambda: suite.Ed25519Crypto().batch_verify([], [], []),
+        lambda: suite.Ed25519Crypto().batch_recover([b"m"], [bytes(96)]),
     ):
         with pytest.raises(RuntimeError):
             call()
@@ -129,6 +136,10 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
         )
     with pytest.raises(ValueError):
         _kernels.sm2_verify(z, z, z, z, z, torch.zeros((30, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        _kernels.ed25519_verify(
+            torch.zeros((4, 128), dtype=torch.uint8), torch.zeros((24, 8), dtype=torch.int32)
+        )
     packed = (
         torch.zeros(8, dtype=torch.uint8),
         torch.zeros(2, dtype=torch.int64),
@@ -185,6 +196,7 @@ def test_library_name_follows_included_headers(tmp_path):
     assert after_common["secp256k1_recover"] != before["secp256k1_recover"]
     assert after_common["secp256k1_verify"] != before["secp256k1_verify"]
     assert after_common["sm2_verify"] == before["sm2_verify"]
+    assert after_common["ed25519_verify"] == before["ed25519_verify"]
     wide = csrc / "wide_int.cuh"  # included by sm2_verify.cu and by the header above
     wide.write_text(wide.read_text() + "\n// edited\n")
     after_wide = digest()

@@ -8,23 +8,28 @@ branch (txpool/validator.py:134) to the port by monkeypatching
 ``fisco_bcos_tpu.crypto.admission.admit_batch`` with the port's
 ``admit_batch``. While the port suite serves the node, every JAX batch
 entry the seam could reach (the signature impls' ``batch_verify`` and
-``batch_recover``, ``CryptoSuite.hash_batch(_async)``,
+``batch_recover``, Ed25519's ``verify_batch``, ``CryptoSuite.hash_batch(_async)``,
 ``merkle_root_async`` and ``merkle_tree``) is patched to fail and to
 record the call, so a JAX batch call cannot pass unseen. The JAX suite then
 checks what the chain committed on its host legs: single-item hashes and
 recovery, its host merkle tree and the native verify loop of
 ``BlockValidator``. The SM suite is held at the ``batch_admit`` level,
 where ``batch_admit`` takes its three-call branch (txpool/validator.py:
-143-149) through the port."""
+143-149) through the port. The QC certificates of 4- and 7-member
+committees run through ``consensus.qc.Ed25519QCScheme`` with the port's
+``Ed25519Crypto`` as its implementation, every JAX Ed25519 batch entry made
+to fail, against the same scheme on the JAX suite's host legs."""
 
 import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import pytest
+import torch
 
 from fisco_bcos_tpu.codec.abi import ABICodec
 from fisco_bcos_tpu.consensus import BlockValidator
+from fisco_bcos_tpu.consensus import qc
 from fisco_bcos_tpu.crypto import admission as jadmission
 from fisco_bcos_tpu.crypto import suite as jsuite
 from fisco_bcos_tpu.executor.precompiled import DAG_TRANSFER_ADDRESS
@@ -39,6 +44,7 @@ from fisco_bcos_tpu.protocol.transaction import Transaction, TransactionFactory
 from fisco_bcos_tpu.storage.entry import Entry
 from fisco_bcos_tpu.storage.state_storage import StateStorage
 from fisco_bcos_tpu.txpool.validator import batch_admit
+from fisco_bcos_tpu.ops import ed25519 as jed
 from fisco_bcos_tpu_torch.crypto import admission, suite
 from fisco_bcos_tpu_torch.ops import _kernels
 
@@ -79,6 +85,8 @@ def port_seam():
         for cls, names in (
             (jsuite.Secp256k1Crypto, ("batch_verify", "batch_recover")),
             (jsuite.SM2Crypto, ("batch_verify", "batch_recover")),
+            (jsuite.Ed25519Crypto, ("batch_verify", "batch_recover")),
+            (jed, ("verify_batch",)),
             (jsuite.CryptoSuite, ("hash_batch", "hash_batch_async", "merkle_root_async", "merkle_tree")),
         ):
             for name in names:
@@ -221,3 +229,52 @@ def test_state_and_tx_roots_match_the_jax_host_legs():
         assert not calls
         fresh = [Transaction.decode(t.encode()) for t in txs]
         assert root == Block(transactions=fresh).calculate_txs_root(host)
+
+
+def _qc_cases(scheme, members: int):
+    """A committee's keys, one vote preimage, a quorum's certificate, and the
+    certificates and key lists verify_cert must reject: one swapped
+    signature, a signer's key missing, an agg_sig one byte short."""
+    kps = [scheme.derive_keypair(secret=0x9C00 + 31 * i) for i in range(members)]
+    pubs = [kp.pub for kp in kps]
+    msg32 = qc.vote_preimage(PORT, 3, 7, 42, bytes(range(32)))
+    signers = list(range(members - (members - 1) // 3))  # 2f + 1
+    votes = {i: scheme.sign_vote(kps[i], msg32) for i in signers}
+    swapped = dict(votes)
+    swapped[signers[0]] = votes[signers[1]]
+    cert = scheme.build_cert(votes, members)
+    missing = list(pubs)
+    missing[signers[-1]] = b""
+    short = qc.QuorumCert(cert.scheme, cert.committee, cert.bitmap, cert.agg_sig[:-1])
+    return {
+        "quorum": (cert, pubs, msg32),
+        "one swapped signature": (scheme.build_cert(swapped, members), pubs, msg32),
+        "a missing pubkey": (cert, missing, msg32),
+        "a wrong-length agg_sig": (short, pubs, msg32),
+    }, votes, kps
+
+
+@pytest.mark.parametrize("members", [4, 7])
+def test_qc_certificates_on_the_port_ed25519(members):
+    """Ed25519QCScheme, the default QC scheme, on the port's Ed25519Crypto
+    (plain PyTorch on the CPU): it derives the JAX scheme's keys, signs its
+    votes byte for byte, builds its certificate, accepts a quorum and
+    rejects a swapped signature, a missing key and a short agg_sig, as the
+    scheme on the JAX suite does; no JAX batch entry runs."""
+    jax_scheme = qc.Ed25519QCScheme()
+    jax_cases, jax_votes, jax_kps = _qc_cases(jax_scheme, members)
+    want = {what: jax_scheme.verify_cert(*args) for what, args in jax_cases.items()}
+    assert want == {"quorum": True, "one swapped signature": False,
+                    "a missing pubkey": False, "a wrong-length agg_sig": False}
+    scheme = qc.Ed25519QCScheme()
+    scheme._impl = suite.Ed25519Crypto(torch.device("cpu"))
+    with port_seam() as calls:
+        cases, votes, kps = _qc_cases(scheme, members)
+        assert [kp.pub for kp in kps] == [kp.pub for kp in jax_kps]
+        assert votes == jax_votes
+        for what, (cert, pubs, msg32) in cases.items():
+            assert cert.encode() == jax_cases[what][0].encode(), what
+            assert scheme.verify_cert(cert, pubs, msg32) == want[what], what
+        i = next(iter(votes))
+        assert scheme.verify_one(kps[i].pub, cases["quorum"][2], votes[i])
+    assert not calls

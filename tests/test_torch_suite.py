@@ -2,7 +2,8 @@
 the CPU (``device="cpu"``): key pairs, signatures, single-item verify and
 recover, hashes, addresses, merkle roots, trees and proofs, and the batch
 verify and recover of both suites on one mixed 32-lane block each, with a
-lane of every bad kind.
+lane of every bad kind; and the same for ``Ed25519Crypto``, the QC
+certificates' scheme, with short and empty signatures in its batches.
 
 The JAX suite runs only on its host legs here: on a CPU backend its
 signature batches ride the native host loop (``use_native_batch``) and its
@@ -17,11 +18,13 @@ import torch
 
 from fisco_bcos_tpu.crypto import suite as jsuite
 from fisco_bcos_tpu.lightnode.lightnode import _write_items
+from fisco_bcos_tpu.ops import ed25519 as jed
 from fisco_bcos_tpu.ops import merkle as jmerkle
 from fisco_bcos_tpu.utils.bytesutil import right160 as jright160
 from fisco_bcos_tpu.codec.flat import FlatWriter
 from fisco_bcos_tpu_torch.crypto import suite
 from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref_ed
 from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
 from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
 from fisco_bcos_tpu_torch.ops import _kernels
@@ -173,6 +176,7 @@ def jax_host_only():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jsuite, "_device_or_host", device_leg)
+        mp.setattr(jed, "verify_batch", device_leg)
         mp.setattr(jsuite.HashImpl, "hash_batch", device_leg)
         mp.setattr(jsuite.HashImpl, "hash_batch_async", device_leg)
         yield
@@ -407,3 +411,172 @@ def test_a_suite_has_one_device():
     ):
         with pytest.raises(ValueError, match="one device"):
             suite.CryptoSuite(hash_impl, sig_impl)
+
+
+# ---------------------------------------------------------------------------
+# Ed25519Crypto (the QC certificates' scheme, consensus/qc.py)
+# ---------------------------------------------------------------------------
+
+
+def _ed_enc(y: int, sign: int = 0) -> bytes:
+    return (y | sign << 255).to_bytes(32, "little")
+
+
+def _ed25519_lanes():
+    """(label, hash, pub32, sig96) for 32 lanes: valid signatures (R ‖ S ‖
+    the signer's key), a lane of every bad kind for verify (on the key
+    given), lanes the cofactored equation accepts, and for recover a carried
+    key that differs from the given one and signatures cut to 95, 64, 10 and
+    0 bytes."""
+    lanes = []
+    for i in range(LANES):
+        seed = (0xED00 + 7919 * i).to_bytes(32, "little")
+        h = {1: bytes(32), 2: b"\xff" * 32}.get(i, keccak256(b"ed25519 suite lane %d" % i))
+        pub = ref_ed.seed_to_pubkey(seed)
+        sig = ref_ed.sign(seed, h) + pub
+        label = "valid"
+        if i == 3:
+            label, sig = "tampered R", bytes([sig[0] ^ 1]) + sig[1:]
+        elif i == 4:
+            label, sig = "tampered S", sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        elif i == 5:
+            label, h = "wrong hash", keccak256(b"not the signed vote")
+        elif i == 6:
+            label, pub = "another signer's key", ref_ed.seed_to_pubkey(b"\x01" * 32)
+        elif i == 7:
+            label, pub = "key y = p", _ed_enc(ref_ed.P)
+            sig = sig[:64] + pub
+        elif i == 8:
+            label, sig = "s = L", sig[:32] + ref_ed.L.to_bytes(32, "little") + sig[64:]
+        elif i == 9:
+            label, sig = "s = 2^256 - 1", sig[:32] + b"\xff" * 32 + sig[64:]
+        elif i == 10:
+            label, pub = "key x = 0, sign 1", _ed_enc(1, 1)
+            sig = sig[:64] + pub
+        elif i == 11:
+            # a small-order key with R = r·B and s = r: accepted, cofactored
+            label, pub = "small-order key", _ed_enc(ref_ed.P - 1)
+            rc = ref_ed._compress(ref_ed._mul(0x5EED, ref_ed.BASE))
+            sig = rc + (0x5EED).to_bytes(32, "little") + pub
+        elif i == 12:
+            label, h, pub, sig = "the zero row", bytes(32), bytes(32), bytes(96)
+        elif i == 13:
+            label, sig = "carried key wrong, given key right", sig[:64] + ref_ed.seed_to_pubkey(b"\x02" * 32)
+        elif i == 14:
+            label, pub = "carried key right, given key wrong", ref_ed.seed_to_pubkey(b"\x03" * 32)
+        elif i in (15, 16, 17, 18):
+            label, sig = f"signature of {(95, 64, 10, 0)[i - 15]} bytes", sig[: (95, 64, 10, 0)[i - 15]]
+        lanes.append((label, h, pub, sig))
+    return lanes
+
+
+@pytest.fixture(scope="module")
+def ed_impls(jax_host_only):
+    return suite.Ed25519Crypto(torch.device("cpu")), jsuite.Ed25519Crypto(), _ed25519_lanes()
+
+
+@pytest.fixture(scope="module")
+def ed_batches(ed_impls):
+    """Batch verify and recover on the mixed Ed25519 block, the port's (plain
+    PyTorch, one call each) and the JAX suite's (its native host loop)."""
+    port, jax_impl, lanes = ed_impls
+    hashes, pubs, sigs = ([lane[k] for lane in lanes] for k in (1, 2, 3))
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_kernels, "_library", lambda name: pytest.fail("kernel loader called on CPU"))
+        for who, impl in (("port", port), ("jax", jax_impl)):
+            out[who] = (impl.batch_verify(hashes, pubs, sigs), *impl.batch_recover(hashes, sigs))
+    return out
+
+
+def test_ed25519_keypairs_and_signatures_match_jax(ed_impls):
+    """Equal keys and seeds (secret mod 2^256, little-endian); RFC 8032
+    signatures equal byte for byte; each suite verifies and recovers the
+    other's."""
+    port, jax_impl, _ = ed_impls
+    assert (port.name, port.sig_len) == (jax_impl.name, jax_impl.sig_len) == ("ed25519", 96)
+    for secret in (1, 2, 0xC0FFEE, (1 << 256) + 5, (1 << 256) - 1):
+        kp, jkp = port.generate_keypair(secret), jax_impl.generate_keypair(secret)
+        assert kp.pub == jkp.pub and kp.secret == jkp.secret == secret % (1 << 256)
+        h = keccak256(b"vote %d" % secret)
+        sig = port.sign(kp, h)
+        assert sig == jax_impl.sign(jkp, h) and len(sig) == port.sig_len
+        assert port.verify(kp.pub, h, sig) and jax_impl.verify(kp.pub, h, sig)
+        assert port.recover(h, sig) == jax_impl.recover(h, sig) == kp.pub
+    fresh = port.generate_keypair()
+    assert jax_impl.generate_keypair(fresh.secret).pub == fresh.pub
+
+
+def test_ed25519_single_verify_and_recover_match_jax(ed_impls):
+    port, jax_impl, lanes = ed_impls
+    for label, h, pub, sig in lanes:
+        assert port.verify(pub, h, sig) == jax_impl.verify(pub, h, sig), label
+        try:
+            want = jax_impl.recover(h, sig)
+        except ValueError:
+            with pytest.raises(ValueError):
+                port.recover(h, sig)
+        else:
+            assert port.recover(h, sig) == want, label
+
+
+def test_ed25519_batch_verify_matches_jax(ed_impls, ed_batches):
+    """The same bit on every lane as the JAX suite and the host oracle; a
+    signature shorter than 64 bytes lowers its bit and does not raise."""
+    port, _, lanes = ed_impls
+    got, want = ed_batches["port"][0], ed_batches["jax"][0]
+    assert got.dtype == np.bool_ and got.shape == (LANES,)
+    np.testing.assert_array_equal(got, want)
+    for i, (label, h, pub, sig) in enumerate(lanes):
+        assert got[i] == port.verify(pub, h, sig), label
+    labels = [lane[0] for lane in lanes]
+    assert got[labels.index("small-order key")] and got[labels.index("the zero row")]
+    assert got.any() and not got.all()
+
+
+def test_ed25519_batch_recover_matches_jax(ed_impls, ed_batches):
+    """Keys and ok bits equal the JAX suite's on every lane; a not-ok lane's
+    key is zero; a signature shorter than 96 bytes is not ok."""
+    _, _, lanes = ed_impls
+    _, pubs, ok = ed_batches["port"]
+    _, jpubs, jok = ed_batches["jax"]
+    assert pubs.dtype == np.uint8 and pubs.shape == (LANES, 32)
+    assert ok.dtype == np.bool_ and ok.shape == (LANES,)
+    np.testing.assert_array_equal(ok, jok)
+    np.testing.assert_array_equal(pubs, jpubs)
+    assert not pubs[~ok].any()
+    for i, (label, _, _, sig) in enumerate(lanes):
+        if len(sig) < 96:
+            assert not ok[i], label
+        elif ok[i]:
+            assert bytes(pubs[i]) == sig[64:96], label
+    assert ok.any() and not ok.all()
+
+
+def test_ed25519_empty_batches(ed_impls, monkeypatch):
+    """Zero items: the port returns (0,) bool and ((0, 32) uint8, (0,) bool)
+    before any device work. The JAX suite's empty batch_verify, which skips
+    its native loop, reaches its device leg, here swapped for the host loop
+    of the same bits, and gives the same shape; its empty batch_recover
+    raises (ROADMAP C records it), so the recover shapes are pinned here."""
+    port, jax_impl, _ = ed_impls
+    monkeypatch.setattr(jed, "verify_batch", lambda m, p, s: np.array(
+        [ref_ed.verify(bytes(pp)[:32], bytes(mm), bytes(ss)[:64]) for mm, pp, ss in zip(m, p, s)], dtype=bool))
+    got, want = port.batch_verify([], [], []), jax_impl.batch_verify([], [], [])
+    assert isinstance(got, np.ndarray) and got.shape == want.shape == (0,) and got.dtype == want.dtype
+    keys, ok = port.batch_recover([], [])
+    assert keys.shape == (0, 32) and keys.dtype == np.uint8 and ok.shape == (0,) and ok.dtype == np.bool_
+    with pytest.raises(TypeError):
+        jax_impl.batch_recover([], [])
+
+
+def test_ed25519_batch_rows_must_line_up(ed_impls):
+    port, _, lanes = ed_impls
+    hashes, pubs, sigs = ([lane[k] for lane in lanes[:4]] for k in (1, 2, 3))
+    for call in (
+        lambda: port.batch_verify(hashes[:-1], pubs, sigs),
+        lambda: port.batch_verify(hashes, pubs[1:], sigs),
+        lambda: port.batch_recover(hashes, sigs[1:]),
+    ):
+        with pytest.raises(ValueError):
+            call()
