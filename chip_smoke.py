@@ -72,13 +72,20 @@ exits non-zero, printing no result, without them. In order it:
    128 cases (tampered signatures, messages and keys; keys and R with
    y >= p, with x = 0 and the sign bit set, with no root; s >= L; the
    small-order and mixed-order keys and R that the cofactored equation
-   accepts; the zero row) and a timed block of 10,240 valid signatures from
-   64 seeded signers, holds the Ed25519 kernel against its plain version on
-   every lane and ``ed25519.verify_batch`` against the host oracle; drives
-   ``verify_batch`` on the timed block between the counters (one launch,
-   the plain versions made to raise) and times it, its stages (host_pad:
-   the SHA-512 challenges; upload; verify; download) and the kernel at 4,
-   7, 100 and 10,240 lanes; drives ``Ed25519Crypto`` on the card, as
+   accepts; the zero row; messages of 0-300 bytes with every SHA-512
+   padding edge) and a timed block of 10,240 valid signatures of 32-byte
+   messages from 64 seeded signers, holds the challenge kernel against its
+   plain version and its rows against the host's hashlib rows
+   (``device_inputs``) on every lane, and the verify kernel against its
+   plain version and the host oracle on every lane, at 4, 7, 100 and
+   10,240 lanes alone too; prints the verify kernel's blocks resident a SM;
+   drives ``ed25519.verify_batch`` on the timed block between the counters
+   (one launch of each kernel, every plain version and the host challenges
+   made to raise) and times it, its stages (host_pad: the byte joins and
+   the pack; upload; challenge; verify; download; with ``--parent``, the
+   parent's composition in turns) and both kernels at 4, 7, 100 and 10,240
+   lanes (with ``--parent``, in turns with the parent's verify kernel and
+   its host challenges); drives ``Ed25519Crypto`` on the card, as
    ``Ed25519QCScheme.verify_cert`` does, ``batch_verify`` and
    ``batch_recover`` at the same sizes, counted, equal to the ops entry
    point and the oracle, and timed;
@@ -603,7 +610,8 @@ def plain_versions_forbidden():
              (keccak, "keccak256_tx_hash_plain"), (sm3, "sm3_packed_plain"), (sm3, "sm3_blocks"),
              (address, "sender_address_plain"), (address, "sm3_sender_address_plain"),
              (sm2, "e_plain"), (secp256k1, "recover_plain"), (secp256k1, "verify_plain"),
-             (sm2, "verify_plain"), (ed25519, "verify_plain"), (ed25519, "verify_core"))
+             (sm2, "verify_plain"), (ed25519, "verify_plain"), (ed25519, "verify_core"),
+             (ed25519, "challenge_plain"), (ed25519, "sha512_words"), (ed25519, "challenges"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -1800,13 +1808,31 @@ def run_suite_phase(card: str, block, cases, sm_block, sm_cases, verify_cases, t
 # QC committees of 4 and 7 (consensus/qc.py verify_cert: one batch a
 # quorum), a few hundred lanes, a 10k block
 ED25519_LANES = (4, 7, 100, BLOCK_TXS)
-ED25519_VERIFY_LAUNCHES = {"ed25519_verify": 1}
+ED25519_VERIFY_LAUNCHES = {"ed25519_challenge": 1, "ed25519_verify": 1}
+# the mixed block's message lengths: with the 64-byte prefix R ‖ A, every
+# SHA-512 padding edge (47/48/49 spill the length field, 63/64/65 fill a
+# block, 175/176 and 191/192 the same a block later), then 0-300 bytes
+ED25519_EDGE_LENGTHS = (0, 1, 32, 47, 48, 49, 63, 64, 65, 111, 112, 175, 176, 191, 192, 255, 256, 300)
 # the kernel's field ops mod 2^255 - 19 (csrc/ed25519_verify.cu): the 8x8
 # (or 36) word products, the fold of the high half by 38 (8) and of the top
 # by 19 (1)
 MULS_FE_MUL = 2 * (64 + 8 + 1)
 MULS_FE_SQR = 2 * (36 + 8 + 1)
 ED25519_RECODE = int("8" * 64, 16)  # 8 in every 4-bit window
+# SHA-512 on 32-bit halves (csrc/ed25519_challenge.cu), by the hash bound
+# rule (a LOP3, a funnel shift or a 3-input add counts one; a 64-bit value
+# is two halves): a round is Σ1 (3 rotations, 6 shifts, 2 LOP3), Ch (2),
+# T1's five terms (2 three-input adds a half), Σ0 (8), Maj (2), T2, e and a
+# (2 each); the schedule's 64 words σ0 and σ1 (8 each: 4 rotation shifts, 2
+# for the shift, 2 LOP3) and the sum of four (4); the chaining value's 8
+# adds (2 each)
+SHA512_ROUND_OPS = 8 + 2 + 4 + 8 + 2 + 2 + 2 + 2
+SHA512_BLOCK_OPS = 80 * SHA512_ROUND_OPS + 64 * 20 + 8 * 2
+# the Barrett reduction of the digest mod L: ⌊x / 2^224⌋·μ, 9 x 9 word
+# products (μ has no word of 0 or 1); the low 288 bits of q·L, the products
+# by L's 4 low words (its words 4-6 are 0, word 7 a power of two), those
+# landing in word 8 needing their low half only
+MULS_MOD_L = 2 * 81 + 2 * (9 + 8 + 7 + 6) - 4
 
 
 def ed25519_order8_point():
@@ -1831,7 +1857,8 @@ def make_ed25519_cases(n_unique: int, seed: int):
     set, or with no root; s >= L; and lanes the cofactored equation
     accepts: small-order keys (the identity, y = -1, y = 0 with either
     sign, an order-8 point) with s = r, a small-order R with s = k·a,
-    mixed-order R = r·B + T8 and keys a·B + T8, and the all-zero row."""
+    mixed-order R = r·B + T8 and keys a·B + T8, and the all-zero row.
+    Messages run through ED25519_EDGE_LENGTHS, then 0-300 bytes."""
     from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref
 
     P, L = ref.P, ref.L
@@ -1852,7 +1879,8 @@ def make_ed25519_cases(n_unique: int, seed: int):
     for i in range(n_unique):
         sk = rng.randbytes(32)
         a, pub = ref._clamp(ref._sha512(sk)), ref.seed_to_pubkey(sk)
-        msg = rng.randbytes(rng.choice((0, 32, 32, 97)))
+        edges = ED25519_EDGE_LENGTHS
+        msg = rng.randbytes(edges[i % len(edges)] if i < 2 * len(edges) else rng.randrange(301))
         sig = ref.sign(sk, msg)
         s = int.from_bytes(sig[32:], "little")
         r = rng.randrange(1, L)
@@ -1925,16 +1953,17 @@ def ed25519_digits(k: int) -> list[int]:
 
 def ed25519_verify_multiplies(s: int, k_neg: int) -> int:
     """32-bit multiplies of the least work the Ed25519 kernel's method
-    needs for one lane, which runs it whole: two decompressions (255
-    squarings and 19 products each: the chain of (p-5)/8, v³, v⁷, the
-    checks; T and 2d·T, 2 products), the table of A (7 additions of 8
-    products and a cached form of 1), the ladder over this lane's signed
-    digits (a window's 4 doublings 4 squarings and 3 products each, and the
-    product of T where an addition follows; an addition of A 8 products,
-    of the B comb 7; the doublings of the still-identity accumulator and
-    the first addition to it are no work), then - R (8) and 3 doublings."""
-    sqr, mul = 2 * 255, 2 * (19 + 2) + 7 * 9 + 8 + 3 * 3
-    sqr += 3 * 4
+    needs for one signature: two decompressions (255 squarings and 19
+    products each: the chain of (p-5)/8, v³, v⁷, the checks; then x·y and
+    2d·x·y, 2 products), the table of A (7 additions of 8 products and a
+    cached form of 1), the ladder over this lane's signed digits (a
+    window's 4 doublings 4 squarings and 3 products each, and the product
+    of T where an addition follows; an addition of A 8 products, of the B
+    comb 7; the doublings of the still-identity accumulator and the first
+    addition to it are no work), then - R (8) and 3 doublings without T.
+    The quad's doubling writes T every time, a fourth product the function
+    does not need; the bound leaves that overhead out."""
+    sqr, mul = 2 * 255 + 3 * 4, 2 * (19 + 2) + 7 * 9 + 8 + 3 * 3
     started = False
     for dk, ds in zip(ed25519_digits(k_neg), ed25519_digits(s)):
         if started:
@@ -1946,8 +1975,16 @@ def ed25519_verify_multiplies(s: int, k_neg: int) -> int:
     return sqr * MULS_FE_SQR + mul * MULS_FE_MUL
 
 
+def ed25519_challenge_ops(msg_len: int) -> int:
+    """32-bit integer operations of the challenge kernel's method for one
+    message: SHA-512 over R ‖ A ‖ M padded (a block is SHA512_BLOCK_OPS),
+    and the reduction's multiplies."""
+    return ((64 + msg_len + 16) // 128 + 1) * SHA512_BLOCK_OPS + MULS_MOD_L
+
+
 def ed25519_rows_tensor(msgs, pubs, sigs, device):
-    """The kernel's input on the card: [n, 128] uint8 rows (host challenges)."""
+    """The host's rows on the card: [n, 128] uint8, challenges hashed on
+    the host (device_inputs), the oracle of the challenge kernel's rows."""
     import torch
 
     from fisco_bcos_tpu_torch.ops import ed25519
@@ -1955,28 +1992,74 @@ def ed25519_rows_tensor(msgs, pubs, sigs, device):
     return torch.from_numpy(ed25519.device_inputs(msgs, pubs, sigs, pad_to=len(msgs))).to(device)
 
 
-def check_ed25519_block(rows, device, what: str) -> tuple[int, float]:
-    """Ed25519 kernel == verify_plain on every lane of a 10,240-lane block;
-    verify_batch == the host oracle. Returns (max difference, plain ms)."""
+def ed25519_challenge_args(msgs, pubs, sigs, device):
+    """The challenge kernel's inputs on the card: the [n, 128] rows with
+    k_neg zero and the packed messages."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import ed25519
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    rows = torch.from_numpy(ed25519.signature_rows(pubs, sigs, pad_to=len(msgs))).to(device)
+    return (rows, *upload_packed(msgs, device))
+
+
+def check_ed25519_block(rows, device, what: str) -> dict:
+    """On a 10,240-lane block: the challenge kernel == challenge_plain on
+    every lane (fresh rows each), and its rows == device_inputs (the host's
+    hashlib challenges) byte for byte; the verify kernel == verify_plain on
+    every lane, and on the first 4, 7, 100 and 10,240 lanes alone == the
+    plain verdicts and the host oracle there; challenge_rows at those sizes
+    == device_inputs, the bucket's zero rows included; verify_batch == the
+    host oracle. Returns the kernels' largest differences and plain ms."""
     import numpy as np
+    import torch
 
     from fisco_bcos_tpu_torch.ops import ed25519
 
     (msgs, pubs, sigs), want = ed25519_tile(rows, BLOCK_TXS)
-    _, err, plain_ms = compare_and_time(
-        ed25519.verify_device, ed25519.verify_plain, (ed25519_rows_tensor(msgs, pubs, sigs, device),),
-        "ed25519_verify", what,
+    host_rows = ed25519_rows_tensor(msgs, pubs, sigs, device)
+    args = ed25519_challenge_args(msgs, pubs, sigs, device)
+    fresh = lambda: (args[0].clone(), *args[1:])  # noqa: E731  (both write their rows)
+    kernel_rows = ed25519.challenge_device(*fresh())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_rows = ed25519.challenge_plain(*fresh())
+    torch.cuda.synchronize()
+    ch_plain_ms = (time.perf_counter() - t0) * 1e3
+    for name, got in (("challenge_plain", plain_rows), ("the host's device_inputs", host_rows)):
+        if not torch.equal(kernel_rows, got):
+            bad = (kernel_rows != got).any(1).nonzero().flatten()[:8].tolist()
+            raise AssertionError(f"ed25519_challenge rows != {name} on the {what}, lanes {bad}")
+    ch_err = int((kernel_rows.to(torch.int64) - plain_rows.to(torch.int64)).abs().max())
+    kernel_ok, err, plain_ms = compare_and_time(
+        ed25519.verify_device, ed25519.verify_plain, (host_rows,), "ed25519_verify", what,
     )
+    plain_ok = kernel_ok.cpu().numpy()
+    if not np.array_equal(plain_ok, want):
+        raise AssertionError(f"ed25519 verify kernel != host oracle on the {what}")
+    for n in ED25519_LANES:
+        got = ed25519.verify_device(host_rows[:n]).cpu().numpy()
+        if not np.array_equal(got, plain_ok[:n]) or not np.array_equal(got, want[:n]):
+            raise AssertionError(f"ed25519 verify kernel at {n} lanes != verify_plain / host oracle on the {what}")
+        made = ed25519.challenge_rows(msgs[:n], pubs[:n], sigs[:n]).cpu().numpy()
+        if not np.array_equal(made, ed25519.device_inputs(msgs[:n], pubs[:n], sigs[:n])):
+            raise AssertionError(f"ed25519.challenge_rows at {n} lanes != device_inputs on the {what}")
     if not np.array_equal(ed25519.verify_batch(msgs, pubs, sigs), want):
         raise AssertionError(f"ed25519.verify_batch != host oracle on the {what}")
-    log(f"{what}, {BLOCK_TXS} lanes ({int(want.sum())} accepted): ed25519 kernel == plain; "
-        f"verify_batch == host oracle")
-    return err, plain_ms
+    lens = [len(m) for m in msgs]
+    log(f"{what}, {BLOCK_TXS} lanes ({int(want.sum())} accepted; messages of {min(lens)}-{max(lens)} "
+        f"bytes): challenge kernel == plain == the host's rows; verify kernel == plain == host oracle, "
+        f"also at " + " / ".join(f"{n:,}" for n in ED25519_LANES) + " lanes alone; challenge_rows == "
+        f"device_inputs there; verify_batch == host oracle")
+    return {"challenge": (ch_err, ch_plain_ms), "verify": (err, plain_ms)}
 
 
-def run_ed25519_path(rows) -> tuple[int, float]:
-    """ed25519.verify_batch on the timed block, counted. Returns (launches
-    of the kernel, median end-to-end ms)."""
+def run_ed25519_path(rows) -> tuple[dict, float]:
+    """ed25519.verify_batch on the timed block, counted: one launch of the
+    challenge kernel and one of the verify kernel, every plain version (and
+    the host challenges) made to raise. Returns (the launches a kernel, the
+    median end-to-end ms)."""
     import numpy as np
 
     from fisco_bcos_tpu_torch.ops import ed25519
@@ -1989,58 +2072,115 @@ def run_ed25519_path(rows) -> tuple[int, float]:
         raise AssertionError("ed25519.verify_batch != host oracle on the timed block")
     log(f"Ed25519 path: verify_batch on {BLOCK_TXS} signatures == host oracle; "
         f"launches {show_launches(launches)}")
-    return launches["ed25519_verify"], host_ms(lambda: ed25519.verify_batch(msgs, pubs, sigs), reps=5)
+    return launches, host_ms(lambda: ed25519.verify_batch(msgs, pubs, sigs), reps=5)
 
 
-def ed25519_stages(rows, device) -> dict[str, float]:
+def ed25519_stages(rows, device, parent=None) -> dict[str, float]:
     """Median ms of each stage of ed25519.verify_batch on the timed block,
-    each run warm and ending synchronised: host_pad (the SHA-512 challenges
-    and the byte rows), upload, verify (the kernel), download; and, inside
-    host_pad, the challenges alone (one hashlib call a lane)."""
+    each run warm and ending synchronised: host_pad (the byte joins of R ‖ S
+    ‖ A and the pack of the messages), upload (rows and packed messages),
+    challenge (the kernel), verify (the kernel), download. With `parent`
+    (another checkout's kernels module), the stages as that checkout's
+    verify_batch ran them: host_pad hashes the challenges on the host
+    (device_inputs), upload the rows alone, no challenge stage, verify
+    through its kernel."""
     import torch
 
     from fisco_bcos_tpu_torch.ops import ed25519
+    from fisco_bcos_tpu_torch.ops.hash_common import pack_messages
 
     (msgs, pubs, sigs), _ = ed25519_tile(rows, BLOCK_TXS)
     st: dict = {}
 
     def host_pad():
-        st["host"] = ed25519.device_inputs(msgs, pubs, sigs)
+        if parent is None:
+            st["host"] = (ed25519.signature_rows(pubs, sigs), *pack_messages(msgs))
+        else:
+            st["host"] = (ed25519.device_inputs(msgs, pubs, sigs),)
 
     def upload():
-        st["dev"] = torch.from_numpy(st["host"]).to(device)
+        st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
+
+    def challenge():
+        ed25519.challenge_device(*st["dev"])
 
     def verify():
-        st["ok"] = ed25519.verify_device(st["dev"])
+        rows_dev = st["dev"][0]
+        if parent is None:
+            st["ok"] = ed25519.verify_device(rows_dev)
+        else:
+            st["ok"] = parent.ed25519_verify(rows_dev, ed25519.comb_words(device))
 
     def download():
         st["ok"].cpu().numpy()
 
-    stages = {fn.__name__: host_ms(fn, reps=3) for fn in (host_pad, upload, verify, download)}
-    keys, rs = [p[:32] for p in pubs], [s[:64] for s in sigs]
-    stages["of which challenges"] = host_ms(lambda: ed25519.challenges(msgs, keys, rs), reps=3)
-    return stages
+    stages = (host_pad, upload, verify, download) if parent else (host_pad, upload, challenge, verify, download)
+    return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
 
 
-def measure_ed25519_kernel(card: str, rows, device) -> dict:
-    """The kernel on the timed block: its time at ED25519_LANES lanes
-    (CUDA events) and its row, with the bound from this run's digits."""
+def measure_ed25519_kernels(card: str, rows, device) -> tuple[dict, dict]:
+    """Both kernels on the timed block: their times at ED25519_LANES lanes
+    (CUDA events) and their rows, with the bounds from this run's digits
+    and messages."""
     from fisco_bcos_tpu_torch.ops import ed25519
 
     (msgs, pubs, sigs), _ = ed25519_tile(rows, BLOCK_TXS)
     dev_rows = ed25519_rows_tensor(msgs, pubs, sigs, device)
-    times = [cuda_ms(lambda n=n: ed25519.verify_device(dev_rows[:n])) for n in ED25519_LANES]
-    log(f"[{card}] ed25519_verify kernel at " + " / ".join(f"{n:,}" for n in ED25519_LANES)
-        + " lanes: " + " / ".join(f"{t:.4f}" for t in times) + " ms")
+    ch_rows, data, starts, lengths = ed25519_challenge_args(msgs, pubs, sigs, device)
+    times = {
+        "ed25519_verify": [cuda_ms(lambda n=n: ed25519.verify_device(dev_rows[:n])) for n in ED25519_LANES],
+        "ed25519_challenge": [cuda_ms(lambda n=n: ed25519.challenge_device(ch_rows[:n], data, starts[:n], lengths[:n]))
+                              for n in ED25519_LANES],
+    }
+    for name, t in times.items():
+        log(f"[{card}] {name} kernel at " + " / ".join(f"{n:,}" for n in ED25519_LANES)
+            + " lanes: " + " / ".join(f"{x:.4f}" for x in t) + " ms")
     host = dev_rows[: len(rows)].cpu().numpy()
     per_case = [ed25519_verify_multiplies(int.from_bytes(bytes(r[32:64]), "little"),
                                           int.from_bytes(bytes(r[96:]), "little")) for r in host]
     muls = sum(per_case[i % len(rows)] for i in range(BLOCK_TXS))
-    return kernel_row(
+    verify = kernel_row(
         "ed25519_verify", "fisco_bcos_tpu_torch/csrc/ed25519_verify.cu",
-        "fisco_bcos_tpu/ops/ed25519.py:286", times[-1], muls,
+        "fisco_bcos_tpu/ops/ed25519.py:286", times["ed25519_verify"][-1], muls,
         io_bytes=BLOCK_TXS * (ed25519.ROW_BYTES + 1) + 24 * 8 * 4,
     )
+    lens = [len(m) for m in msgs]
+    challenge = kernel_row(
+        "ed25519_challenge", "fisco_bcos_tpu_torch/csrc/ed25519_challenge.cu",
+        "fisco_bcos_tpu/ops/ed25519.py:328", times["ed25519_challenge"][-1],
+        sum(ed25519_challenge_ops(n) for n in lens),
+        io_bytes=sum(lens) + BLOCK_TXS * (64 + 32 + 8 + 4), ops_kind="int32 operations",
+    )
+    return verify, challenge
+
+
+def ed25519_against_parent(card: str, parent, rows, device) -> None:
+    """At 4, 7, 100 and 10,240 lanes of the timed block, in turns parent,
+    new, new, parent (CUDA events): the verify kernel against the parent
+    checkout's (equal on every lane), and the challenge kernel against the
+    route the parent checkout takes for it, the host's hashlib challenges
+    and the upload of the rows (a host clock a call, synchronised)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import ed25519
+
+    (msgs, pubs, sigs), _ = ed25519_tile(rows, BLOCK_TXS)
+    dev_rows = ed25519_rows_tensor(msgs, pubs, sigs, device)
+    comb = ed25519.comb_words(device)
+    ch_rows, data, starts, lengths = ed25519_challenge_args(msgs, pubs, sigs, device)
+    for n in ED25519_LANES:
+        old = lambda n=n: parent.ed25519_verify(dev_rows[:n], comb)  # noqa: E731
+        new = lambda n=n: ed25519.verify_device(dev_rows[:n])  # noqa: E731
+        if not torch.equal(old(), new()):
+            raise AssertionError(f"ed25519_verify != the parent checkout's at {n} lanes")
+        v = [cuda_ms(f) for f in (old, new, new, old)]
+        host = lambda n=n: torch.from_numpy(ed25519.device_inputs(msgs[:n], pubs[:n], sigs[:n])).to(device)  # noqa: E731
+        kernel = lambda n=n: ed25519.challenge_device(ch_rows[:n], data, starts[:n], lengths[:n])  # noqa: E731
+        c = [host_ms(host, reps=5), cuda_ms(kernel), cuda_ms(kernel), host_ms(host, reps=5)]
+        log(f"[{card}] Ed25519 at {n:,} lanes, in turns with the parent checkout: ed25519_verify parent "
+            f"{v[0]:.4f}, new {v[1]:.4f}, new {v[2]:.4f}, parent {v[3]:.4f} ms (new/parent "
+            f"{(v[1] + v[2]) / (v[0] + v[3]):.3f}); challenges: the parent's host hashlib and upload "
+            f"{c[0]:.4f}, kernel {c[1]:.4f}, kernel {c[2]:.4f}, host {c[3]:.4f} ms")
 
 
 def check_ed25519_suite(card: str, cases, device) -> None:
@@ -2081,11 +2221,32 @@ def check_ed25519_suite(card: str, cases, device) -> None:
             + " ms a call")
 
 
-def run_ed25519_phase(card: str, device) -> tuple[dict, list]:
-    """Ed25519 (ROADMAP A3): the kernel against verify_plain on a mixed and
-    a timed block, verify_batch against the host oracle and counted, its
-    stages, the kernel's times and row, and the suite's Ed25519Crypto.
-    Returns (the kernel's row, the timed block)."""
+def ed25519_residency(card: str, device) -> None:
+    """The verify kernel's blocks resident on one SM (the occupancy API)
+    against the blocks of a 10,240-lane launch."""
+    import ctypes
+
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    fn = _kernels._library("ed25519_verify").ed25519_verify_resident_blocks
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    per_sm = fn(device.index)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    geo = _kernels.geometry("ed25519_verify", BLOCK_TXS)
+    log(f"[{card}] ed25519_verify at {BLOCK_TXS:,} lanes: {geo['blocks']:,} blocks of {geo['threads']} threads, "
+        f"{BLOCK_TXS // geo['blocks']} signatures (a quad of lanes each) and {geo['dynamic_shared_bytes']:,} B of "
+        f"dynamic shared memory a block; {per_sm} blocks resident a SM x {sms} SMs = {per_sm * sms:,} "
+        + ("(all resident at once)" if per_sm * sms >= geo["blocks"] else "(NOT all resident: a second wave)"))
+
+
+def run_ed25519_phase(card: str, device, parent=None) -> tuple[list, list]:
+    """Ed25519 (ROADMAP A3, B5): both kernels against their plain versions
+    on a mixed and a timed block, verify_batch against the host oracle and
+    counted, its stages (with `parent`, the parent's composition in turns),
+    the kernels' times and rows, and the suite's Ed25519Crypto. Returns
+    (the kernels' rows, the timed block)."""
     from fisco_bcos_tpu_torch.ops import ed25519
 
     t0 = time.perf_counter()
@@ -2093,20 +2254,27 @@ def run_ed25519_phase(card: str, device) -> tuple[dict, list]:
     block = make_ed25519_bench_block(BENCH_SIGNERS)
     log(f"Ed25519: {len(cases)} mixed cases, {len(block)} valid signers; built on the host in "
         f"{time.perf_counter() - t0:.1f} s")
-    mixed_err, _ = check_ed25519_block(cases, device, "Ed25519 mixed block")
-    err, plain_ms = check_ed25519_block(block, device, "Ed25519 timed block")
+    ed25519_residency(card, device)
+    mixed = check_ed25519_block(cases, device, "Ed25519 mixed block")
+    timed = check_ed25519_block(block, device, "Ed25519 timed block")
     launches, batch_ms = run_ed25519_path(block)
-    row = measure_ed25519_kernel(card, block, device)
-    row.update(launches=launches, max_abs_err=max(err, mixed_err), plain_ms=plain_ms)
-    log_kernel(card, row)
+    rows = measure_ed25519_kernels(card, block, device)
+    for row in rows:
+        row.update(launches=launches[row["name"]], plain_ms=timed[row["name"].split("_")[1]][1],
+                   max_abs_err=max(mixed[row["name"].split("_")[1]][0], timed[row["name"].split("_")[1]][0]))
+        log_kernel(card, row)
     log(f"[{card}] ed25519.verify_batch @ {BLOCK_TXS} signatures: {batch_ms:.2f} ms end to end "
         f"({BLOCK_TXS / batch_ms * 1e3:.0f} verifies/s)")
-    stages = ed25519_stages(block, device)
-    log(f"[{card}] ed25519.verify_batch stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    for who in ((parent, None, None, parent) if parent else (None,)):
+        stages = ed25519_stages(block, device, who)
+        log(f"[{card}] ed25519.verify_batch stages{' (parent checkout)' if who else ''} (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    if parent is not None:
+        ed25519_against_parent(card, parent, block, device)
     (msgs, pubs, sigs), _ = ed25519_tile(block, BLOCK_TXS)
     log_busy(card, "ed25519.verify_batch", lambda: ed25519.verify_batch(msgs, pubs, sigs))
     check_ed25519_suite(card, cases, device)
-    return row, block
+    return list(rows), block
 
 
 # ---------------------------------------------------------------------------
@@ -2144,6 +2312,7 @@ def timed_kernel_args(device, block, verify_block, sm_block, forms: dict, ed_blo
         **forms,
         "ed25519_verify": (ed25519_rows_tensor(*ed25519_tile(ed_block, BLOCK_TXS)[0], device),
                            ed25519.comb_words(device)),
+        "ed25519_challenge": ed25519_challenge_args(*ed25519_tile(ed_block, BLOCK_TXS)[0], device),
     }
 
 
@@ -2195,7 +2364,7 @@ def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) 
             f"(new/parent {(times[1] + times[2]) / (times[0] + times[3]):.3f})")
 
 
-FIELD_BENCH_OPS = 15  # field_bench.cu's op codes 0..14
+FIELD_BENCH_OPS = 21  # field_bench.cu's op codes 0..20
 BODY_SIZES = (1, 4, 8, 16, 24, 32, 64)  # products a loop body, op code 100 + K
 
 
@@ -2400,7 +2569,7 @@ def field_bench(card: str, libs: dict) -> None:
 
     labels = list(fns)
     for op in range(FIELD_BENCH_OPS):
-        iters = 400 if op < 7 else 40 if op < 13 else 8
+        iters = 400 if op < 7 or op in (15, 16) else 2 if op == 20 else 40 if op < 13 or op > 16 else 8
         name = fns[labels[0]].field_bench_name(op).decode()
         log(f"[{card}] field bench, one warp, cycles per {name}: "
             + ", ".join(f"{lb} {show(cycles(fns[lb], op, iters))}" for lb in labels))
@@ -2570,7 +2739,7 @@ def main() -> int:
     run_suite_phase(card, block, cases, sm_block, sm_cases, verify_cases, merkle_trees)
 
     # -- Ed25519: the kernel, verify_batch, the suite's Ed25519Crypto --
-    ed_row, ed_block = run_ed25519_phase(card, device)
+    ed_rows, ed_block = run_ed25519_phase(card, device, parent)
 
     timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block)
     if parent:
@@ -2580,7 +2749,7 @@ def main() -> int:
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
     field_bench(card, bench_libs)
 
-    rows = (recover, verify, sm2_row, *hash_rows, ed_row)
+    rows = (recover, verify, sm2_row, *hash_rows, *ed_rows)
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))
     log(json.dumps({
         "ok": True,

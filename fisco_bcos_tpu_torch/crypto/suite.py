@@ -18,9 +18,9 @@ Single-item calls (``hash``, ``generate_keypair``, ``sign``, ``verify``,
 ``crypto/ref``, the pure-Python leg the JAX suite falls back to without its
 native core; both give the same bytes (RFC 6979 nonces; RFC 8032 for
 Ed25519). ``Ed25519Crypto`` is the signature scheme of the QC certificates
-(``consensus/qc.py``); its batch verify runs the Ed25519 kernel on the
-suite's device. SHA-256 and Poseidon are not ported (ROADMAP A5, A6):
-``hash_impl_by_name`` raises for them.
+(``consensus/qc.py``); its batch verify runs the Ed25519 challenge and
+verify kernels on the suite's device. SHA-256 and Poseidon are not ported
+(ROADMAP A5, A6): ``hash_impl_by_name`` raises for them.
 """
 
 from __future__ import annotations
@@ -346,34 +346,31 @@ class Ed25519Crypto(SignatureCrypto):
         return pub
 
     def batch_verify(self, msg_hashes, pubs, sigs) -> np.ndarray:
-        """Messages, keys and signatures (lists of bytes) -> ok bool[B]: the
-        challenges on the host, one launch of the Ed25519 kernel."""
+        """Messages, keys and signatures (lists of bytes-like items) -> ok
+        bool[B]: ``ed25519.verify_batch``, the challenge kernel then the
+        verify kernel."""
         dev = resolve_device(self.device)
-        hashes = [bytes(h) for h in msg_hashes]
-        keys = [bytes(p)[:32] for p in pubs]
-        rs = [bytes(s)[:64] for s in sigs]
-        if not len(hashes) == len(keys) == len(rs):
-            raise ValueError(f"ed25519: {len(hashes)} messages, {len(keys)} keys, {len(rs)} signatures")
-        if not rs:
+        if not len(msg_hashes) == len(pubs) == len(sigs):
+            raise ValueError(f"ed25519: {len(msg_hashes)} messages, {len(pubs)} keys, {len(sigs)} signatures")
+        if not len(sigs):
             return np.zeros(0, dtype=bool)
-        wellformed = np.array([len(p) == 32 and len(s) == 64 for p, s in zip(keys, rs)], dtype=bool)
+        wellformed = np.array([len(p) >= 32 and len(s) >= 64 for p, s in zip(pubs, sigs)], dtype=bool)
         if not wellformed.all():
-            keys = [p if good else self._PLACEHOLDER[64:] for p, good in zip(keys, wellformed)]
-            rs = [s if good else self._PLACEHOLDER[:64] for s, good in zip(rs, wellformed)]
-        return ed_ops.verify_batch(hashes, keys, rs, device=dev) & wellformed
+            pubs = [p if good else self._PLACEHOLDER[64:] for p, good in zip(pubs, wellformed)]
+            sigs = [s if good else self._PLACEHOLDER[:64] for s, good in zip(sigs, wellformed)]
+        return ed_ops.verify_batch(msg_hashes, pubs, sigs, device=dev) & wellformed
 
     def batch_recover(self, msg_hashes, sigs) -> tuple[np.ndarray, np.ndarray]:
         """Messages and 96-byte signatures -> (the carried keys [B, 32]
         uint8, zero where not ok, ok bool[B]); a signature shorter than 96
         bytes is not ok."""
-        sigs = [bytes(s) for s in sigs]
         wellformed = np.array([len(s) >= 96 for s in sigs], dtype=bool)
-        safe = [s if good else self._PLACEHOLDER for s, good in zip(sigs, wellformed)]
-        pubs = [s[64:96] for s in safe]
-        ok = self.batch_verify(msg_hashes, pubs, safe) & wellformed
-        out = np.zeros((len(sigs), 32), dtype=np.uint8)
-        out[ok] = np.frombuffer(b"".join(p for p, good in zip(pubs, ok) if good), np.uint8).reshape(-1, 32)
-        return out, ok
+        joined = b"".join(sigs)
+        if len(joined) != 96 * len(sigs) or not wellformed.all():
+            joined = b"".join(bytes(s[:96]) if good else self._PLACEHOLDER for s, good in zip(sigs, wellformed))
+        rows = np.frombuffer(joined, dtype=np.uint8).reshape(len(sigs), 96)
+        ok = self.batch_verify(msg_hashes, list(rows[:, 64:]), list(rows[:, :64])) & wellformed
+        return np.where(ok[:, None], rows[:, 64:], 0).astype(np.uint8), ok
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 // Cycles per field op and per group-law op for one warp (clock64() around
-// a loop), and cycles per SM2 product as a loop body grows: the
+// a loop; Ed25519's programs in the checkout's layout: one lane a
+// signature, or a quad of lanes, so the cycles are a signature's latency
+// either way), and cycles per SM2 product as a loop body grows: the
 // measurements behind the kernels' design (PERF.md §6). Not a kernel of any
 // path: chip_smoke.py --field-bench builds it against a checkout's csrc/
 // (-I that directory; hence the angle brackets) and prints what it
@@ -18,6 +20,15 @@
 #include <secp256k1_modinv.cuh>
 #define FB_HAS_DIVSTEP 1
 #endif
+#if __has_include(<ed25519_verify.cu>)
+#include <ed25519_verify.cu>
+#define FB_HAS_ED25519 1
+#ifdef ED25519_SIGS
+#define FB_ED_SIGS ED25519_SIGS  // a quad of lanes a signature: 8 signatures a warp
+#else
+#define FB_ED_SIGS 32  // one lane a signature
+#endif
+#endif
 
 #ifdef SLOT_WORDS
 #define FB_SQR_MM(r, a) mm_sqr(r, a)
@@ -30,7 +41,8 @@
 enum {
   FB_MM_MUL, FB_MM_SQR, FB_MM_ADD, FB_FP_MUL, FB_FP_SQR, FB_FN_MUL, FB_FN_SQR,
   FB_SM2_DBL, FB_SM2_ADD, FB_SM2_MADD, FB_SECP_DBL, FB_SECP_ADD, FB_SECP_MADD,
-  FB_FN_INV_FERMAT, FB_FN_INV_DIVSTEP, FB_OPS
+  FB_FN_INV_FERMAT, FB_FN_INV_DIVSTEP, FB_ED_MUL, FB_ED_SQR, FB_ED_DBL, FB_ED_ADD, FB_ED_MADD,
+  FB_ED_DECOMP, FB_OPS
 };
 
 extern "C" const char* field_bench_name(int op) {
@@ -38,7 +50,9 @@ extern "C" const char* field_bench_name(int op) {
       "SM2 mm_mul", "SM2 mm_sqr", "SM2 mm_add", "secp fp_mul", "secp fp_sqr", "secp fn_mul",
       "secp fn_sqr", "SM2 doubling (RCB 3)", "SM2 addition (RCB 1)", "SM2 mixed addition (RCB 2)",
       "secp doubling (RCB 9)", "secp addition (RCB 7)", "secp mixed addition (RCB 8)",
-      "secp s^-1 mod n, Fermat f_pow", "secp s^-1 mod n, safegcd divsteps"};
+      "secp s^-1 mod n, Fermat f_pow", "secp s^-1 mod n, safegcd divsteps", "Ed25519 fe_mul",
+      "Ed25519 fe_sqr", "Ed25519 doubling program", "Ed25519 addition program",
+      "Ed25519 mixed addition program", "Ed25519 decompression program (one point a lane; a quad: A and R)"};
   return op >= 0 && op < FB_OPS ? names[op] : "";
 }
 
@@ -58,6 +72,17 @@ __global__ void field_bench(u32* io, long long* cyc, int iters) {
   slot_put(sl, 32, S_X, x), slot_put(sl, 32, S_Y, y), slot_put(sl, 32, S_Z, z);
   slot_put(sl, 32, S_QX, y), slot_put(sl, 32, S_QY, z), slot_put(sl, 32, S_QZ, x);
   slot_put(sl, 32, S_K, z);
+#ifdef FB_HAS_ED25519
+  // Ed25519's slots in the checkout's layout: a signature's slots at stride
+  // FB_ED_SIGS, written by its first lane; every slot holds x, y or z
+  u32* esl = reinterpret_cast<u32*>(s_slots + threadIdx.x % FB_ED_SIGS);
+  if (OP >= FB_ED_DBL) {
+    if (threadIdx.x < FB_ED_SIGS) {
+      for (int s = 0; s < ED25519_SLOTS; s++) slot_put(esl, FB_ED_SIGS, s, s % 3 ? (s % 3 == 1 ? y : z) : x);
+    }
+    __syncwarp();
+  }
+#endif
 #else
   Pt P, Q;
   copy_w<8>(P.X, x), copy_w<8>(P.Y, y), copy_w<8>(P.Z, z);
@@ -83,6 +108,18 @@ __global__ void field_bench(u32* io, long long* cyc, int iters) {
     if (OP == FB_FN_INV_FERMAT) f_pow<true, EXP_N_INV_ID>(x, x, sl, 32);
 #ifdef FB_HAS_DIVSTEP
     if (OP == FB_FN_INV_DIVSTEP) fn_inv_divstep(x, x);
+#endif
+#ifdef FB_HAS_ED25519
+    if (OP == FB_ED_MUL) fe_mul(x, x, y);
+    if (OP == FB_ED_SQR) fe_sqr(x, x);
+    if (OP == FB_ED_DBL) ed_run(ED_DBL_AT, ED_DBL_LEN, esl, FB_ED_SIGS);
+    if (OP == FB_ED_ADD) ed_run(ED_ADD_AT, ED_ADD_LEN, esl, FB_ED_SIGS);
+    if (OP == FB_ED_MADD) ed_run(ED_MADD_AT, ED_MADD_LEN, esl, FB_ED_SIGS);
+#ifdef ED25519_SIGS  // the quad runs the decompression with no sync between rows
+    if (OP == FB_ED_DECOMP) ed_run<false>(ED_DECOMP_AT, ED_DECOMP_LEN, esl, FB_ED_SIGS);
+#else
+    if (OP == FB_ED_DECOMP) ed_run(ED_DECOMP_AT, ED_DECOMP_LEN, esl, FB_ED_SIGS);
+#endif
 #endif
 #else
     if (OP == FB_SM2_DBL) sm2_pt_double(P, P);
@@ -162,6 +199,14 @@ extern "C" int field_bench_run(void* io, void* cyc, int op, int iters) {
 #endif
 #ifdef FB_HAS_DIVSTEP
     case FB_FN_INV_DIVSTEP: return launch_op<FB_FN_INV_DIVSTEP>(w, c, iters);
+#endif
+#if defined(FB_HAS_ED25519) && defined(SLOT_WORDS)
+    case FB_ED_MUL: return launch_op<FB_ED_MUL>(w, c, iters);
+    case FB_ED_SQR: return launch_op<FB_ED_SQR>(w, c, iters);
+    case FB_ED_DBL: return launch_op<FB_ED_DBL>(w, c, iters);
+    case FB_ED_ADD: return launch_op<FB_ED_ADD>(w, c, iters);
+    case FB_ED_MADD: return launch_op<FB_ED_MADD>(w, c, iters);
+    case FB_ED_DECOMP: return launch_op<FB_ED_DECOMP>(w, c, iters);
 #endif
     case 101: body_size_bench<1><<<1, 32>>>(w, c, iters); break;
     case 104: body_size_bench<4><<<1, 32>>>(w, c, iters); break;

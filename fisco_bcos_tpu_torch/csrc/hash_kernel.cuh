@@ -198,6 +198,32 @@ HDEV void stage_span(uint8_t* smem, const uint8_t* src, int64_t span, int lane) 
   __syncwarp();
 }
 
+// The staging of a packed batch (above): the span [lo, hi) of the warp's
+// valid, non-empty messages, copied into smem by the whole warp when it
+// fits HASH_STAGE_BYTES. Returns whether the warp staged; *lo_out is the
+// span's start, so a staged lane reads its message from byte
+// (data + lo) mod 16 + start - lo of smem on (stage_offset).
+HDEV bool stage_warp(uint8_t* smem, const uint8_t* data, int64_t start, int64_t len, bool valid,
+                     int lane, int64_t* lo_out) {
+  int64_t lo = valid && len > 0 ? start : INT64_MAX;
+  int64_t hi = valid && len > 0 ? start + len : 0;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const int64_t lo_d = __shfl_xor_sync(0xFFFFFFFFu, (long long)lo, d);
+    const int64_t hi_d = __shfl_xor_sync(0xFFFFFFFFu, (long long)hi, d);
+    lo = lo_d < lo ? lo_d : lo;
+    hi = hi_d > hi ? hi_d : hi;
+  }
+  const bool staged = hi - lo <= HASH_STAGE_BYTES;  // no bytes at all: hi - lo < 0
+  if (staged && hi > lo) stage_span(smem, data + lo, hi - lo, lane);
+  *lo_out = lo;
+  return staged;
+}
+
+HDEV uint32_t stage_offset(const uint8_t* data, int64_t lo, int64_t start) {
+  return (uint32_t)(((uintptr_t)(data + lo) & 15) + (start - lo));
+}
+
 // This lane's row of N words into shared memory at lane·4N bytes, with
 // 16-byte stores where N allows.
 template <int N>
@@ -267,24 +293,14 @@ packed_hash_kernel(const uint8_t* __restrict__ data, const int64_t* __restrict__
     len = lengths[first + lane];
     valid = start >= 0 && len >= 0 && start <= n_data - len;
   }
-  int64_t lo = valid && len > 0 ? start : INT64_MAX;
-  int64_t hi = valid && len > 0 ? start + len : 0;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const int64_t lo_d = __shfl_xor_sync(0xFFFFFFFFu, (long long)lo, d);
-    const int64_t hi_d = __shfl_xor_sync(0xFFFFFFFFu, (long long)hi, d);
-    lo = lo_d < lo ? lo_d : lo;
-    hi = hi_d > hi ? hi_d : hi;
-  }
-  const bool staged = hi - lo <= HASH_STAGE_BYTES;  // no bytes at all: hi - lo < 0
-  if (staged && hi > lo) stage_span(smem, data + lo, hi - lo, lane);
+  int64_t lo;
+  const bool staged = stage_warp(smem, data, start, len, valid, lane, &lo);
   if (routes != nullptr && lane == 0) atomicAdd(routes + (staged ? 0 : 1), 1);
 
   uint32_t digest[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (valid) {
     if (staged) {
-      const uint32_t off = (uint32_t)(((uintptr_t)(data + lo) & 15) + (start - lo));
-      H::message(WordReader{(const uint32_t*)smem, off}, len, digest);
+      H::message(WordReader{(const uint32_t*)smem, stage_offset(data, lo, start)}, len, digest);
     } else {
       H::message(ByteReader{data + start}, len, digest);
     }

@@ -43,6 +43,7 @@ SOURCES = {
     "keccak256": CSRC / "keccak256.cu",
     "sm3": CSRC / "sm3.cu",
     "ed25519_verify": CSRC / "ed25519_verify.cu",
+    "ed25519_challenge": CSRC / "ed25519_challenge.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,6 +73,8 @@ _ENTRIES = {
     "sm3_e": ("sm3", "sm3_e_launch", [_P] * 5 + [_I]),
     # rows, comb, ok pointers; lanes
     "ed25519_verify": ("ed25519_verify", "ed25519_verify_launch", [_P] * 3 + [_I]),
+    # rows, data, starts, lengths; messages; bytes of data
+    "ed25519_challenge": ("ed25519_challenge", "ed25519_challenge_launch", [_P] * 4 + [_I, _LL]),
 }
 KERNELS = {kernel: entry[0] for kernel, entry in _ENTRIES.items()}
 
@@ -306,6 +309,26 @@ def ed25519_verify(rows, comb):
     if b:
         _launch("ed25519_verify", dev, rows.data_ptr(), comb.data_ptr(), ok.data_ptr(), b)
     return ok
+
+
+def ed25519_challenge(rows, data, starts, lengths):
+    """Launch the Ed25519 challenge kernel over a packed batch of B messages
+    (data uint8 [N], starts int64 [B], lengths int32 [B]; every range inside
+    data) and rows [>= B, 128] uint8 (R ‖ S ‖ A ‖ k_neg, 16-byte aligned),
+    all on one CUDA device: writes each message's k_neg = (L - SHA-512(R ‖ A
+    ‖ M) mod L) mod L into bytes 96..127 of its row, in place; rows past B
+    are not touched. Returns rows."""
+    dev, b, _ = _packed_args("ed25519_challenge", data, starts, lengths, None)
+    _require(rows, "rows", torch.uint8, (rows.shape[0], 128), dev)
+    if rows.shape[0] < b:
+        raise ValueError(f"ed25519_challenge: {rows.shape[0]} rows for {b} messages")
+    _aligned16(rows, "rows", "ed25519_challenge")
+    if b:
+        _launch(
+            "ed25519_challenge", dev, rows.data_ptr(), data.data_ptr(), starts.data_ptr(),
+            lengths.data_ptr(), b, data.numel(),
+        )
+    return rows
 
 
 # ---------------------------------------------------------------------------

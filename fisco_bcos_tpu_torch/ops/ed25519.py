@@ -1,20 +1,26 @@
 """Batch Ed25519 verification (RFC 8032, cofactored), the port of the JAX
 package's ``ops/ed25519.py``.
 
-The split of labour is the JAX package's: the host hashes each lane's
-SHA-512 challenge k = H(R ‖ A ‖ M) mod L and negates it (:func:`challenges`,
-one hashlib call a lane); the device does every elliptic step, the two
+The device does the whole check: each lane's SHA-512 challenge
+k = H(R ‖ A ‖ M) mod L, negated, then every elliptic step, the two
 decompressions, the dual ladder s·B + (L − k)·A, the R subtraction, the
 cofactor 8 and the identity test, and returns one verdict bit a lane:
 
     ok = s < L and A, R decompress and 8·(s·B + (L − k)·A − R) == O.
 
+(The JAX package hashes the challenges on the host, one hashlib call a
+lane; :func:`challenges` keeps that as the oracle.)
+
 The device input is one ``[B, 128]`` uint8 row a lane (:data:`ROW_BYTES`):
 R ‖ S ‖ A ‖ k_neg, 32 little-endian bytes each, R and S as they come in the
 signature and A as the key; the sign bits stay in the top bytes of R and A.
-:func:`verify_device` sends a CUDA tensor of rows to the hand-written kernel
-``csrc/ed25519_verify.cu`` (which replaces the JAX program ``_verify_xla``)
-and a CPU tensor to :func:`verify_plain`, the plain PyTorch version below.
+The host joins R ‖ S ‖ A (:func:`signature_rows`, k_neg zero) and packs the
+messages (``hash_common.pack_messages``); :func:`challenge_device` writes
+k_neg into the rows in place and :func:`verify_device` reads them. A CUDA
+tensor goes to the hand-written kernels ``csrc/ed25519_challenge.cu`` and
+``csrc/ed25519_verify.cu`` (which replaces the JAX program ``_verify_xla``),
+a CPU tensor to :func:`challenge_plain` and :func:`verify_plain`, the plain
+PyTorch versions below.
 
 The plain version mirrors the JAX ``verify_core`` step for step on the
 port's limb plane: 16-bit limbs in int64, the ring Z/2p (2p = 2^256 − 38, a
@@ -39,7 +45,7 @@ import torch
 
 from . import _kernels, limb
 from .ec import WINDOW, _select15, scalar_windows
-from .hash_common import bucket_batch
+from .hash_common import bucket_batch, gather_padded, upload_packed
 from .limb import FoldField, const_col, cond_sub, eq, int_to_rows, is_zero, lt, select
 from .. import params
 from ..crypto.ref import ed25519 as ref
@@ -308,7 +314,123 @@ def verify_device(rows: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Host half (the JAX :306-364)
+# The challenges: SHA-512 of R ‖ A ‖ M, reduced mod L, negated
+# ---------------------------------------------------------------------------
+
+# SHA-512's round constants and initial value (FIPS 180-4 §4.2.3, §5.3.5)
+_SHA512_K = [
+    0x428A2F98D728AE22, 0x7137449123EF65CD, 0xB5C0FBCFEC4D3B2F, 0xE9B5DBA58189DBBC,
+    0x3956C25BF348B538, 0x59F111F1B605D019, 0x923F82A4AF194F9B, 0xAB1C5ED5DA6D8118,
+    0xD807AA98A3030242, 0x12835B0145706FBE, 0x243185BE4EE4B28C, 0x550C7DC3D5FFB4E2,
+    0x72BE5D74F27B896F, 0x80DEB1FE3B1696B1, 0x9BDC06A725C71235, 0xC19BF174CF692694,
+    0xE49B69C19EF14AD2, 0xEFBE4786384F25E3, 0x0FC19DC68B8CD5B5, 0x240CA1CC77AC9C65,
+    0x2DE92C6F592B0275, 0x4A7484AA6EA6E483, 0x5CB0A9DCBD41FBD4, 0x76F988DA831153B5,
+    0x983E5152EE66DFAB, 0xA831C66D2DB43210, 0xB00327C898FB213F, 0xBF597FC7BEEF0EE4,
+    0xC6E00BF33DA88FC2, 0xD5A79147930AA725, 0x06CA6351E003826F, 0x142929670A0E6E70,
+    0x27B70A8546D22FFC, 0x2E1B21385C26C926, 0x4D2C6DFC5AC42AED, 0x53380D139D95B3DF,
+    0x650A73548BAF63DE, 0x766A0ABB3C77B2A8, 0x81C2C92E47EDAEE6, 0x92722C851482353B,
+    0xA2BFE8A14CF10364, 0xA81A664BBC423001, 0xC24B8B70D0F89791, 0xC76C51A30654BE30,
+    0xD192E819D6EF5218, 0xD69906245565A910, 0xF40E35855771202A, 0x106AA07032BBD1B8,
+    0x19A4C116B8D2D0C8, 0x1E376C085141AB53, 0x2748774CDF8EEB99, 0x34B0BCB5E19B48A8,
+    0x391C0CB3C5C95A63, 0x4ED8AA4AE3418ACB, 0x5B9CCA4F7763E373, 0x682E6FF3D6B2B8A3,
+    0x748F82EE5DEFB2FC, 0x78A5636F43172F60, 0x84C87814A1F0AB72, 0x8CC702081A6439EC,
+    0x90BEFFFA23631E28, 0xA4506CEBDE82BDE9, 0xBEF9A3F7B2C67915, 0xC67178F2E372532B,
+    0xCA273ECEEA26619C, 0xD186B8C721C0C207, 0xEADA7DD6CDE0EB1E, 0xF57D4F7FEE6ED178,
+    0x06F067AA72176FBA, 0x0A637DC5A2C898A6, 0x113F9804BEF90DAE, 0x1B710B35131C471B,
+    0x28DB77F523047D84, 0x32CAAB7B40C72493, 0x3C9EBE0A15C9BEBC, 0x431D67C49C100D4C,
+    0x4CC5D4BECB3E42B6, 0x597F299CFC657E2A, 0x5FCB6FAB3AD6FAEC, 0x6C44198C4A475817,
+]
+_SHA512_IV = [
+    0x6A09E667F3BCC908, 0xBB67AE8584CAA73B, 0x3C6EF372FE94F82B, 0xA54FF53A5F1D36F1,
+    0x510E527FADE682D1, 0x9B05688C2B3E6C1F, 0x1F83D9ABFB41BD6B, 0x5BE0CD19137E2179,
+]
+SHA512_BLOCK = 128  # bytes
+
+
+def _i64(v: int) -> int:
+    """A 64-bit word as the int64 with its bit pattern."""
+    return v - (1 << 64) if v >> 63 else v
+
+
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns (>> is arithmetic)."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+    return _shr(x, n) | (x << (64 - n))
+
+
+def sha512_words(words: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """SHA-512 over pre-padded blocks: words [B, M, 16] int64 (big-endian
+    64-bit words as bit patterns), nblocks [B] -> the digests as [B, 8]
+    int64 words. Sums wrap mod 2^64, as int64 addition does."""
+    bsz, m_max, _ = words.shape
+    state = torch.tensor([_i64(v) for v in _SHA512_IV], device=words.device)[:, None].expand(8, bsz)
+    for m in range(m_max):
+        w = list(words[:, m, :].T)
+        a, b, c, d, e, f, g, h = state
+        for t in range(80):
+            if t >= 16:
+                w15, w2 = w[t - 15], w[t - 2]
+                s0 = _rotr(w15, 1) ^ _rotr(w15, 8) ^ _shr(w15, 7)
+                s1 = _rotr(w2, 19) ^ _rotr(w2, 61) ^ _shr(w2, 6)
+                w.append(s1 + w[t - 7] + s0 + w[t - 16])
+            t1 = h + (_rotr(e, 14) ^ _rotr(e, 18) ^ _rotr(e, 41)) + ((e & f) ^ (~e & g)) + _i64(_SHA512_K[t]) + w[t]
+            t2 = (_rotr(a, 28) ^ _rotr(a, 34) ^ _rotr(a, 39)) + ((a & b) ^ (a & c) ^ (b & c))
+            h, g, f, e, d, c, b, a = g, f, e, d + t1, c, b, a, t1 + t2
+        state = torch.where(m < nblocks.to(words.device), state + torch.stack([a, b, c, d, e, f, g, h]), state)
+    return state.T
+
+
+def challenge_plain(rows, data, starts, lengths) -> torch.Tensor:
+    """The plain PyTorch version of the challenge kernel: for message i of
+    the packed batch (data uint8 [N], starts int64 [B], lengths int32 [B]),
+    k = SHA-512(R ‖ A ‖ M) mod L from row i's R (bytes 0..31) and A (64..95);
+    k_neg = (L - k) mod L goes into bytes 96..127 of rows[i] ([>= B, 128]
+    uint8), in place. Returns rows. SHA-512 runs on int64 tensors on the
+    rows' device, the reduction on Python integers."""
+    bsz = starts.shape[0]
+    if not bsz:
+        return rows
+    dev = rows.device
+    lengths = lengths.to(torch.int64)
+    total = lengths + 64  # bytes hashed
+    nblocks = (total + 16) // SHA512_BLOCK + 1  # room for 0x80 and the 16-byte length
+    width = SHA512_BLOCK * int(nblocks.max())
+    buf = torch.zeros((bsz, width), dtype=torch.int64, device=dev)
+    buf[:, :32] = rows[:bsz, :32]
+    buf[:, 32:64] = rows[:bsz, 64:96]
+    buf[:, 64:] = gather_padded(data, starts, lengths, SHA512_BLOCK, nblocks)[:, : width - 64]
+    pos = torch.arange(width, device=dev)
+    buf |= (pos == total[:, None]) * 0x80
+    end = nblocks[:, None] * SHA512_BLOCK  # the bit length, big-endian, ends the last block
+    for k in range(8):
+        buf |= (pos == end - 1 - k) * ((total[:, None] * 8 >> (8 * k)) & 0xFF)
+    shifts = torch.arange(56, -8, -8, device=dev)
+    words = (buf.view(bsz, -1, 16, 8) << shifts).sum(-1)  # big-endian words, the top byte in the sign bit
+    digests = sha512_words(words, nblocks).cpu().numpy().astype(">i8").tobytes()
+    k_neg = b"".join(
+        ((L - int.from_bytes(digests[64 * i : 64 * i + 64], "little") % L) % L).to_bytes(32, "little")
+        for i in range(bsz)
+    )
+    rows[:bsz, 96:] = torch.frombuffer(bytearray(k_neg), dtype=torch.uint8).view(bsz, 32).to(dev)
+    return rows
+
+
+def challenge_device(rows, data, starts, lengths) -> torch.Tensor:
+    """Each message's k_neg into its row (bytes 96..127 of rows[:B]), in
+    place; returns rows. CUDA tensors go to the challenge kernel (or an
+    exception); CPU tensors to the plain version."""
+    if rows.device.type == "cuda":
+        return _kernels.ed25519_challenge(rows, data, starts, lengths)
+    if rows.device.type == "cpu":
+        return challenge_plain(rows, data, starts, lengths)
+    raise ValueError(f"challenge_device: unsupported device {rows.device}")
+
+
+# ---------------------------------------------------------------------------
+# Host half: the rows, and the JAX package's host challenges (the JAX :306-364)
 # ---------------------------------------------------------------------------
 
 
@@ -323,35 +445,64 @@ def challenges(msgs, pubs, sigs) -> bytes:
     )
 
 
-def device_inputs(msgs, pubs, sigs, pad_to: int | None = None) -> np.ndarray:
-    """Host bytes -> the kernel's [pad_to, 128] uint8 rows (default: the
-    batch's bucket): each lane's R ‖ S (the signature's first 64 bytes), A
-    (the key's first 32) and its :func:`challenges` k_neg; zero rows pad the
-    bucket. A key shorter than 32 bytes or a signature shorter than 64
+def _column(items, width: int, what: str) -> np.ndarray:
+    """The first `width` bytes of each bytes-like item (at least `width`
+    each) as a [B, width] uint8 array: one join, and a loop in Python over
+    the items only where one is longer than `width`."""
+    joined = b"".join(items)
+    if len(joined) != width * len(items) or max(map(len, items), default=width) != width:
+        if min(map(len, items)) < width:
+            raise ValueError(f"ed25519: {what} must hold {width} bytes")
+        joined = b"".join(bytes(x[:width]) for x in items)
+    return np.frombuffer(joined, dtype=np.uint8).reshape(len(items), width)
+
+
+def signature_rows(pubs, sigs, pad_to: int | None = None) -> np.ndarray:
+    """Keys and signatures -> the kernels' [pad_to, 128] uint8 rows
+    (default: the batch's bucket) with k_neg zero: each lane's R ‖ S (the
+    signature's first 64 bytes) and A (the key's first 32); zero rows pad
+    the bucket. A key shorter than 32 bytes or a signature shorter than 64
     raises."""
-    bsz = len(msgs)
-    if not len(pubs) == len(sigs) == bsz:
-        raise ValueError(f"ed25519: {bsz} messages, {len(pubs)} keys, {len(sigs)} signatures")
-    pubs = [bytes(p[:32]) for p in pubs]
-    sigs = [bytes(s[:64]) for s in sigs]
-    if any(len(p) != 32 for p in pubs) or any(len(s) != 64 for s in sigs):
-        raise ValueError("ed25519: keys must hold 32 bytes and signatures 64")
-    parts = [
-        np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(bsz, 64),
-        np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(bsz, 32),
-        np.frombuffer(challenges(msgs, pubs, sigs), dtype=np.uint8).reshape(bsz, 32),
-    ]
+    if len(pubs) != len(sigs):
+        raise ValueError(f"ed25519: {len(pubs)} keys, {len(sigs)} signatures")
+    bsz = len(sigs)
     rows = np.zeros((bucket_batch(bsz) if pad_to is None else pad_to, ROW_BYTES), dtype=np.uint8)
-    np.concatenate(parts, axis=1, out=rows[:bsz])
+    rows[:bsz, :64] = _column(sigs, 64, "signatures")
+    rows[:bsz, 64:96] = _column(pubs, 32, "keys")
     return rows
+
+
+def device_inputs(msgs, pubs, sigs, pad_to: int | None = None) -> np.ndarray:
+    """The host's rows, as the JAX package makes its inputs: the
+    :func:`signature_rows` with each lane's :func:`challenges` k_neg (one
+    hashlib call a lane). The oracle of the challenge kernel's rows."""
+    if len(msgs) != len(sigs):
+        raise ValueError(f"ed25519: {len(msgs)} messages, {len(sigs)} signatures")
+    rows = signature_rows(pubs, sigs, pad_to)
+    bsz = len(msgs)
+    keys, rs = rows[:bsz, 64:96], rows[:bsz, :32]
+    k_neg = challenges(msgs, [k.tobytes() for k in keys], [r.tobytes() for r in rs])
+    rows[:bsz, 96:] = np.frombuffer(k_neg, dtype=np.uint8).reshape(bsz, 32)
+    return rows
+
+
+def challenge_rows(msgs, pubs, sigs, device=None) -> torch.Tensor:
+    """Host API: the kernels' [bucket, 128] uint8 rows with each lane's
+    challenge written in, on the CUDA card unless ``device`` names another:
+    one upload of the :func:`signature_rows` and of the packed messages,
+    then the challenge kernel (its plain version on the CPU). Byte for byte
+    :func:`device_inputs`."""
+    dev = resolve_device(device)
+    if len(msgs) != len(sigs):
+        raise ValueError(f"ed25519: {len(msgs)} messages, {len(sigs)} signatures")
+    rows = torch.from_numpy(signature_rows(pubs, sigs)).to(dev)
+    return challenge_device(rows, *upload_packed(msgs, dev))
 
 
 def verify_batch(msgs, pubs, sigs, device=None) -> np.ndarray:
     """Host API: per-lane bytes (message, 32-byte key, 64-byte R ‖ S) ->
-    bool[B]. Runs on the CUDA card unless ``device`` names another: the
-    challenges hashed on the host, one upload of the rows, one launch, one
-    download of the verdicts."""
-    dev = resolve_device(device)
-    rows = device_inputs(msgs, pubs, sigs)
-    ok = verify_device(torch.from_numpy(rows).to(dev))
+    bool[B]. Runs on the CUDA card unless ``device`` names another:
+    :func:`challenge_rows` (one upload, the challenge kernel), the verify
+    kernel, one download of the verdicts."""
+    ok = verify_device(challenge_rows(msgs, pubs, sigs, device))
     return ok.cpu().numpy()[: len(msgs)]

@@ -114,6 +114,9 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: suite.Keccak256().address_batch(pub),
         lambda: suite.SM3().address_batch(np.zeros((0, 64), np.uint8)),
         lambda: ed25519.verify_batch([b"m"], [bytes(32)], [bytes(64)]),
+        lambda: ed25519.verify_batch([], [], []),
+        lambda: ed25519.challenge_rows([b"m"], [bytes(32)], [bytes(64)]),
+        lambda: ed25519.challenge_rows([], [], []),
         lambda: suite.Ed25519Crypto().batch_verify([b"m"], [bytes(32)], [bytes(64)]),
         lambda: suite.Ed25519Crypto().batch_verify([], [], []),
         lambda: suite.Ed25519Crypto().batch_recover([b"m"], [bytes(96)]),
@@ -139,6 +142,11 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
     with pytest.raises(ValueError):
         _kernels.ed25519_verify(
             torch.zeros((4, 128), dtype=torch.uint8), torch.zeros((24, 8), dtype=torch.int32)
+        )
+    with pytest.raises(ValueError):
+        _kernels.ed25519_challenge(
+            torch.zeros((4, 128), dtype=torch.uint8), torch.zeros(8, dtype=torch.uint8),
+            torch.zeros(4, dtype=torch.int64), torch.full((4,), 2, dtype=torch.int32),
         )
     packed = (
         torch.zeros(8, dtype=torch.uint8),
@@ -183,8 +191,8 @@ def test_library_name_follows_included_headers(tmp_path):
     digest = lambda: {n: _kernels.source_digest(csrc / f"{n}.cu") for n in names}  # noqa: E731
     before = digest()
     assert before == {n: _kernels.source_digest(_kernels.SOURCES[n]) for n in names}
-    hashes = ("keccak256", "sm3")
-    shared = csrc / "hash_kernel.cuh"  # included by both hash kernels' headers
+    hashes = ("keccak256", "sm3", "ed25519_challenge")
+    shared = csrc / "hash_kernel.cuh"  # included by both hash kernels' headers and the challenge kernel
     shared.write_text(shared.read_text() + "\n// edited\n")
     after_shared = digest()
     assert all(after_shared[n] != before[n] for n in hashes)

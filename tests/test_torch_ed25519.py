@@ -8,7 +8,10 @@ mixed-order R and keys that the cofactored equation accepts, a y with no
 root and the all-zero row. Also the comb table pinned to the JAX one,
 decompression of the edge encodings against the ref's, and the CUDA
 kernel's arithmetic built as host C++ against the plain version and the
-oracle (the kernel itself runs only on the card, through chip_smoke.py)."""
+oracle: the whole verification, and each quad program (doubling, addition,
+mixed addition, the pair decompression) against the plain group law, a
+quad's four lanes run one after another (the kernel itself runs only on the
+card, through chip_smoke.py)."""
 
 import ctypes
 import shutil
@@ -24,7 +27,7 @@ from fisco_bcos_tpu_torch import params
 from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref
 from fisco_bcos_tpu_torch.ops import _kernels, ed25519, limb
 
-P, L = ref.P, ref.L
+P, L, D = ref.P, ref.L, ref.D
 LANES = 32  # one bucket of tests/conftest.py's FISCO_TEST_BUCKET
 KERNEL_SRC = _kernels.SOURCES["ed25519_verify"]
 
@@ -217,32 +220,103 @@ def test_device_inputs_layout():
         ed25519.device_inputs(msgs, pubs, [s[:63] for s in sigs])
 
 
+HOST_SHIM = r"""
+#include "{src}"
+
+static void set_constants(u32* sl) {{  // one signature's slots, stride 1
+  const u32 ONE[8] = {{1, 0, 0, 0, 0, 0, 0, 0}}, D[8] = ED25519_D, D2[8] = ED25519_D2;
+  const u32 I[8] = ED25519_SQRT_M1;
+  slot_put(sl, 1, ED_ONE, ONE);
+  slot_put(sl, 1, ED_D, D);
+  slot_put(sl, 1, ED_D2, D2);
+  slot_put(sl, 1, ED_I, I);
+}}
+
+extern "C" void host_verify(const uint8_t* rows, const uint32_t* comb, uint8_t* ok, int n) {{
+  u32 slots[ED25519_SLOT_WORDS];
+  for (int i = 0; i < n; i++)
+    ed25519_verify_lane(rows + ED25519_ROW_BYTES * i, (const u32 (*)[8])comb, slots, 1, ok + i);
+}}
+
+// out: the slots X, Y, Z, T, QP, QM, QT, QZ (A, cached) and the 4 of -R, cached
+extern "C" int host_decompress_pair(const uint8_t* row, u32* out) {{
+  u32 slots[ED25519_SLOT_WORDS] = {{0}};
+  set_constants(slots);
+  bool ok = ed_decompress_pair(row, slots, 1);
+  for (int k = 0; k < 8; k++) slot_get(out + 8 * k, slots, 1, ED_X + k);
+  for (int k = 0; k < 4; k++) slot_get(out + 64 + 8 * k, slots, 1, ED_NR + k);
+  return ok;
+}}
+
+// A and R both the encoding (y, sign): A's x from ED_X; -1 unless R's, kept
+// negated, is its negation
+extern "C" int host_decompress(const u32* y, u32 sign, u32* x) {{
+  u32 slots[ED25519_SLOT_WORDS] = {{0}}, nx[8], sum[8];
+  uint8_t row[ED25519_ROW_BYTES] = {{0}};
+  for (int i = 0; i < 32; i++) row[i] = row[64 + i] = (uint8_t)(y[i / 4] >> (8 * (i % 4)));
+  row[31] |= (uint8_t)(sign << 7), row[95] |= (uint8_t)(sign << 7);
+  set_constants(slots);
+  bool ok = ed_decompress_pair(row, slots, 1);
+  slot_get(x, slots, 1, ED_X);
+  slot_get(nx, slots, 1, ED_RX);
+  fe_add(sum, x, nx);
+  return is_zero8(sum) ? ok : -1;
+}}
+
+// op 0: doubling, 1: addition of the cached q (4 slots), 2: mixed addition
+// of the comb-form q (3 slots); p, out: X, Y, Z, T
+extern "C" void host_point_op(int op, const u32* p, const u32* q, u32* out) {{
+  u32 slots[ED25519_SLOT_WORDS] = {{0}};
+  set_constants(slots);
+  for (int k = 0; k < 4; k++) slot_put(slots, 1, ED_X + k, p + 8 * k);
+  for (int k = 0; k < (op == 1 ? 4 : op == 2 ? 3 : 0); k++) slot_put(slots, 1, ED_QP + k, q + 8 * k);
+  if (op == 0) ed_run(ED_DBL_AT, ED_DBL_LEN, slots, 1);
+  if (op == 1) ed_run(ED_ADD_AT, ED_ADD_LEN, slots, 1);
+  if (op == 2) ed_run(ED_MADD_AT, ED_MADD_LEN, slots, 1);
+  for (int k = 0; k < 4; k++) slot_get(out + 8 * k, slots, 1, ED_X + k);
+}}
+
+// Hazards between a quad's lanes, row by row through every program as the
+// card runs them: an op that reads a slot another lane wrote, or writes a
+// slot another lane read or wrote, in its row or in an earlier row since the
+// last sync (the decompression runs with no sync between its rows). The
+// lanes would race on the card.
+extern "C" int host_row_hazards(int* rows) {{
+  int bad = 0;
+  bool rd[4][ED25519_SLOTS] = {{}}, wr[4][ED25519_SLOTS] = {{}};  // since the last sync
+  for (int r = 0; r < ED_PROG_ROWS; r++) {{
+    *rows = r + 1;
+    for (int j = 0; j < 4; j++) {{
+      u32 op = ED_PROGS[r].op[j];
+      rd[j][(op >> 16) & 0xFF] = rd[j][op >> 24] = wr[j][(op >> 8) & 0xFF] = true;
+    }}
+    for (int j = 0; j < 4; j++) {{
+      u32 op = ED_PROGS[r].op[j];
+      u32 d = (op >> 8) & 0xFF, a = (op >> 16) & 0xFF, b = op >> 24;
+      for (int k = 0; k < 4; k++)
+        if (k != j) bad += wr[k][a] + wr[k][b] + wr[k][d] + rd[k][d];
+    }}
+    bool unsynced = r >= ED_DECOMP_AT && r + 1 < ED_DECOMP_AT + ED_DECOMP_LEN;
+    if (!unsynced) {{
+      for (int j = 0; j < 4; j++)
+        for (int s = 0; s < ED25519_SLOTS; s++) rd[j][s] = wr[j][s] = false;
+    }}
+  }}
+  return bad;
+}}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """The kernel source's arithmetic compiled as host C++."""
+    """The kernel source's arithmetic compiled as host C++, a quad's four
+    lanes run one after another."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel's arithmetic for the host")
     d = tmp_path_factory.mktemp("ed25519_host")
     shim = d / "shim.cpp"
-    shim.write_text(
-        f'#include "{KERNEL_SRC}"\n'
-        'extern "C" void host_verify(const uint8_t* rows, const uint32_t* comb, uint8_t* ok, int n) {\n'
-        "  u32 slots[ED25519_SLOT_WORDS];  // one lane's slots, stride 1\n"
-        "  for (int i = 0; i < n; i++)\n"
-        "    ed25519_verify_lane(rows + ED25519_ROW_BYTES * i, (const u32 (*)[8])comb, slots, 1, ok + i);\n"
-        "}\n"
-        'extern "C" int host_decompress(const u32* y, u32 sign, u32* x) {\n'
-        "  u32 slots[ED25519_SLOT_WORDS];\n"
-        "  const u32 ONE[8] = {1, 0, 0, 0, 0, 0, 0, 0}, D[8] = ED25519_D, I[8] = ED25519_SQRT_M1;\n"
-        "  slot_put(slots, 1, ED_ONE, ONE);\n"
-        "  slot_put(slots, 1, ED_D, D);\n"
-        "  slot_put(slots, 1, ED_I, I);\n"
-        "  bool ok = ed_decompress(y, sign, slots, 1);\n"
-        "  slot_get(x, slots, 1, ED_X);\n"
-        "  return ok;\n"
-        "}\n"
-    )
+    shim.write_text(HOST_SHIM.format(src=KERNEL_SRC))
     lib_path = d / "libed25519_host.so"
     subprocess.run(
         [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o", str(lib_path), str(shim)],
@@ -252,6 +326,20 @@ def host_kernel(tmp_path_factory):
     lib.host_verify.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.host_decompress.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p]
     lib.host_decompress.restype = ctypes.c_int
+    raw_decompress = lib.host_decompress
+
+    def host_decompress(y, sign, x):  # -1 (R's x not the negation of A's) must not read as true
+        ok = raw_decompress(y, sign, x)
+        if ok == -1:
+            raise AssertionError("host_decompress: R's negated x is not the negation of A's x")
+        return ok
+
+    lib.host_decompress = host_decompress
+    lib.host_decompress_pair.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.host_decompress_pair.restype = ctypes.c_int
+    lib.host_point_op.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.host_row_hazards.argtypes = [ctypes.c_void_p]
+    lib.host_row_hazards.restype = ctypes.c_int
     comb = np.ascontiguousarray(params.ed25519_comb_words())
 
     def run(msgs, pubs, sigs):
@@ -304,3 +392,105 @@ def test_kernel_decompression_on_host_matches_reference(host_kernel):
         assert bool(ok) == (want is not None), enc.hex()
         if want is not None:
             assert sum(int(w) << (32 * i) for i, w in enumerate(x)) == want[0], enc.hex()
+
+
+def _words(vals) -> np.ndarray:
+    """Field elements -> their little-endian 32-bit words, concatenated."""
+    return np.array([(v >> (32 * i)) & 0xFFFFFFFF for v in vals for i in range(8)], np.uint32)
+
+
+def _ints(words: np.ndarray) -> list[int]:
+    return [sum(int(w) << (32 * i) for i, w in enumerate(words[k : k + 8])) for k in range(0, len(words), 8)]
+
+
+def _test_points():
+    """Extended points (X, Y, Z, T) with Z scaled by a seeded factor: random
+    multiples of B, the identity, the small-order points (orders 2, 4, 8)
+    and a mixed-order point a·B + T8."""
+    rng = np.random.default_rng(0x9AD)
+    a = int.from_bytes(rng.bytes(32), "little")
+    pts = [ref._mul(int.from_bytes(rng.bytes(32), "little"), ref.BASE) for _ in range(10)]
+    pts += [ref.IDENT, ref._decompress(_enc(P - 1)), ref._decompress(_enc(0)),
+            ref._decompress(_enc(0, 1)), T8, ref._add(ref._mul(a, ref.BASE), T8)]
+    out = []
+    for pt in pts:
+        z = int.from_bytes(rng.bytes(32), "little") % (P - 1) + 1
+        out.append(tuple(c * z % P for c in pt))
+    return out
+
+
+def _plain_columns(pts):
+    return tuple(limb.ints_to_rows([pt[i] for pt in pts], "cpu") for i in range(len(pts[0])))
+
+
+def _plain_ints(coords, E):
+    return [limb.rows_to_ints(ed25519._canon(c, E)) for c in coords]
+
+
+@pytest.mark.parametrize("op", ["double", "add", "madd"])
+def test_quad_programs_on_host_match_plain_group_law(host_kernel, op):
+    """Each quad program, its rows run lane by lane, gives the plain
+    ed_double / ed_add / ed_madd's coordinates mod p exactly (the same
+    formulas), on seeded points, the identity and small-order points, each
+    against every addend of the set in turn."""
+    E = ed25519.ed_ops("cpu")
+    pts = _test_points()
+    firsts = pts if op == "double" else [p1 for p1 in pts for _ in pts]
+    seconds = pts if op == "double" else [p2 for _ in pts for p2 in pts]
+    p1 = _plain_columns(firsts)
+    if op == "double":
+        want = _plain_ints(ed25519.ed_double(p1, E), E)
+    elif op == "add":
+        want = _plain_ints(ed25519.ed_add(p1, _plain_columns(seconds), E), E)
+    else:
+        affine = [(x * pow(z, -1, P) % P, y * pow(z, -1, P) % P) for x, y, z, _ in seconds]
+        pre = [((y + x) % P, (y - x) % P, 2 * D * x * y % P) for x, y in affine]
+        want = _plain_ints(ed25519.ed_madd(p1, _plain_columns(pre), E), E)
+    kind = {"double": 0, "add": 1, "madd": 2}[op]
+    out = np.zeros(32, np.uint32)
+    for i, (pa, pb) in enumerate(zip(firsts, seconds)):
+        x, y, z, t = pb
+        cached = ((y + x) % P, (y - x) % P, 2 * D * t % P, 2 * z % P)
+        q = _words(pre[i] if op == "madd" else cached)
+        host_kernel.lib.host_point_op(kind, _words(pa).ctypes.data, q.ctypes.data, out.ctypes.data)
+        assert _ints(out) == [c[i] for c in want], (op, i)
+
+
+def test_quad_pair_decompression_on_host_matches_plain(host_kernel):
+    """A and R decompressed side by side (lanes 0 and 1): A's point, its
+    cached form and -R's cached form, and the validity of both, as the plain
+    decompress gives them, on the edge encodings paired with valid points
+    and seeded random encodings."""
+    E = ed25519.ed_ops("cpu")
+    rng = np.random.default_rng(0x5EC)
+    base = ref._compress(ref.BASE)
+    encs = list(EDGE_ENCODINGS.values()) + [rng.bytes(32) for _ in range(12)]
+    pairs = [(e, base) for e in encs] + [(base, e) for e in encs] + [(encs[i], encs[-1 - i]) for i in range(len(encs))]
+    def plain(encs):  # one batch of the plain decompress: canonical coordinates, valid
+        ys = [int.from_bytes(e, "little") for e in encs]
+        pt, valid = ed25519.decompress(
+            limb.ints_to_rows([y & ((1 << 255) - 1) for y in ys], "cpu"), torch.tensor([y >> 255 for y in ys]), E
+        )
+        return list(zip(*_plain_ints(pt, E))), valid.tolist()
+
+    (r_pts, r_ok), (a_pts, a_ok) = plain([r for r, _ in pairs]), plain([a for _, a in pairs])
+    out = np.zeros(96, np.uint32)
+    for i, (r_enc, a_enc) in enumerate(pairs):
+        row = np.frombuffer(r_enc + bytes(32) + a_enc + bytes(32), np.uint8).copy()
+        ok = host_kernel.lib.host_decompress_pair(row.ctypes.data, out.ctypes.data)
+        assert bool(ok) == (a_ok[i] and r_ok[i]), (r_enc.hex(), a_enc.hex())
+        if not ok:
+            continue
+        (x, y, z, t), (rx, ry, _, rt) = a_pts[i], r_pts[i]
+        assert _ints(out) == [
+            x, y, z, t, (y + x) % P, (y - x) % P, 2 * D * t % P, 2,
+            (ry - rx) % P, (ry + rx) % P, -2 * D * rt % P, 2,
+        ], (r_enc.hex(), a_enc.hex())
+
+
+def test_quad_rows_have_no_hazards(host_kernel):
+    """No row of any program writes a slot that another op of the row reads
+    or writes, so the quad's lanes may run a row in any order."""
+    rows = ctypes.c_int(0)
+    assert host_kernel.lib.host_row_hazards(ctypes.byref(rows)) == 0
+    assert rows.value > 280  # every program's rows were read

@@ -177,7 +177,8 @@ def test_field_ops_match_the_plain_fields(field_op, kind):
 @pytest.mark.parametrize("name", ["secp256k1_recover", "secp256k1_verify", "sm2_verify", "ed25519_verify"])
 def test_kernel_launch_design(name):
     """One warp a block with up to 255 registers a thread, the lanes' slots
-    in dynamic shared memory whose size is set before the launch, every
+    in dynamic shared memory whose size is set before the launch (Ed25519:
+    a signature's slots, a quad of lanes each, 8 signatures a block), every
     CUDA error of the entry point returned, the group law run as field-op
     programs and nothing out of line."""
     src = _kernels.SOURCES[name].read_text()
@@ -192,7 +193,8 @@ def test_kernel_launch_design(name):
     slot_words = {"secp256k1_verify": "VERIFY_SLOT_WORDS", "ed25519_verify": "ED25519_SLOT_WORDS"}.get(
         name, "SLOT_WORDS"
     )
-    assert re.search(rf"#define\s+\w+_SMEM_BYTES\s+\({slot_words} \* 4 \* \w+_THREADS\)", src)
+    per_block = "ED25519_SIGS" if name == "ed25519_verify" else r"\w+_THREADS"
+    assert re.search(rf"#define\s+\w+_SMEM_BYTES\s+\({slot_words} \* 4 \* {per_block}\)", src)
     assert "S_TAB, S_COUNT = S_TAB + 45" in headers and "#define SLOT_WORDS (S_COUNT * 8)" in headers
     if name == "secp256k1_verify":
         assert "#define VERIFY_TAB 16" in src and "#define VERIFY_SLOTS (S_TAB + 3 * VERIFY_TAB)" in src
@@ -202,6 +204,10 @@ def test_kernel_launch_design(name):
         assert "#define ED25519_SLOT_WORDS (ED25519_SLOTS * 8)" in src
         # the ladder runs every step through one call site of fop_run
         assert src.count("fop_run<Ed25519Field>(") == 1 and "ed_run(at, len, sl, stride);" in src
+        # a quad of lanes a signature; the warp, converged, syncs whole, never the block
+        assert "#define ED25519_SIGS (ED25519_THREADS / 4)" in src
+        assert "__syncwarp()" in src
+        assert src.count("__syncthreads()") == 1  # the comb's load, before any quad diverges
     launch = src[src.index(f'extern "C" int {name}_launch'):]
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in launch
     assert launch.count("err = ") == launch.count("if (err != cudaSuccess) return (int)err;") == 3
