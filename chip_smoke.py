@@ -31,15 +31,19 @@ exits non-zero, printing no result, without them. In order it:
    times the kernel, its plain version, ``sm2.verify_batch``,
    ``admit_batch_sm``, its stages and the card's busy time in one profiled
    call;
-6. the hash kernels (keccak-256, SM3): the packed form of each held
-   against its plain version and the host oracle (the port's ``crypto/ref``
-   hashes) on every lane of a seeded mixed block of 4,096 messages of 0-700
-   bytes (every padding edge included), of ``[B, 64]`` and ``[B, 210]`` row
+6. the hash kernels (keccak-256, SM3, SHA-256): the packed form of each
+   held against its plain version and the host oracle (the port's
+   ``crypto/ref`` hashes, hashlib for SHA-256) on every lane of a seeded
+   mixed block of 4,096 messages of 0-700 bytes (every padding edge
+   included), of ``[B, 64]`` and ``[B, 210]`` row
    blocks, of the mixed block with shuffled starts, with starts off 16-byte
    alignment and of a block whose warps' spans exceed the staging buffer
    (how many warps staged and how many read directly is printed), and of
    the 10,240 97-byte payloads, which also time each kernel, its plain
-   version and its bound; each form held against its plain version on
+   version and its bound (SHA-256, which no admission path runs: the mixed
+   block tiled to 10,240 lanes and a merkle level of 10,240 512-byte
+   groups, each at 32, 4,224 and 10,240 lanes); each form held against its
+   plain version on
    every lane: keccak's tx-hash form on the mixed block, the sender forms
    on the EC blocks' keys (zero keys and not-ok lanes included), SM3's e
    form on the SM2 mixed block for user IDs of 0, 1, 16, 53 and 300 bytes
@@ -88,8 +92,31 @@ exits non-zero, printing no result, without them. In order it:
    its host challenges); drives ``Ed25519Crypto`` on the card, as
    ``Ed25519QCScheme.verify_cert`` does, ``batch_verify`` and
    ``batch_recover`` at the same sizes, counted, equal to the ops entry
-   point and the oracle, and timed;
-9. with ``--parent DIR`` (another checkout, for example the parent commit
+   point and the oracle, and timed. The suite and Ed25519 calls of phases
+   7-8 ride the DevicePlane, the default path, and are timed in turns
+   with their direct calls (``FISCO_DEVICE_PLANE=0``);
+9. the DevicePlane (``run_plane_phase``): every routed seam (the three
+   hashes and their address forms, secp256k1 and SM2 verify and recover,
+   Ed25519 verify, both admissions, each hasher's ``merkle_tree``) with
+   callers of 1, 4, 7, 100 and 1,000 lanes of the mixed blocks released
+   together, the first inside ``torch.cuda.stream`` of a stream of its
+   own: one dispatch (``stats()``) making one call's launches, each
+   caller's bytes equal to its own direct call's; each hasher's caller
+   alone on a stream of its own while the worker's stream sleeps before the
+   launch, equal to the oracle (with a control copy that skips the event
+   and reads stale bytes); a lone QC check (4 and 7 lanes), 4-lane
+   secp256k1 ``batch_verify`` and 10,240-tx ``admit_batch`` direct and
+   through the plane at windows of 0, 0.25, 0.5, 1 and 2 ms, in turns, and
+   the lone QC check by segment (to enqueue, to dispatch and the lag past
+   the window, the dispatch, to return) with this host's timed waits; 4,
+   16 and 64 concurrent callers of 4-lane ``batch_verify`` on each curve
+   and of 64-tx ``admit_batch``, serial direct against merged, in turns,
+   with each caller's p50 and p99 and the dispatches; a QC check in the
+   consensus lane and in the admission lane behind a 10,240-tx admission
+   in flight and 64 small admissions queued, starvation off, then with a
+   20 ms starvation rule that the small admissions pass: the dispatches'
+   order and each queue's age at release;
+10. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
@@ -99,14 +126,16 @@ exits non-zero, printing no result, without them. In order it:
    stages as the parent composes them (its packed hash kernel and the
    torch ops around it) and as this checkout does, in turns parent, new,
    new, parent;
-10. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
+11. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
    the cycles one warp spends on each field op and group-law op, on an
    inversion mod n (Fermat and safegcd divsteps) and on an SM2 product as
    the loop body around it grows (``clock64()``);
-11. prints every figure beside the card's name and power limit, one JSON
-   line describing every kernel, and last the JSON result line.
+12. prints every figure beside the card's name and power limit, one JSON
+   line describing every kernel, and last the JSON result line; the
+   DevicePlane is drained first, so no request of any phase is left
+   unanswered.
 
 After the build it prints each kernel's registers, stack and spills
 (ptxas), its size in SASS instructions (``cuobjdump``) and its launch
@@ -122,11 +151,13 @@ import argparse
 import contextlib
 import importlib.util
 import json
+import os
 import random
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -187,6 +218,12 @@ KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS + 17 * 2
 # LOP3, two more rotations and LOP3s). The chaining value's 8 XORs.
 SM3_ROUND_OPS = 1 + 2 + 1 + 1 + 1 + 1 + 2 + 2 + 2 + 3
 SM3_COMPRESS_OPS = 64 * SM3_ROUND_OPS + 52 * 7 + 8
+# SHA-256, a round: Σ1 and Σ0 (three shifts and a LOP3 each); Ch and Maj (a
+# LOP3 each); T1 (two 3-input adds of h, Σ1, Ch, K, W); e = d + T1; a = T1 +
+# Σ0 + Maj. The schedule's 48 words, 10 each (σ0 and σ1: three shifts and a
+# LOP3 each; two 3-input adds). The chaining value's 8 adds.
+SHA256_ROUND_OPS = 4 + 1 + 2 + 4 + 1 + 1 + 1
+SHA256_COMPRESS_OPS = 64 * SHA256_ROUND_OPS + 48 * 10 + 8
 
 # Each path's counted run, launches a kernel (a hash kernel's forms are
 # kernels of their own; every kernel not named must make none): keccak256 2
@@ -601,13 +638,14 @@ def plain_versions_forbidden():
     """While open, every plain hash of the port, every plain form of a hash
     kernel and every plain EC version raises: a counted path run inside it
     shows that no plain version runs on a CUDA path."""
-    from fisco_bcos_tpu_torch.ops import address, ed25519, keccak, secp256k1, sm2, sm3
+    from fisco_bcos_tpu_torch.ops import address, ed25519, keccak, secp256k1, sha256, sm2, sm3
 
     def refuse(*_args, **_kwargs):
         raise AssertionError("a plain version ran on a CUDA path")
 
     names = ((keccak, "keccak256_packed_plain"), (keccak, "keccak256_lanes"),
              (keccak, "keccak256_tx_hash_plain"), (sm3, "sm3_packed_plain"), (sm3, "sm3_blocks"),
+             (sha256, "sha256_packed_plain"), (sha256, "sha256_blocks"),
              (address, "sender_address_plain"), (address, "sm3_sender_address_plain"),
              (sm2, "e_plain"), (secp256k1, "recover_plain"), (secp256k1, "verify_plain"),
              (sm2, "verify_plain"), (ed25519, "verify_plain"), (ed25519, "verify_core"),
@@ -618,8 +656,17 @@ def plain_versions_forbidden():
     try:
         yield
     finally:
+        drain_plane()  # no dispatch of the run may see the plain versions back
         for (mod, name), fn in zip(names, saved):
             setattr(mod, name, fn)
+
+
+def drain_plane() -> None:
+    """Wait until the DevicePlane holds no request and runs no dispatch."""
+    from fisco_bcos_tpu_torch.device.plane import get_plane
+
+    if not get_plane().drain(timeout=120):
+        raise AssertionError("the DevicePlane did not drain within 120 s")
 
 
 def counted_run(fn, expected: dict, what: str):
@@ -629,6 +676,7 @@ def counted_run(fn, expected: dict, what: str):
     result, the counts a kernel)."""
     from fisco_bcos_tpu_torch.ops import _kernels
 
+    drain_plane()  # the worker launches: nothing earlier may still be counting
     _kernels.reset_launches()
     with plain_versions_forbidden():
         out = fn()
@@ -1014,7 +1062,8 @@ def kernel_row(name, source, replaces, kernel_ms, ops, io_bytes, ops_kind="int32
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         # no single PyTorch call computes ECDSA recovery, ECDSA or SM2
-        # verification, keccak-256 or SM3: nothing to time beside the kernels
+        # verification, keccak-256, SM3 or SHA-256: nothing to time beside
+        # the kernels
         "library_ms": None,
         "ops": ops,
         "ops_kind": ops_kind,
@@ -1318,8 +1367,8 @@ def log_busy(card: str, what: str, fn) -> None:
 # Hash kernels and the merkle root
 # ---------------------------------------------------------------------------
 
-HASH_KERNELS = ("keccak256", "sm3")
-HASH_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 135, 136, 137, 271, 272, 512)
+HASH_KERNELS = ("keccak256", "sm3", "sha256")
+HASH_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 119, 120, 135, 136, 137, 271, 272, 512)
 HASH_MIXED = 4096  # messages of the mixed hash block, 0-700 bytes
 MERKLE_LEAVES = (1, 16, 257, 4097, BLOCK_TXS)
 
@@ -1329,12 +1378,16 @@ def hash_fns(name: str):
     bytes takes, operations a block, JAX function replaced) of a hash
     kernel's packed form."""
     from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+    from fisco_bcos_tpu_torch.crypto.ref.sha2 import sha256 as ref_sha256
     from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3 as ref_sm3
-    from fisco_bcos_tpu_torch.ops import _kernels, keccak, sm3
+    from fisco_bcos_tpu_torch.ops import _kernels, keccak, sha256, sm3
 
     if name == "keccak256":
         return (_kernels.keccak256_packed, keccak.keccak256_packed_plain, keccak256,
                 lambda n: n // 136 + 1, KECCAK_F_OPS, "fisco_bcos_tpu/ops/keccak.py:132")
+    if name == "sha256":
+        return (_kernels.sha256_packed, sha256.sha256_packed_plain, ref_sha256,
+                lambda n: (n + 8) // 64 + 1, SHA256_COMPRESS_OPS, "fisco_bcos_tpu/ops/sha256.py:79")
     return (_kernels.sm3_packed, sm3.sm3_packed_plain, ref_sm3,
             lambda n: (n + 8) // 64 + 1, SM3_COMPRESS_OPS, "fisco_bcos_tpu/ops/sm3.py:92")
 
@@ -1488,6 +1541,54 @@ def measure_hash_kernel(name: str, payloads, device) -> dict:
     )
     row.update(max_abs_err=err, plain_ms=plain_ms, device_ms=kernel_device_ms(lambda: kernel(*args)))
     return row
+
+
+def sha256_timed_blocks(device) -> dict:
+    """SHA-256's timed blocks of 10,240 lanes, what its callers hash: the
+    mixed hash block tiled (hash_batch's messages of 0-700 bytes), and a
+    merkle level of 10,240 groups of 16 seeded nodes (512-byte messages).
+    Each is (packed args on the card, the messages)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    mixed = hash_mixed_messages()
+    tiled = [mixed[i % len(mixed)] for i in range(BLOCK_TXS)]
+    nodes = np.random.default_rng(SEED + 8).integers(0, 256, (BLOCK_TXS * 16, 32), dtype=np.uint8)
+    first = torch.arange(0, BLOCK_TXS * 16, 16, device=device)
+    level = (torch.from_numpy(nodes).to(device).reshape(-1), first * 32,
+             torch.full((BLOCK_TXS,), 512, dtype=torch.int32, device=device))
+    groups = [nodes[16 * g : 16 * g + 16].tobytes() for g in range(BLOCK_TXS)]
+    return {"mixed": (upload_packed(tiled, device), tiled), "merkle level": (level, groups)}
+
+
+def measure_sha256(card: str, device, launches: int) -> dict:
+    """The SHA-256 kernel on each of sha256_timed_blocks: == its plain
+    version == hashlib on every lane; a call (CUDA events) and the kernel
+    alone (profiler) at 32, 4,224 and 10,240 lanes, each beside its bound
+    from those messages' compressions. Returns the mixed block's row at
+    10,240 lanes, with `launches` (its path's: the merkle root)."""
+    kernel, _, _, blocks, block_ops, replaces = hash_fns("sha256")
+    rows = {}
+    for what, (args, msgs) in sha256_timed_blocks(device).items():
+        err, plain_ms = check_hash_lanes("sha256", args, msgs, f"{what} block, {BLOCK_TXS:,} lanes")
+        shown = []
+        for n in (32, 132 * 32, BLOCK_TXS):
+            part = (args[0], args[1][:n], args[2][:n])
+            row = kernel_row(
+                "sha256_packed", "fisco_bcos_tpu_torch/csrc/sha256.cu", replaces, cuda_ms(lambda: kernel(*part)),
+                sum(blocks(len(m)) for m in msgs[:n]) * block_ops,
+                io_bytes=sum(len(m) for m in msgs[:n]) + n * (8 + 4 + 32), ops_kind="int32 instructions",
+            )
+            row.update(max_abs_err=err, plain_ms=plain_ms, launches=launches,
+                       device_ms=kernel_device_ms(lambda: kernel(*part)))
+            shown.append(f"{n:,}: call {row['ms']:.4f} ms, alone {show_device_ms(row['device_ms'])}, "
+                         f"bound {row['bound_ms']:.4f} ms ({row['ops']} instructions)")
+        log(f"[{card}] sha256_packed on the {what} block: " + "; ".join(shown)
+            + f"; plain {plain_ms:.1f} ms at {BLOCK_TXS:,}")
+        rows[what] = row
+    return rows["mixed"]
 
 
 def form_inputs(block, sm_block, device) -> dict:
@@ -1695,6 +1796,23 @@ def check_three_call(card: str, suite, fused, blocks, expected: dict, fused_expe
     log_busy(card, f"{name} suite three-call admission", lambda: three_call_admission(suite, payloads, sigs))
 
 
+def plane_and_direct_ms(fn) -> list[float]:
+    """`fn` through the DevicePlane (the default path) and direct
+    (FISCO_DEVICE_PLANE=0), in turns plane, direct, direct, plane: the
+    median ms of 5 warm calls each."""
+
+    def direct():
+        with passthrough():
+            return fn()
+
+    return [host_ms(f, reps=5) for f in (fn, direct, direct, fn)]
+
+
+def show_turns(times: list[list[float]]) -> str:
+    """Per size, "plane a / b, direct c / d" of plane_and_direct_ms."""
+    return "; ".join(f"plane {t[0]:.3f} / {t[3]:.3f}, direct {t[1]:.3f} / {t[2]:.3f}" for t in times)
+
+
 def same_outputs(got, want) -> bool:
     """Arrays, or tuples of arrays, equal in shape and every element."""
     import numpy as np
@@ -1740,11 +1858,10 @@ def check_suite_batches(card: str, ecdsa, sm, verify_cases, cases, sm_cases) -> 
             if not same_outputs(got, ops_fn(n)) or not same_outputs(got, oracle(n)):
                 raise AssertionError(f"the suite's {what} != the ops entry point / host oracle at {n} lanes")
             oks.append(int((got[1] if isinstance(got, tuple) else got).sum()))
-            times.append(host_ms(lambda: suite_fn(n), reps=5))
+            times.append(plane_and_direct_ms(lambda: suite_fn(n)))
         log(f"[{card}] suite {what} == ops entry point == host oracle at "
             + " / ".join(f"{n:,}" for n in SUITE_LANES) + " lanes (" + " / ".join(map(str, oks))
-            + " ok); launches " + show_launches(counts) + " a call; " + " / ".join(f"{t:.3f}" for t in times)
-            + " ms a call")
+            + " ok); launches " + show_launches(counts) + " a call; ms a call " + show_turns(times))
 
 
 def check_suite_merkle(card: str, suites, trees: dict) -> None:
@@ -2214,11 +2331,10 @@ def check_ed25519_suite(card: str, cases, device) -> None:
             if not same_outputs(got, ops_fn(n)) or not same_outputs(got, oracle(n)):
                 raise AssertionError(f"Ed25519Crypto.{what} != the ops entry point / host oracle at {n} lanes")
             oks.append(int((got[1] if isinstance(got, tuple) else got).sum()))
-            times.append(host_ms(lambda: suite_fn(n), reps=5))
+            times.append(plane_and_direct_ms(lambda: suite_fn(n)))
         log(f"[{card}] Ed25519Crypto.{what} == ops entry point == host oracle at "
             + " / ".join(f"{n:,}" for n in ED25519_LANES) + " lanes (" + " / ".join(map(str, oks))
-            + " ok); launches " + show_launches(counts) + " a call; " + " / ".join(f"{t:.3f}" for t in times)
-            + " ms a call")
+            + " ok); launches " + show_launches(counts) + " a call; ms a call " + show_turns(times))
 
 
 def ed25519_residency(card: str, device) -> None:
@@ -2241,12 +2357,12 @@ def ed25519_residency(card: str, device) -> None:
         + ("(all resident at once)" if per_sm * sms >= geo["blocks"] else "(NOT all resident: a second wave)"))
 
 
-def run_ed25519_phase(card: str, device, parent=None) -> tuple[list, list]:
+def run_ed25519_phase(card: str, device, parent=None) -> tuple[list, list, list]:
     """Ed25519 (ROADMAP A3, B5): both kernels against their plain versions
     on a mixed and a timed block, verify_batch against the host oracle and
     counted, its stages (with `parent`, the parent's composition in turns),
     the kernels' times and rows, and the suite's Ed25519Crypto. Returns
-    (the kernels' rows, the timed block)."""
+    (the kernels' rows, the timed block, the mixed cases)."""
     from fisco_bcos_tpu_torch.ops import ed25519
 
     t0 = time.perf_counter()
@@ -2274,7 +2390,558 @@ def run_ed25519_phase(card: str, device, parent=None) -> tuple[list, list]:
     (msgs, pubs, sigs), _ = ed25519_tile(block, BLOCK_TXS)
     log_busy(card, "ed25519.verify_batch", lambda: ed25519.verify_batch(msgs, pubs, sigs))
     check_ed25519_suite(card, cases, device)
-    return list(rows), block
+    return list(rows), block, cases
+
+
+# ---------------------------------------------------------------------------
+# The DevicePlane: merged seams, the window, concurrent callers, lanes
+# ---------------------------------------------------------------------------
+
+PLANE_RAGGED = (1, 4, 7, 100, 1000)  # callers' sizes, merged into one dispatch
+PLANE_WINDOWS_MS = (0.0, 0.25, 0.5, 1.0, 2.0)
+PLANE_CALLERS = (4, 16, 64)
+PLANE_CONCURRENT_WINDOWS_MS = (0.0, 0.5, 2.0)
+PLANE_SMALL_ADMISSIONS = 64  # queued behind a 10,240-tx admit_batch under load
+PLANE_ANATOMY_CALLS = 9  # lone QC checks a window, timed by segment
+STARVED_MS, STARVED_AGE_MS = 20.0, 30.0  # the starvation case: its rule, and the small admissions' extra age
+STREAM_SLEEP_CYCLES = 60_000_000  # ~30 ms of the worker's stream asleep before a launch
+_TIMED_PLANE = None
+
+
+def timed_plane_class():
+    """The DevicePlane with each dispatch recorded in `releases`: the
+    thread that ran it, the op, each request's lane and age at release (ms),
+    the release's lag past the oldest request's window deadline (ms), the
+    oldest request's enqueue time and the dispatch's start and end (the
+    perf_counter clock)."""
+    global _TIMED_PLANE
+    if _TIMED_PLANE is None:
+        from fisco_bcos_tpu_torch.device.plane import DevicePlane
+
+        class TimedPlane(DevicePlane):
+            def __init__(self, **kw):
+                super().__init__(**kw)
+                self.releases: list[dict] = []
+
+            def _dispatch(self, op, reqs):
+                start = time.perf_counter()
+                try:
+                    super()._dispatch(op, reqs)
+                finally:
+                    self.releases.append({
+                        "thread": threading.current_thread().name, "op": op,
+                        "ages_ms": [(r.lane, (start - r.t_enq) * 1e3) for r in reqs],
+                        "lag_ms": (start - reqs[0].t_enq) * 1e3 - self.window_ms,
+                        "t_enq": reqs[0].t_enq, "start": start, "end": time.perf_counter(),
+                    })
+
+        _TIMED_PLANE = TimedPlane
+    return _TIMED_PLANE
+
+
+@contextlib.contextmanager
+def plane_installed(**kw):
+    """A fresh DevicePlane (`kw` its knobs) as the process-wide one while
+    open, its dispatches recorded (`timed_plane_class`); the one before it
+    afterwards, both drained."""
+    from fisco_bcos_tpu_torch.device import plane as plane_mod
+
+    drain_plane()
+    saved = plane_mod._PLANE
+    plane = timed_plane_class()(**kw)
+    plane_mod._PLANE = plane
+    try:
+        yield plane
+    finally:
+        if not plane.drain(timeout=120):
+            raise AssertionError("an installed DevicePlane did not drain within 120 s")
+        plane_mod._PLANE = saved
+
+
+@contextlib.contextmanager
+def passthrough():
+    """FISCO_DEVICE_PLANE=0 while open: every seam takes its direct path on
+    the caller's thread."""
+    old = os.environ.get("FISCO_DEVICE_PLANE")
+    os.environ["FISCO_DEVICE_PLANE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["FISCO_DEVICE_PLANE"]
+        else:
+            os.environ["FISCO_DEVICE_PLANE"] = old
+
+
+def concurrently(calls) -> tuple[list, list[float], float]:
+    """Each zero-argument call on a thread of its own, all released
+    together: (results, each call's ms, wall ms from the first start to the
+    last end). A call's exception is raised here."""
+    barrier = threading.Barrier(len(calls))
+    out: list = [None] * len(calls)
+    spans: list = [None] * len(calls)
+
+    def worker(i):
+        barrier.wait()
+        t0 = time.perf_counter()
+        try:
+            out[i] = calls[i]()
+        except BaseException as e:  # noqa: BLE001 - raised on the main thread below
+            out[i] = e
+        spans[i] = (t0, time.perf_counter())
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for o in out:
+        if isinstance(o, BaseException):
+            raise o
+    wall = (max(e for _, e in spans) - min(s for s, _ in spans)) * 1e3
+    return out, [(e - s) * 1e3 for s, e in spans], wall
+
+
+def on_stream(fn):
+    """`fn` run inside torch.cuda.stream of a stream of its own (not the
+    default one): a caller whose downloads must follow the worker's
+    launches by the event the resolvers wait on, not by the default
+    stream."""
+    import torch
+
+    def run():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            return fn()
+
+    return run
+
+
+def plane_seams(device, cases, verify_cases, sm_cases, ed_cases) -> list[tuple]:
+    """(op, call(lo, hi), launches of one merged call) of every routed seam,
+    a call on lanes [lo, hi) of the mixed blocks (hashes: the mixed hash
+    block; keys: the recover block's, zero keys included)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto import admission, suite
+
+    msgs = hash_mixed_messages()
+    _, rec_sigs, picked = tile(cases, BLOCK_TXS)
+    payloads = [c[0] for c in picked]
+    _, _, rec_pubs, rec_hashes = expected_admission(picked)
+    hashes, rs, ss, pubs, _ = verify_arrays(verify_cases, BLOCK_TXS)
+    sigs65 = np.concatenate([rs, ss, np.zeros((BLOCK_TXS, 1), np.uint8)], axis=1)
+    sm_payloads, sigs128, sm_picked = sm2_tile(sm_cases, BLOCK_TXS)
+    _, _, _, sm_hashes = expected_admission_sm(sm_picked)
+    (ed_msgs, ed_pubs, ed_sigs), _ = ed25519_tile(ed_cases, BLOCK_TXS)
+    secp, sm2_impl, ed = (cls(device) for cls in (suite.Secp256k1Crypto, suite.SM2Crypto, suite.Ed25519Crypto))
+    seams = []
+    for name, cls in (("keccak256", suite.Keccak256), ("sm3", suite.SM3), ("sha256", suite.Sha256)):
+        impl = cls(device)
+        sender = {"keccak256": "keccak256_sender", "sm3": "sm3_sender", "sha256": "sha256_packed"}[name]
+        seams += [
+            (f"hash.{name}", lambda lo, hi, impl=impl: impl.hash_batch(msgs[lo:hi]), {f"{name}_packed": 1}),
+            (f"address.{name}", lambda lo, hi, impl=impl: impl.address_batch(rec_pubs[lo:hi]), {sender: 1}),
+        ]
+    seams += [
+        ("verify.secp256k1", lambda lo, hi: secp.batch_verify(hashes[lo:hi], pubs[lo:hi], sigs65[lo:hi]),
+         {"secp256k1_verify": 1}),
+        ("recover.secp256k1", lambda lo, hi: secp.batch_recover(rec_hashes[lo:hi], rec_sigs[lo:hi]),
+         {"secp256k1_recover": 1}),
+        ("verify.sm2", lambda lo, hi: sm2_impl.batch_verify(sm_hashes[lo:hi], sigs128[lo:hi, 64:], sigs128[lo:hi]),
+         SM2_VERIFY_LAUNCHES),
+        ("recover.sm2", lambda lo, hi: sm2_impl.batch_recover(sm_hashes[lo:hi], sigs128[lo:hi]),
+         SM2_VERIFY_LAUNCHES),
+        ("verify.ed25519", lambda lo, hi: ed.batch_verify(ed_msgs[lo:hi], ed_pubs[lo:hi], ed_sigs[lo:hi]),
+         ED25519_VERIFY_LAUNCHES),
+        ("admission", lambda lo, hi: admission.admit_batch(payloads[lo:hi], rec_sigs[lo:hi], device=device),
+         ADMIT_LAUNCHES),
+        ("admission_sm", lambda lo, hi: admission.admit_batch_sm(sm_payloads[lo:hi], sigs128[lo:hi], device=device),
+         ADMIT_SM_LAUNCHES),
+    ]
+    return seams
+
+
+def check_plane_seams(card: str, device, cases, verify_cases, sm_cases, ed_cases) -> None:
+    """Every routed seam: callers of PLANE_RAGGED lanes, released together,
+    merged into one dispatch (stats()) that makes one call's launches
+    (counted_run), each caller's result equal byte for byte to its own
+    direct call (FISCO_DEVICE_PLANE=0); the first caller runs on a stream
+    of its own. Then each suite's merkle_tree over ragged leaf counts: one
+    dispatch, a tree a request, equal to the direct trees."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto import suite
+
+    bounds = np.cumsum((0,) + PLANE_RAGGED).tolist()
+    spans = list(zip(bounds[:-1], bounds[1:]))
+    seams = plane_seams(device, cases, verify_cases, sm_cases, ed_cases)
+    for op, call, launches in seams:
+        with passthrough():
+            direct = [call(lo, hi) for lo, hi in spans]
+        calls = [lambda lo=lo, hi=hi: call(lo, hi) for lo, hi in spans]
+        calls[0] = on_stream(calls[0])
+        with plane_installed(window_ms=60_000, high_water=bounds[-1], starvation_ms=60_000) as plane:
+            (merged, _, _), _ = counted_run(lambda: concurrently(calls), launches, f"merged {op}")
+            stats = plane.stats()
+        if stats["dispatches"] != 1 or stats["merged_requests"] != len(spans):
+            raise AssertionError(f"{op}: {len(spans)} callers were not merged into one dispatch: {stats}")
+        for (lo, hi), got, want in zip(spans, merged, direct):
+            if not same_outputs(got, want):
+                raise AssertionError(f"{op}: the merged caller of lanes [{lo}, {hi}) != its direct call")
+    log(f"[{card}] DevicePlane: every seam ({', '.join(op for op, _, _ in seams)}) "
+        f"with callers of {' / '.join(map(str, PLANE_RAGGED))} lanes released together, the first on a stream "
+        f"of its own: one dispatch, one call's launches, each caller == its direct call byte for byte")
+    gen = np.random.default_rng(SEED + 9)
+    sizes = [max(n, 2) for n in PLANE_RAGGED]  # one leaf takes the direct path, as in JAX
+    forests = [gen.integers(0, 256, (n, 32), dtype=np.uint8) for n in sizes]
+    for name, cls in (("keccak256", suite.Keccak256), ("sm3", suite.SM3), ("sha256", suite.Sha256)):
+        suite_ = suite.CryptoSuite(cls(device), suite.Secp256k1Crypto(device))
+        with passthrough():
+            direct = [suite_.merkle_tree(leaves) for leaves in forests]
+        calls = [lambda leaves=leaves: suite_.merkle_tree(leaves) for leaves in forests]
+        calls[0] = on_stream(calls[0])
+        with plane_installed(window_ms=60_000, high_water=sum(sizes), starvation_ms=60_000) as plane:
+            trees, _, _ = concurrently(calls)
+            stats = plane.stats()
+        if stats["dispatches"] != 1:
+            raise AssertionError(f"merkle_tree.{name}: not one dispatch: {stats}")
+        for got, want in zip(trees, direct):
+            if got.root != want.root or not all(np.array_equal(a, b) for a, b in zip(got.levels, want.levels)):
+                raise AssertionError(f"merkle_tree.{name}: a merged tree != its direct build")
+    log(f"[{card}] DevicePlane: merkle_tree of each hasher over {' / '.join(map(str, sizes))} leaves released "
+        f"together: one dispatch, every tree == its direct build")
+
+
+def check_stream_order(card: str, device) -> None:
+    """A hash caller inside torch.cuda.stream of a stream of its own, alone
+    on a plane with a window (so the worker launches, on its own stream,
+    and the caller's resolver is the only one): the worker's stream sleeps
+    ~30 ms just before each launch, so the caller's download gives the
+    right digests only if it waits on the event recorded after the launch.
+    Messages no earlier call hashed, so stale bytes cannot match. The
+    control: the same slowed launch and a copy on another stream with no
+    wait, which reads the bytes from before the kernel."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import suite
+    from fisco_bcos_tpu_torch.crypto.ref import keccak as ref_keccak
+    from fisco_bcos_tpu_torch.crypto.ref import sha2 as ref_sha2
+    from fisco_bcos_tpu_torch.crypto.ref import sm3 as ref_sm3
+    from fisco_bcos_tpu_torch.ops import hash_common, keccak, sha256, sm3
+
+    gen = random.Random(SEED + 11)
+    shown = []
+    for cls, module, launch, oracle in (
+        (suite.Keccak256, keccak, "keccak256_packed", ref_keccak.keccak256),
+        (suite.SM3, sm3, "sm3_packed", ref_sm3.sm3),
+        (suite.Sha256, sha256, "sha256_packed", ref_sha2.sha256),
+    ):
+        msgs, control = ([gen.randbytes(gen.randrange(0, 300)) + b"stream order %d %d" % (k, i) for i in range(1000)]
+                         for k in range(2))
+        fast = getattr(module, launch)
+
+        def slowed(*args, fast=fast):
+            torch.cuda._sleep(STREAM_SLEEP_CYCLES)
+            return fast(*args)
+
+        setattr(module, launch, slowed)
+        try:
+            with plane_installed(window_ms=1.0) as plane:
+                with torch.cuda.stream(torch.cuda.Stream()):
+                    got = cls(device).hash_batch(msgs)
+            threads = {r["thread"] for r in plane.releases}
+            if [bytes(d) for d in got] != [oracle(m) for m in msgs] or threads != {"device-plane"}:
+                raise AssertionError(f"stream order: {cls.name} on a stream of its own != the oracle "
+                                     f"(dispatched on {threads})")
+            digests = slowed(*hash_common.upload_packed(control, device))
+            with torch.cuda.stream(torch.cuda.Stream()):
+                early = digests.cpu().numpy()
+            torch.cuda.synchronize()
+            late = digests.cpu().numpy()
+        finally:
+            setattr(module, launch, fast)
+        if [bytes(d) for d in late] != [oracle(m) for m in control]:
+            raise AssertionError(f"stream order: the control's {cls.name} launch != the oracle")
+        shown.append(f"{cls.name} == oracle on all {len(msgs):,} lanes; control "
+                     f"{int((early != late).any(axis=1).sum()):,} of {len(control):,} digests stale")
+    log(f"[{card}] stream order: a hash caller alone on a stream of its own, the worker's stream asleep "
+        f"{STREAM_SLEEP_CYCLES:,} cycles before the launch: " + "; ".join(shown)
+        + " (the control copies on another stream with no wait: stale digests show the check can fail)")
+
+
+def plane_window_anatomy(card: str, calls: dict) -> None:
+    """Where a lone 4-lane QC check's time goes at each window of
+    PLANE_WINDOWS_MS (median of PLANE_ANATOMY_CALLS warm calls, each alone
+    after a drain; at window 0 also back to back as host_ms times them,
+    beside direct calls): the call to its enqueue, the enqueue to the
+    dispatch's start (the window and the lag past it), the dispatch, and
+    its end to the caller's return; what a timed wait of each window takes
+    on this host, and what a yield of the interpreter (time.sleep(0),
+    os.sched_yield) costs there."""
+    import torch
+
+    qc = lambda: calls["Ed25519 batch_verify"](0, 4)  # noqa: E731
+    shown = []
+    for window, back_to_back in [(0.0, True)] + [(w, False) for w in PLANE_WINDOWS_MS]:
+        spans = []
+        with plane_installed(window_ms=window) as plane:
+            qc()
+            torch.cuda.synchronize()
+            plane.drain(timeout=10)
+            seen = len(plane.releases)
+            for _ in range(PLANE_ANATOMY_CALLS):
+                if not back_to_back:
+                    torch.cuda.synchronize()
+                    plane.drain(timeout=10)
+                t0 = time.perf_counter()
+                qc()
+                spans.append((t0, time.perf_counter()))
+                if back_to_back:
+                    torch.cuda.synchronize()
+            plane.drain(timeout=10)
+            rows = [((rel["t_enq"] - t0) * 1e3, (rel["start"] - rel["t_enq"]) * 1e3, rel["lag_ms"],
+                     (rel["end"] - rel["start"]) * 1e3, (t1 - rel["end"]) * 1e3, (t1 - t0) * 1e3)
+                    for (t0, t1), rel in zip(spans, plane.releases[seen:], strict=True)]
+        med = [statistics.median(r[i] for r in rows) for i in range(6)]
+        shown.append(f"window {window} ms{', back to back' if back_to_back else ''}: call {med[5]:.3f} = to enqueue "
+                     f"{med[0]:.3f} + enqueue to dispatch {med[1]:.3f} (lag past the window {med[2]:.3f}) + "
+                     f"dispatch {med[3]:.3f} + to return {med[4]:.3f}")
+    with passthrough():
+        direct = []
+        for _ in range(PLANE_ANATOMY_CALLS):
+            t0 = time.perf_counter()
+            qc()
+            direct.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    log(f"[{card}] lone QC check (4 lanes) by segment, median ms of {PLANE_ANATOMY_CALLS} (each call alone after "
+        f"a drain, or back to back as host_ms times them): " + "; ".join(shown)
+        + f"; direct, back to back, {statistics.median(direct):.3f}")
+    waits = []
+    for window in PLANE_WINDOWS_MS[1:]:
+        took = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            threading.Event().wait(window / 1e3)
+            took.append((time.perf_counter() - t0) * 1e3)
+        waits.append(f"{window} ms -> {statistics.median(took):.3f} (max {max(took):.3f})")
+    for what, fn in (("time.sleep(0)", lambda: time.sleep(0)), ("os.sched_yield()", os.sched_yield)):
+        took = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            fn()
+            took.append((time.perf_counter() - t0) * 1e3)
+        waits.append(f"{what} -> {statistics.median(took):.4f} (max {max(took):.3f})")
+    log(f"[{card}] a timed threading wait on this host, asked -> took, median ms of 20 (of 200 for the "
+        f"yields): " + "; ".join(waits))
+
+
+def plane_calls(device, block, verify_block, sm_block, ed_block) -> dict:
+    """The plane phase's calls on the timed blocks (every lane valid): each
+    (lo, hi) -> the call on lanes [lo, hi)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto import admission, suite
+
+    payloads, sigs65, _ = tile(block, BLOCK_TXS)
+    hashes, rs, ss, pubs, _ = verify_arrays(verify_block, BLOCK_TXS)
+    v_sigs = np.concatenate([rs, ss, np.zeros((BLOCK_TXS, 1), np.uint8)], axis=1)
+    _, sigs128, sm_picked = sm2_tile(sm_block, BLOCK_TXS)
+    _, _, _, sm_hashes = expected_admission_sm(sm_picked)
+    (ed_msgs, ed_pubs, ed_sigs), _ = ed25519_tile(ed_block, BLOCK_TXS)
+    secp, sm2_impl, ed = (cls(device) for cls in (suite.Secp256k1Crypto, suite.SM2Crypto, suite.Ed25519Crypto))
+    return {
+        "secp256k1 batch_verify": lambda lo, hi: secp.batch_verify(hashes[lo:hi], pubs[lo:hi], v_sigs[lo:hi]),
+        "sm2 batch_verify": lambda lo, hi: sm2_impl.batch_verify(sm_hashes[lo:hi], sigs128[lo:hi, 64:], sigs128[lo:hi]),
+        "Ed25519 batch_verify": lambda lo, hi: ed.batch_verify(ed_msgs[lo:hi], ed_pubs[lo:hi], ed_sigs[lo:hi]),
+        "admit_batch": lambda lo, hi: admission.admit_batch(payloads[lo:hi], sigs65[lo:hi], device=device),
+    }
+
+
+def all_ok(out) -> bool:
+    ok = out[1] if isinstance(out, tuple) else out
+    return bool(ok.all())
+
+
+def plane_lone_calls(card: str, calls: dict) -> None:
+    """A lone call, direct and through the plane, at each window of
+    PLANE_WINDOWS_MS, in turns direct, plane, plane, direct (median ms of 5
+    warm calls each, synchronised host clock)."""
+    lone = {
+        "QC check (Ed25519 batch_verify, 4 lanes)": lambda: calls["Ed25519 batch_verify"](0, 4),
+        "QC check (Ed25519 batch_verify, 7 lanes)": lambda: calls["Ed25519 batch_verify"](0, 7),
+        "secp256k1 batch_verify, 4 lanes": lambda: calls["secp256k1 batch_verify"](0, 4),
+        f"admit_batch, {BLOCK_TXS:,} txs": lambda: calls["admit_batch"](0, BLOCK_TXS),
+    }
+    for what, fn in lone.items():
+        if not all_ok(fn()):
+            raise AssertionError(f"{what}: a valid lane of the timed block was not ok")
+
+        def direct(fn=fn):
+            with passthrough():
+                return fn()
+
+        shown = []
+        for window in PLANE_WINDOWS_MS:
+            with plane_installed(window_ms=window):
+                turns = [host_ms(f, reps=5) for f in (direct, fn, fn, direct)]
+            shown.append(f"window {window} ms: direct {turns[0]:.3f} / {turns[3]:.3f}, plane {turns[1]:.3f} / "
+                         f"{turns[2]:.3f}")
+        log(f"[{card}] lone {what}, ms in turns: " + "; ".join(shown))
+
+
+def plane_concurrent_callers(card: str, calls: dict) -> None:
+    """k = 4, 16, 64 concurrent callers of 4-lane batch_verify on each curve
+    and of 64-tx admit_batch, each on its own lanes of the timed blocks:
+    the wall time of all k, serial direct calls against merged through the
+    plane, in turns serial, merged, merged, serial (median of 3 each), at
+    each window of PLANE_CONCURRENT_WINDOWS_MS; each caller's p50 and p99
+    and the plane's dispatches and coalesce ratio over the merged runs."""
+    import torch
+
+    for what, call in calls.items():
+        n = 64 if what == "admit_batch" else 4
+        for k in PLANE_CALLERS:
+            fns = [lambda i=i: call(i * n, i * n + n) for i in range(k)]
+
+            def serial():
+                with passthrough():
+                    t0 = time.perf_counter()
+                    outs = [f() for f in fns]
+                    torch.cuda.synchronize()
+                    return outs, (time.perf_counter() - t0) * 1e3
+
+            for window in PLANE_CONCURRENT_WINDOWS_MS:
+                with plane_installed(window_ms=window) as plane:
+                    concurrently(fns)  # warm: the worker thread is started
+                    before = plane.stats()
+                    runs = {"serial": [], "merged": []}
+                    latencies = []
+                    for kind in ("serial", "merged", "merged", "serial"):
+                        for _ in range(3):
+                            if kind == "serial":
+                                outs, wall = serial()
+                            else:
+                                outs, lat, wall = concurrently(fns)
+                                latencies += lat
+                            if not all(all_ok(o) for o in outs):
+                                raise AssertionError(f"{what}: a valid lane was not ok ({kind}, k = {k})")
+                            runs[kind].append(wall)
+                    after = plane.stats()
+                dispatches = after["dispatches"] - before["dispatches"]
+                requests = after["requests"] - before["requests"]
+                p50, p99 = (statistics.quantiles(latencies, n=100, method="inclusive")[q] for q in (49, 98))
+                s, m = (runs[kind] for kind in ("serial", "merged"))
+                log(f"[{card}] {k} concurrent {what} callers of {n} lanes, window {window} ms: all k "
+                    f"serial direct {statistics.median(s[:3]):.3f} / {statistics.median(s[3:]):.3f} ms, merged "
+                    f"{statistics.median(m[:3]):.3f} / {statistics.median(m[3:]):.3f} ms (in turns); a caller "
+                    f"p50 {p50:.3f}, p99 {p99:.3f} ms; {dispatches} dispatches for {requests} requests "
+                    f"(coalesce ratio {requests / dispatches:.2f})")
+
+
+def plane_lanes_under_load(card: str, calls: dict) -> None:
+    """A 4-lane QC check queued behind a 10,240-tx admit_batch in flight and
+    PLANE_SMALL_ADMISSIONS queued 4-tx admissions. The big dispatch is held
+    at its start until the small ones and the QC check are queued, so the
+    queue is the same in every run. With starvation off (a rule of 60 s)
+    the lanes alone order the next dispatches: the QC check in the
+    consensus lane, then in the admission lane. Then the QC check in the
+    consensus lane with a starvation rule of STARVED_MS and the small
+    admissions aged STARVED_AGE_MS more before it is queued: the starved
+    queue overtakes the lane. Each run: the dispatches after the big one in
+    order, each queue's oldest age at release, the QC check's latency from
+    its call, the big call's, and the small ones' p50 and p99."""
+    from fisco_bcos_tpu_torch.crypto import admission
+    from fisco_bcos_tpu_torch.device.plane import device_lane
+
+    qc = lambda: calls["Ed25519 batch_verify"](0, 4)  # noqa: E731
+    with passthrough():
+        idle = host_ms(qc, reps=5)
+    direct_body = admission._admit_direct
+    hold = threading.Event()
+
+    def held(payloads, sigs, dev):
+        if len(payloads) == BLOCK_TXS:
+            hold.wait()
+        return direct_body(payloads, sigs, dev)
+
+    def wait_for(cond, what):
+        deadline = time.perf_counter() + 30
+        while not cond():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"lanes under load: {what} did not happen within 30 s")
+            time.sleep(0.0001)
+
+    shown = []
+    admission._admit_direct = held
+    try:
+        for lane, starvation_ms, aged_ms in (("consensus", 60_000.0, 0.0), ("admission", 60_000.0, 0.0),
+                                             ("consensus", STARVED_MS, STARVED_AGE_MS)):
+            with plane_installed(window_ms=0, starvation_ms=starvation_ms) as plane:
+                hold.set()
+                qc(), calls["admit_batch"](0, BLOCK_TXS)  # warm
+                hold.clear()
+                spans: dict = {}
+
+                def timed(key, fn, lane_of_call=None):
+                    def run():
+                        with contextlib.ExitStack() as stack:
+                            if lane_of_call:
+                                stack.enter_context(device_lane(lane_of_call))
+                            t0 = time.perf_counter()
+                            fn()
+                            spans[key] = (time.perf_counter() - t0) * 1e3
+
+                    t = threading.Thread(target=run)
+                    t.start()
+                    return t
+
+                seen = len(plane.releases)
+                threads = [timed("big", lambda: calls["admit_batch"](0, BLOCK_TXS))]
+                wait_for(lambda: plane._busy and not plane.stats()["queue_depth"], "the big dispatch")
+                threads += [timed(i, lambda i=i: calls["admit_batch"](4 * i, 4 * i + 4))
+                            for i in range(PLANE_SMALL_ADMISSIONS)]
+                depth = 4 * PLANE_SMALL_ADMISSIONS
+                wait_for(lambda: plane.stats()["queue_depth"] == depth, "queueing the small admissions")
+                time.sleep(aged_ms / 1e3)
+                threads.append(timed("qc", qc, lane))
+                wait_for(lambda: plane.stats()["queue_depth"] == depth + 4, "queueing the QC check")
+                hold.set()
+                for t in threads:
+                    t.join()
+            after = plane.releases[seen + 1:]
+            order = [f"{r['op'].split('.')[0]} ({len(r['ages_ms'])} requests, lanes "
+                     f"{'/'.join(sorted({lane_ for lane_, _ in r['ages_ms']}))}, oldest "
+                     f"{max(a for _, a in r['ages_ms']):.3f} ms at release)" for r in after]
+            qc_first = not after[0]["op"].startswith("admission")
+            small = [v for k, v in spans.items() if isinstance(k, int)]
+            p50, p99 = (statistics.quantiles(small, n=100, method="inclusive")[q] for q in (49, 98))
+            shown.append(f"QC in the {lane} lane, starvation rule {starvation_ms:g} ms, small admissions aged "
+                         f"{aged_ms:g} ms more: {'QC' if qc_first else 'small admissions'} first; after the big "
+                         f"dispatch {', then '.join(order)}; QC {spans['qc']:.3f} ms (big {spans['big']:.3f} ms; small "
+                         f"admissions p50 {p50:.3f}, p99 {p99:.3f} ms)")
+    finally:
+        admission._admit_direct = direct_body
+        hold.set()
+    log(f"[{card}] lanes under load ({BLOCK_TXS:,}-tx admit_batch in flight, held at its start until "
+        f"{PLANE_SMALL_ADMISSIONS} 4-tx admissions and the QC check were queued): " + "; ".join(shown)
+        + f"; the QC check alone, direct, {idle:.3f} ms")
+
+
+def run_plane_phase(card: str, device, cases, verify_cases, sm_cases, ed_cases,
+                    block, verify_block, sm_block, ed_block) -> None:
+    """The DevicePlane on the card (ROADMAP A4): every seam merged and
+    equal to its direct call; a download ordered by its event; a lone call
+    at each window, and where its time goes; concurrent callers merged
+    against serial direct calls; the lanes under load, and starvation."""
+    t0 = time.perf_counter()
+    check_plane_seams(card, device, cases, verify_cases, sm_cases, ed_cases)
+    check_stream_order(card, device)
+    calls = plane_calls(device, block, verify_block, sm_block, ed_block)
+    plane_lone_calls(card, calls)
+    plane_window_anatomy(card, calls)
+    plane_concurrent_callers(card, calls)
+    plane_lanes_under_load(card, calls)
+    log(f"plane phase: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2728,6 +3395,10 @@ def main() -> int:
                    max_abs_err=max(row["max_abs_err"], hash_errs[row["name"]]))
         log_kernel(card, row)
         hash_rows.append(row)
+    sha_row = measure_sha256(card, device, merkle_launches["sha256_packed"])
+    sha_row["max_abs_err"] = max(sha_row["max_abs_err"], hash_errs["sha256_packed"])
+    log_kernel(card, sha_row)
+    hash_rows.append(sha_row)
     forms = form_inputs(block, sm_block, device)
     path_launches = {k: v for counts in (launches, sm_launches) for k, v in counts.items() if v}
     for row in measure_hash_forms(forms, path_launches):
@@ -2739,7 +3410,10 @@ def main() -> int:
     run_suite_phase(card, block, cases, sm_block, sm_cases, verify_cases, merkle_trees)
 
     # -- Ed25519: the kernel, verify_batch, the suite's Ed25519Crypto --
-    ed_rows, ed_block = run_ed25519_phase(card, device, parent)
+    ed_rows, ed_block, ed_cases = run_ed25519_phase(card, device, parent)
+
+    # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
+    run_plane_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block, verify_block, sm_block, ed_block)
 
     timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block)
     if parent:
@@ -2749,6 +3423,7 @@ def main() -> int:
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
     field_bench(card, bench_libs)
 
+    drain_plane()  # every request of every phase answered: a failed one has raised
     rows = (recover, verify, sm2_row, *hash_rows, *ed_rows)
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))
     log(json.dumps({

@@ -23,6 +23,11 @@ from the digests and key limbs), so no torch op runs between the launches:
 ``admit_batch`` is keccak256 2 + secp256k1_recover 1 launches,
 ``admit_batch_sm`` sm3 3 + sm2_verify 1. Invalid lanes never raise — they
 lower a validity bit.
+
+Both entry points ride the DevicePlane (``admission.<device>``,
+``admission_sm.<device>``): concurrent callers' transactions merge into one
+run of the body, sliced back a caller; ``FISCO_DEVICE_PLANE=0`` runs the
+same body on the caller's thread.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..ops import keccak, secp256k1, sm2, sm3
 from ..ops.address import sender_address_device, sm3_sender_address_device
 from ..ops.bigint import bytes_be_to_limbs
 from ..ops.hash_common import bucket_batch, pack_messages, pad_rows
+from .suite import _routed
 
 
 def admission_core(data, starts, lengths, r, s, v):
@@ -64,6 +70,15 @@ def _unpack(packed: torch.Tensor, n: int):
     return out[:, :20], out[:, 20] != 0, out[:, 21:85], out[:, 85:117]
 
 
+def _signature_rows(payloads, sigs, width: int) -> np.ndarray:
+    """The signatures as [B, width] uint8 rows, one a payload; another count
+    raises: merged with other callers' rows, they would not line up."""
+    sigs = np.asarray(sigs, dtype=np.uint8).reshape(-1, width)
+    if len(sigs) != len(payloads):
+        raise ValueError(f"{len(payloads)} payloads against {len(sigs)} signatures")
+    return sigs
+
+
 def admit_batch(
     payloads, sigs65, device=None
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -76,6 +91,13 @@ def admit_batch(
     sender of the zero key, right160(keccak(0^64)), as the JAX device
     program does."""
     dev = resolve_device(device)
+    payloads = list(payloads)
+    sigs65 = _signature_rows(payloads, sigs65, 65)
+    return _routed(f"admission.{dev}", (payloads, sigs65), len(payloads),
+                   lambda p, s: _admit_direct(p, s, dev))
+
+
+def _admit_direct(payloads, sigs65, dev):
     host = host_inputs(payloads, sigs65)
     packed = _admission_packed(*(torch.from_numpy(a).to(dev) for a in host))
     return _unpack(packed, len(payloads))
@@ -151,6 +173,13 @@ def admit_batch_sm(
     dev = resolve_device(device)
     if not len(payloads):
         return _unpack(torch.zeros((0, 117), dtype=torch.uint8), 0)
+    payloads = list(payloads)
+    sigs128 = _signature_rows(payloads, sigs128, 128)
+    return _routed(f"admission_sm.{dev}", (payloads, sigs128), len(payloads),
+                   lambda p, s: _admit_sm_direct(p, s, dev))
+
+
+def _admit_sm_direct(payloads, sigs128, dev):
     host = host_inputs_sm(payloads, sigs128)
     packed = pack_admission_device(
         *admission_sm_core(*(torch.from_numpy(a).to(dev) for a in host))

@@ -9,9 +9,19 @@ Each suite is bound to one device when it is built (:func:`ecdsa_suite`,
 no device named and no CUDA, building it raises. Every batch call of the
 suite and of its implementations runs there, whatever the batch's size, so
 on the card a batch reaches the kernels or an exception; ``device="cpu"``
-runs their plain PyTorch versions. There is no host cutover, no breaker and
-no DevicePlane coalescing (ROADMAP A4): a batch of 4 signatures takes the
-kernel as a block of 10,240 does.
+runs their plain PyTorch versions. There is no host cutover and no breaker.
+
+Every batch seam goes through the DevicePlane (``device/plane.py``), as the
+JAX suite's do: a routed entry validates its batch and resolves its device
+on the caller's thread, then submits it under an op name that carries the
+device (``hash.keccak256.cuda:0``, ``verify.secp256k1.cpu``, ...), and the
+plane's executor merges every request queued under that name into one call
+of the direct body (``_batch_async_direct``, ``_address_direct``,
+``_verify_merged``, ``_recover_merged``), slicing the result back a
+request. ``FISCO_DEVICE_PLANE=0`` calls the same direct body on the
+caller's thread, so the two modes give the same bytes. ``merkle_tree``
+rides the plane a tree a request; ``merkle_root_async`` and Ed25519's
+``batch_recover`` (which calls ``batch_verify``) stay direct, as in JAX.
 
 Single-item calls (``hash``, ``generate_keypair``, ``sign``, ``verify``,
 ``recover``, ``calculate_address``) run on the host through the port's
@@ -19,27 +29,31 @@ Single-item calls (``hash``, ``generate_keypair``, ``sign``, ``verify``,
 native core; both give the same bytes (RFC 6979 nonces; RFC 8032 for
 Ed25519). ``Ed25519Crypto`` is the signature scheme of the QC certificates
 (``consensus/qc.py``); its batch verify runs the Ed25519 challenge and
-verify kernels on the suite's device. SHA-256 and Poseidon are not ported
-(ROADMAP A5, A6): ``hash_impl_by_name`` raises for them.
+verify kernels on the suite's device. Poseidon is not ported (ROADMAP A6):
+``hash_impl_by_name`` raises for it.
 """
 
 from __future__ import annotations
 
 import secrets
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..device.plane import get_plane, plane_route, plane_wait, plane_wait_deferred
 from ..ops import ed25519 as ed_ops
 from ..ops import keccak as keccak_ops
 from ..ops import merkle as merkle_ops
 from ..ops import secp256k1 as secp_ops
+from ..ops import sha256 as sha256_ops
 from ..ops import sm2 as sm2_ops
 from ..ops import sm3 as sm3_ops
 from ..ops.address import sender_address_device, sm3_sender_address_device
 from ..ops.bigint import limb_tensor
+from ..ops.hash_common import rows_as_packed
 from ..ops.merkle import hasher_fns
 from .ref import ecdsa as ref_ecdsa
 from .ref import ed25519 as ref_ed25519
@@ -52,6 +66,72 @@ def right160(b: bytes) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# DevicePlane executors
+# ---------------------------------------------------------------------------
+
+
+def _slices(reqs) -> list[tuple[int, int]]:
+    """Each request's [lo, hi) in the merged batch."""
+    bounds = np.cumsum([0] + [r.n for r in reqs]).tolist()
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _take(out, lo: int, hi: int):
+    return tuple(x[lo:hi] for x in out) if isinstance(out, tuple) else out[lo:hi]
+
+
+def _merged_plane_exec(body):
+    """The executor of a seam whose payload is a tuple of batch arguments
+    (arrays or lists, one row an item): each argument joined across the
+    queued requests, one call of `body` on the merged batch, its output (an
+    array or a tuple of arrays) sliced back a request. The port of JAX
+    ``_verify_plane_exec``, ``_verify_plane_exec_lists``,
+    ``_recover_plane_exec`` and ``admission._admission_plane_exec``."""
+
+    def run(reqs):
+        if len(reqs) == 1:  # nothing to join or slice
+            return [body(*reqs[0].payload)]
+        merged = [
+            np.concatenate(parts, axis=0) if isinstance(parts[0], np.ndarray) else [x for p in parts for x in p]
+            for parts in zip(*(r.payload for r in reqs))
+        ]
+        out = body(*merged)
+        return [_take(out, lo, hi) for lo, hi in _slices(reqs)]
+
+    return run
+
+
+def _routed(op: str, payload: tuple, n: int, body):
+    """``body(*payload)``: through the DevicePlane under `op` when routing is
+    on and the batch holds items, else on this thread."""
+    if plane_route() and n:
+        return plane_wait(get_plane().submit(op, payload, n, _merged_plane_exec(body)))
+    return body(*payload)
+
+
+def _hash_plane_exec(batch_async_direct):
+    """The executor of a hash op (JAX ``_hash_plane_exec``): every queued
+    request's messages in one launch, dispatched without a download, and a
+    resolver a request that downloads the merged digests once (whichever
+    caller resolves first) and takes its slice."""
+
+    def run(reqs):
+        resolve = batch_async_direct([m for r in reqs for m in r.payload])
+        memo: list = []
+        lock = threading.Lock()
+
+        def realize():
+            with lock:
+                if not memo:
+                    memo.append(resolve())
+                return memo[0]
+
+        return [lambda lo=lo, hi=hi: realize()[lo:hi] for lo, hi in _slices(reqs)]
+
+    return run
+
+
+# ---------------------------------------------------------------------------
 # Hash implementations
 # ---------------------------------------------------------------------------
 
@@ -61,7 +141,9 @@ class HashImpl:
 
     ``device`` is where the batch calls run; None means the CUDA card,
     resolved at each call (raising without one). ``hash_batch(_async)`` may
-    name another device for itself."""
+    name another device for itself. The batch calls ride the DevicePlane
+    (``hash.<name>.<device>``, ``address.<name>.<device>``) over the direct
+    bodies ``_batch_async_direct`` and ``_address_direct``."""
 
     name: str = ""
 
@@ -79,21 +161,37 @@ class HashImpl:
         return self.hash_batch_async(msgs, device)()
 
     def hash_batch_async(self, msgs, device=None):
-        """Dispatch the batch, defer the sync: () -> [B, 32] uint8."""
+        """Dispatch the batch, defer the download: () -> [B, 32] uint8.
+        Through the plane, concurrent callers' messages share one launch."""
+        msgs = list(msgs)
+        dev = self._device(device)
+        if plane_route() and msgs:
+            fut = get_plane().submit(
+                f"hash.{self.name}.{dev}", msgs, len(msgs),
+                _hash_plane_exec(lambda m: self._batch_async_direct(m, dev)),
+            )
+            return lambda: plane_wait_deferred(fut)
+        return self._batch_async_direct(msgs, dev)
+
+    def _batch_async_direct(self, msgs: list, dev: torch.device):
+        """One launch of the packed kernel on `dev`: () -> [B, 32] uint8."""
         raise NotImplementedError
 
     def address_batch(self, pubs) -> np.ndarray:
         """right160(H(key)) of each [B, 64] uint8 public key x ‖ y ->
-        [B, 20] uint8: one launch of the hash kernel's sender form, which
-        builds each message from the keys' limbs. Every lane is hashed, the
-        zero key too."""
+        [B, 20] uint8. Every lane is hashed, the zero key too."""
         dev = resolve_device(self.device)
         pubs = np.asarray(pubs, dtype=np.uint8)
         if pubs.ndim != 2 or pubs.shape[1] != 64:
             raise ValueError(f"public keys must be [B, 64] uint8, got {pubs.shape}")
-        n = len(pubs)
-        if not n:
+        if not len(pubs):
             return np.zeros((0, 20), dtype=np.uint8)
+        return _routed(f"address.{self.name}.{dev}", (pubs,), len(pubs), lambda p: self._address_direct(p, dev))
+
+    def _address_direct(self, pubs: np.ndarray, dev: torch.device) -> np.ndarray:
+        """One launch of the hash kernel's sender form, which builds each
+        message from the keys' limbs."""
+        n = len(pubs)
         qx, qy = limb_tensor(pubs[:, :32], n, dev), limb_tensor(pubs[:, 32:], n, dev)
         return self._sender(qx, qy)[0].cpu().numpy()
 
@@ -104,8 +202,8 @@ class HashImpl:
 class Keccak256(HashImpl):
     name = "keccak256"
 
-    def hash_batch_async(self, msgs, device=None):
-        return keccak_ops.keccak256_batch_async(list(msgs), self._device(device))
+    def _batch_async_direct(self, msgs, dev):
+        return keccak_ops.keccak256_batch_async(msgs, dev)
 
     def _sender(self, qx, qy):
         return sender_address_device(qx, qy)
@@ -114,15 +212,29 @@ class Keccak256(HashImpl):
 class SM3(HashImpl):
     name = "sm3"
 
-    def hash_batch_async(self, msgs, device=None):
-        return sm3_ops.sm3_batch_async(list(msgs), self._device(device))
+    def _batch_async_direct(self, msgs, dev):
+        return sm3_ops.sm3_batch_async(msgs, dev)
 
     def _sender(self, qx, qy):
         every = torch.ones(qx.shape[0], dtype=torch.bool, device=qx.device)
         return sm3_sender_address_device(qx, qy, every)
 
 
-_HASH_IMPLS: dict[str, type[HashImpl]] = {"keccak256": Keccak256, "sm3": SM3}
+class Sha256(HashImpl):
+    name = "sha256"
+
+    def _batch_async_direct(self, msgs, dev):
+        return sha256_ops.sha256_batch_async(msgs, dev)
+
+    def _address_direct(self, pubs, dev):
+        """One launch of the packed kernel over the keys as 64-byte rows,
+        bytes 12..31 of each digest (JAX ``calculate_address_batch``): the
+        kernel has no sender form."""
+        digests = sha256_ops.sha256_packed(*rows_as_packed(torch.tensor(pubs, device=dev)))
+        return digests[:, 12:].cpu().numpy()
+
+
+_HASH_IMPLS: dict[str, type[HashImpl]] = {"keccak256": Keccak256, "sm3": SM3, "sha256": Sha256}
 
 
 def hash_impl_by_name(name: str) -> HashImpl:
@@ -216,9 +328,29 @@ class SignatureCrypto:
         raise NotImplementedError
 
     def batch_verify(self, msg_hashes, pubs, sigs) -> np.ndarray:
-        raise NotImplementedError
+        """[B, 32] hashes, [B, 64] keys, [B, sig_len] signatures -> ok
+        bool[B]: ``_verify_merged`` through the DevicePlane
+        (``verify.<name>.<device>``)."""
+        dev, sigs, hashes, pubs = self._batch(sigs, msg_hashes, pubs)
+        if not len(sigs):
+            return np.zeros(0, dtype=bool)
+        return _routed(f"verify.{self.name}.{dev}", (hashes, pubs, sigs), len(sigs),
+                       lambda h, p, s: self._verify_merged(h, p, s, dev))
 
     def batch_recover(self, msg_hashes, sigs) -> tuple[np.ndarray, np.ndarray]:
+        """[B, 32] hashes, [B, sig_len] signatures -> (keys [B, 64] uint8,
+        zero where not ok, ok bool[B]): ``_recover_merged`` through the
+        DevicePlane (``recover.<name>.<device>``)."""
+        dev, sigs, hashes = self._batch(sigs, msg_hashes)
+        if not len(sigs):
+            return np.zeros((0, 64), dtype=np.uint8), np.zeros(0, dtype=bool)
+        return _routed(f"recover.{self.name}.{dev}", (hashes, sigs), len(sigs),
+                       lambda h, s: self._recover_merged(h, s, dev))
+
+    def _verify_merged(self, hashes, pubs, sigs, dev) -> np.ndarray:
+        raise NotImplementedError
+
+    def _recover_merged(self, hashes, sigs, dev) -> tuple[np.ndarray, np.ndarray]:
         raise NotImplementedError
 
 
@@ -249,21 +381,12 @@ class Secp256k1Crypto(SignatureCrypto):
         x, y = pub
         return x.to_bytes(32, "big") + y.to_bytes(32, "big")
 
-    def batch_verify(self, msg_hashes, pubs, sigs) -> np.ndarray:
-        """[B, 32] hashes, [B, 64] keys, [B, 65] signatures -> ok bool[B]
-        (v is not read), one launch of the verify kernel."""
-        dev, sigs, hashes, pubs = self._batch(sigs, msg_hashes, pubs)
-        if not len(sigs):
-            return np.zeros(0, dtype=bool)
+    def _verify_merged(self, hashes, pubs, sigs, dev) -> np.ndarray:
+        """One launch of the verify kernel (v is not read)."""
         return secp_ops.verify_batch(hashes, sigs[:, :32], sigs[:, 32:64], pubs, device=dev)
 
-    def batch_recover(self, msg_hashes, sigs) -> tuple[np.ndarray, np.ndarray]:
-        """[B, 32] hashes, [B, 65] signatures -> (keys [B, 64] uint8, ok
-        bool[B]), one launch of the recover kernel; a not-ok lane's key is
-        zero."""
-        dev, sigs, hashes = self._batch(sigs, msg_hashes)
-        if not len(sigs):
-            return np.zeros((0, 64), dtype=np.uint8), np.zeros(0, dtype=bool)
+    def _recover_merged(self, hashes, sigs, dev) -> tuple[np.ndarray, np.ndarray]:
+        """One launch of the recover kernel."""
         return secp_ops.recover_batch(hashes, sigs, device=dev)
 
 
@@ -290,21 +413,13 @@ class SM2Crypto(SignatureCrypto):
             raise ValueError("sm2 recover: carried pubkey fails verification")
         return pub
 
-    def batch_verify(self, msg_hashes, pubs, sigs) -> np.ndarray:
-        """[B, 32] hashes, [B, 64] keys, [B, 128] signatures -> ok bool[B],
-        against `pubs`, not the key a signature carries: one launch of the
+    def _verify_merged(self, hashes, pubs, sigs, dev) -> np.ndarray:
+        """Against `pubs`, not the key a signature carries: one launch of the
         SM3 kernel's e form and one of the SM2 kernel."""
-        dev, sigs, hashes, pubs = self._batch(sigs, msg_hashes, pubs)
-        if not len(sigs):
-            return np.zeros(0, dtype=bool)
         return sm2_ops.verify_batch(hashes, sigs[:, :32], sigs[:, 32:64], pubs, device=dev)
 
-    def batch_recover(self, msg_hashes, sigs) -> tuple[np.ndarray, np.ndarray]:
-        """[B, 32] hashes, [B, 128] signatures -> (the carried keys [B, 64]
-        uint8, zero where not ok, ok bool[B])."""
-        dev, sigs, hashes = self._batch(sigs, msg_hashes)
-        if not len(sigs):
-            return np.zeros((0, 64), dtype=np.uint8), np.zeros(0, dtype=bool)
+    def _recover_merged(self, hashes, sigs, dev) -> tuple[np.ndarray, np.ndarray]:
+        """The carried keys, verified: the e form and the SM2 kernel."""
         return sm2_ops.recover_batch(hashes, sigs, device=dev)
 
 
@@ -354,6 +469,10 @@ class Ed25519Crypto(SignatureCrypto):
             raise ValueError(f"ed25519: {len(msg_hashes)} messages, {len(pubs)} keys, {len(sigs)} signatures")
         if not len(sigs):
             return np.zeros(0, dtype=bool)
+        return _routed(f"verify.{self.name}.{dev}", (list(msg_hashes), list(pubs), list(sigs)), len(sigs),
+                       lambda m, p, s: self._verify_merged(m, p, s, dev))
+
+    def _verify_merged(self, msg_hashes, pubs, sigs, dev) -> np.ndarray:
         wellformed = np.array([len(p) >= 32 and len(s) >= 64 for p, s in zip(pubs, sigs)], dtype=bool)
         if not wellformed.all():
             pubs = [p if good else self._PLACEHOLDER[64:] for p, good in zip(pubs, wellformed)]
@@ -363,7 +482,8 @@ class Ed25519Crypto(SignatureCrypto):
     def batch_recover(self, msg_hashes, sigs) -> tuple[np.ndarray, np.ndarray]:
         """Messages and 96-byte signatures -> (the carried keys [B, 32]
         uint8, zero where not ok, ok bool[B]); a signature shorter than 96
-        bytes is not ok."""
+        bytes is not ok. Not routed itself: its ``batch_verify`` is (a
+        direct call on the plane's worker)."""
         wellformed = np.array([len(s) >= 96 for s in sigs], dtype=bool)
         joined = b"".join(sigs)
         if len(joined) != 96 * len(sigs) or not wellformed.all():
@@ -422,8 +542,38 @@ class CryptoSuite:
 
     def merkle_tree(self, leaves) -> merkle_ops.MerkleTree:
         """A proof-capable tree (every level kept) over ``[N, 32]`` uint8
-        leaves, hashed with this suite's hasher."""
-        return merkle_ops.MerkleTree(leaves, hasher=self.hash_impl.name, device=self.device)
+        leaves, hashed with this suite's hasher. Rides the DevicePlane as
+        ``merkle_tree.<hasher>.<device>``, a tree a request, on the caller's
+        lane. Leaves already on the card are read after an event recorded
+        here on the caller's stream."""
+        dev = resolve_device(self.device)
+        hasher = self.hash_impl.name
+        if plane_route() and len(leaves) > 1:
+            ready = None
+            if isinstance(leaves, torch.Tensor) and leaves.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(leaves.device))
+            return plane_wait(get_plane().submit(
+                f"merkle_tree.{hasher}.{dev}", (leaves, ready), len(leaves), _merkle_tree_plane_exec(hasher, dev)
+            ))
+        return merkle_ops.MerkleTree(leaves, hasher=hasher, device=dev)
+
+
+def _merkle_tree_plane_exec(hasher: str, dev: torch.device):
+    """The executor of proof-tree builds (JAX ``_merkle_tree_plane_exec``):
+    each request is a tree of its own (there is nothing sound to merge
+    across roots), built in turn on the worker behind the priority lanes."""
+
+    def run(reqs):
+        out = []
+        for r in reqs:
+            leaves, ready = r.payload
+            if ready is not None:
+                torch.cuda.current_stream(dev).wait_event(ready)
+            out.append(merkle_ops.MerkleTree(leaves, hasher=hasher, device=dev))
+        return out
+
+    return run
 
 
 def ecdsa_suite(device=None) -> CryptoSuite:

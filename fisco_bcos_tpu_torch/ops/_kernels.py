@@ -27,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from functools import lru_cache
 from pathlib import Path
@@ -42,6 +43,7 @@ SOURCES = {
     "sm2_verify": CSRC / "sm2_verify.cu",
     "keccak256": CSRC / "keccak256.cu",
     "sm3": CSRC / "sm3.cu",
+    "sha256": CSRC / "sha256.cu",
     "ed25519_verify": CSRC / "ed25519_verify.cu",
     "ed25519_challenge": CSRC / "ed25519_challenge.cu",
 }
@@ -71,6 +73,7 @@ _ENTRIES = {
     "sm3_sender": ("sm3", "sm3_sender_launch", [_P] * 5 + [_I]),
     # h, qx, qy, za, e; lanes
     "sm3_e": ("sm3", "sm3_e_launch", [_P] * 5 + [_I]),
+    "sha256_packed": ("sha256", "sha256_launch", [_P] * 5 + [_I, _LL]),
     # rows, comb, ok pointers; lanes
     "ed25519_verify": ("ed25519_verify", "ed25519_verify_launch", [_P] * 3 + [_I]),
     # rows, data, starts, lengths; messages; bytes of data
@@ -141,7 +144,9 @@ def build(name: str) -> dict:
     if out.exists():
         return {"seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")  # renamed into place when whole
+    # renamed into place when whole; named by process and thread, so two
+    # threads building one library never write one file
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
@@ -154,18 +159,32 @@ def build(name: str) -> dict:
     return {"seconds": time.perf_counter() - t0, "log": proc.stdout}
 
 
-@lru_cache(maxsize=None)
+_LIBS: dict[str, ctypes.CDLL] = {}
+# held across a library's build and load: the DevicePlane's worker and a
+# caller on the direct path may reach one library's first use together
+_LIBS_LOCK = threading.Lock()
+
+
 def _library(name: str) -> ctypes.CDLL:
-    build(name)
-    lib = ctypes.CDLL(str(library_path(name)))
-    lib.fisco_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.fisco_cuda_error_string.restype = ctypes.c_char_p
-    for library, entry, argtypes in _ENTRIES.values():
-        if library == name:
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+    """Library `name`, built and loaded at its first use (once, whichever
+    threads ask), its entry points' argtypes bound."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        build(name)
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.fisco_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fisco_cuda_error_string.restype = ctypes.c_char_p
+        for library, entry, argtypes in _ENTRIES.values():
+            if library == name:
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+        return lib
 
 
 @lru_cache(maxsize=None)
@@ -332,7 +351,8 @@ def ed25519_challenge(rows, data, starts, lengths):
 
 
 # ---------------------------------------------------------------------------
-# Hash kernels (csrc/keccak256.cu, csrc/sm3.cu): one C entry point a form
+# Hash kernels (csrc/keccak256.cu, csrc/sm3.cu, csrc/sha256.cu): one C
+# entry point a form
 # ---------------------------------------------------------------------------
 
 
@@ -378,6 +398,12 @@ def sm3_packed(data, starts, lengths, routes=None):
     """SM3 of each message of a packed batch on the card ([B, 32] uint8);
     see :func:`_packed_hash`."""
     return _packed_hash("sm3_packed", data, starts, lengths, routes)
+
+
+def sha256_packed(data, starts, lengths, routes=None):
+    """SHA-256 of each message of a packed batch on the card ([B, 32]
+    uint8); see :func:`_packed_hash`."""
+    return _packed_hash("sha256_packed", data, starts, lengths, routes)
 
 
 def keccak256_tx_hash(data, starts, lengths):

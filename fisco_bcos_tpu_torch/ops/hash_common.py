@@ -82,6 +82,26 @@ def gather_padded(data, starts, lengths, block_bytes: int, nblocks) -> torch.Ten
     return torch.nn.functional.pad(data, (0, 1))[idx].to(torch.int64)
 
 
+def md64_words(data, starts, lengths) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Merkle–Damgård padding SHA-256 and SM3 share, of each message of
+    a packed batch (data uint8 [N], starts int64 [B], lengths int32 [B]), on
+    the inputs' device: 0x80, zeros, the 64-bit big-endian bit length.
+    Returns (blocks [B, M, 16] int64 big-endian words, nblocks [B] int64),
+    M the largest block count."""
+    bsz = starts.shape[0]
+    lengths = lengths.to(torch.int64)
+    nblocks = (lengths + 8) // 64 + 1
+    buf = gather_padded(data, starts, lengths, 64, nblocks)
+    pos = torch.arange(buf.shape[1], device=data.device)
+    buf |= (pos == lengths[:, None]) * 0x80
+    # the 64-bit big-endian bit length in the last block's last 8 bytes
+    from_end = nblocks[:, None] * 64 - 1 - pos
+    in_len = (from_end >= 0) & (from_end < 8)
+    buf |= torch.where(in_len, ((lengths * 8)[:, None] >> (8 * from_end.clamp(0, 7))) & 0xFF, 0)
+    shifts = torch.tensor([24, 16, 8, 0], device=data.device)
+    return (buf.view(bsz, -1, 16, 4) << shifts).sum(-1), nblocks
+
+
 def digest_bytes(words: torch.Tensor, shifts) -> torch.Tensor:
     """[B, 8] 32-bit digest words -> [B, 32] uint8, each word's bytes taken
     at `shifts`."""
@@ -92,6 +112,25 @@ def digest_bytes(words: torch.Tensor, shifts) -> torch.Tensor:
 def upload_packed(msgs, dev) -> tuple[torch.Tensor, ...]:
     """pack_messages(msgs) as tensors on `dev`."""
     return tuple(torch.from_numpy(a).to(dev) for a in pack_messages(msgs))
+
+
+def download_later(t: torch.Tensor):
+    """A resolver () -> `t` as a numpy array, for a tensor that a kernel
+    launched on this thread's current stream writes. On the card the copy
+    waits on an event recorded here, after the launch, so it follows the
+    kernel on whatever thread and stream resolve it: the DevicePlane's
+    worker launches, the caller resolves, and a caller inside
+    ``torch.cuda.stream(s)`` copies on s."""
+    if t.device.type != "cuda":
+        return lambda: t.numpy()
+    launched = torch.cuda.Event()
+    launched.record(torch.cuda.current_stream(t.device))
+
+    def resolve():
+        torch.cuda.current_stream(t.device).wait_event(launched)
+        return t.cpu().numpy()
+
+    return resolve
 
 
 def pad_keccak(

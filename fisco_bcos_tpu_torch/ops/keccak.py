@@ -28,7 +28,7 @@ import torch
 from . import _kernels
 from ..device import resolve_device
 from .bigint import bytes_be_to_limbs_device
-from .hash_common import digest_bytes, gather_padded, upload_packed
+from .hash_common import digest_bytes, download_later, gather_padded, upload_packed
 
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -171,5 +171,4 @@ def keccak256_batch(msgs, device=None) -> np.ndarray:
 def keccak256_batch_async(msgs, device=None):
     """Dispatch the batch and defer the copy to the host: returns a resolver
     () -> [B, 32] uint8."""
-    digests = keccak256_packed(*upload_packed(msgs, resolve_device(device)))
-    return lambda: digests.cpu().numpy()
+    return download_later(keccak256_packed(*upload_packed(msgs, resolve_device(device))))

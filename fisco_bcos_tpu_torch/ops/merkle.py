@@ -25,15 +25,18 @@ import numpy as np
 import torch
 
 from ..crypto.ref.keccak import keccak256 as ref_keccak256
+from ..crypto.ref.sha2 import sha256 as ref_sha256
 from ..crypto.ref.sm3 import sm3 as ref_sm3
 from ..device import resolve_device
 from .keccak import keccak256_packed
+from .sha256 import sha256_packed
 from .sm3 import sm3_packed
 
 # hasher name -> (the packed batch hash, the host hash of one message)
 _HASHERS = {
     "keccak256": (keccak256_packed, ref_keccak256),
     "sm3": (sm3_packed, ref_sm3),
+    "sha256": (sha256_packed, ref_sha256),
 }
 
 
@@ -45,8 +48,8 @@ def hasher_fns(name: str):
         return _HASHERS[name]
     except KeyError:
         raise KeyError(
-            f"hasher {name!r} is not ported: the port carries keccak256 and sm3; "
-            "sha256 and poseidon are ROADMAP A5 and A6"
+            f"hasher {name!r} is not ported: the port carries keccak256, sm3 and "
+            "sha256; poseidon is ROADMAP A6"
         ) from None
 
 

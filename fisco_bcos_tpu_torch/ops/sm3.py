@@ -24,7 +24,7 @@ import torch
 
 from . import _kernels
 from ..device import resolve_device
-from .hash_common import digest_bytes, gather_padded, upload_packed
+from .hash_common import digest_bytes, download_later, md64_words, upload_packed
 
 _IV = [
     0x7380166F, 0x4914B2B9, 0x172442D7, 0xDA8A0600,
@@ -101,21 +101,9 @@ def sm3_packed_plain(data, starts, lengths) -> torch.Tensor:
     """The plain PyTorch version of the kernel: SM3 of each message of a
     packed batch (data uint8 [N], starts int64 [B], lengths int32 [B]) ->
     [B, 32] uint8, on the inputs' device."""
-    bsz = starts.shape[0]
-    if bsz == 0:
+    if starts.shape[0] == 0:
         return torch.empty((0, 32), dtype=torch.uint8, device=data.device)
-    lengths = lengths.to(torch.int64)
-    nblocks = (lengths + 8) // 64 + 1
-    buf = gather_padded(data, starts, lengths, 64, nblocks)
-    pos = torch.arange(buf.shape[1], device=data.device)
-    buf |= (pos == lengths[:, None]) * 0x80
-    # the 64-bit big-endian bit length in the last block's last 8 bytes
-    from_end = nblocks[:, None] * 64 - 1 - pos
-    in_len = (from_end >= 0) & (from_end < 8)
-    buf |= torch.where(in_len, ((lengths * 8)[:, None] >> (8 * from_end.clamp(0, 7))) & 0xFF, 0)
-    shifts = torch.tensor([24, 16, 8, 0], device=data.device)
-    words = (buf.view(bsz, -1, 16, 4) << shifts).sum(-1)
-    return digest_bytes(sm3_blocks(words, nblocks), (24, 16, 8, 0))
+    return digest_bytes(sm3_blocks(*md64_words(data, starts, lengths)), (24, 16, 8, 0))
 
 
 def sm3_packed(data, starts, lengths) -> torch.Tensor:
@@ -137,5 +125,4 @@ def sm3_batch(msgs, device=None) -> np.ndarray:
 def sm3_batch_async(msgs, device=None):
     """Dispatch the batch and defer the copy to the host: returns a resolver
     () -> [B, 32] uint8."""
-    digests = sm3_packed(*upload_packed(msgs, resolve_device(device)))
-    return lambda: digests.cpu().numpy()
+    return download_later(sm3_packed(*upload_packed(msgs, resolve_device(device))))

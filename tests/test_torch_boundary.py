@@ -7,6 +7,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
+import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 import fisco_bcos_tpu_torch
 from fisco_bcos_tpu_torch.crypto import admission, suite
 from fisco_bcos_tpu_torch.device import resolve_device
-from fisco_bcos_tpu_torch.ops import _kernels, ed25519, keccak, merkle, secp256k1, sm2, sm3
+from fisco_bcos_tpu_torch.ops import _kernels, ed25519, keccak, merkle, secp256k1, sha256, sm2, sm3
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -72,6 +75,8 @@ def test_importing_the_port_loads_no_jax():
     assert {
         "fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle",
         "fisco_bcos_tpu_torch.ops.ed25519", "fisco_bcos_tpu_torch.crypto.ref.ed25519",
+        "fisco_bcos_tpu_torch.device.plane", "fisco_bcos_tpu_torch.ops.sha256",
+        "fisco_bcos_tpu_torch.crypto.ref.sha2",
     } <= port
     assert not sorted(m for m in port - bare if _forbidden(m))
 
@@ -98,6 +103,10 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: sm3.sm3_batch([b"x"]),
         lambda: keccak.keccak256_batch([b"x"]),
         lambda: keccak.keccak256_batch_async([b"x"]),
+        lambda: sha256.sha256_batch([b"x"]),
+        lambda: suite.Sha256().hash_batch([b"x"]),
+        lambda: suite.Sha256().address_batch(pub),
+        lambda: merkle.merkle_root(np.zeros((3, 32), np.uint8), hasher="sha256"),
         lambda: suite.Keccak256().hash_batch([b"x"]),
         lambda: suite.SM3().hash_batch_async([b"x"]),
         lambda: merkle.merkle_root(np.zeros((3, 32), np.uint8)),
@@ -153,7 +162,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
         torch.zeros(2, dtype=torch.int64),
         torch.full((2,), 4, dtype=torch.int32),
     )
-    for wrapper in (_kernels.keccak256_packed, _kernels.sm3_packed, _kernels.keccak256_tx_hash):
+    for wrapper in (_kernels.keccak256_packed, _kernels.sm3_packed, _kernels.sha256_packed,
+                    _kernels.keccak256_tx_hash):
         with pytest.raises(ValueError):
             wrapper(*packed)
     ok = torch.ones((4,), dtype=torch.bool)
@@ -171,6 +181,43 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
     assert set(_kernels.LAUNCHES) == set(_kernels.KERNELS)
     assert set(_kernels.KERNELS.values()) == set(_kernels.SOURCES)
     assert set(_kernels.library_launches()) == set(_kernels.SOURCES)
+
+
+def test_first_use_of_a_library_builds_once_across_threads(monkeypatch):
+    """Eight threads reach a library's first use together (the DevicePlane's
+    worker and direct callers can): one build, one load, one library."""
+    builds = []
+
+    def slow_build(name):
+        builds.append(name)
+        time.sleep(0.2)
+        return {"seconds": 0.2, "log": ""}
+
+    class StubLibrary:  # an attribute appears where the loader asks for one
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    loads = []
+    monkeypatch.setattr(_kernels, "build", slow_build)
+    monkeypatch.setattr(_kernels.ctypes, "CDLL", lambda path: loads.append(path) or StubLibrary())
+    monkeypatch.setattr(_kernels, "_LIBS", {})
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first_use():
+        barrier.wait()
+        got.append(_kernels._library("sha256"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert builds == ["sha256"] and loads == [str(_kernels.library_path("sha256"))]
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+    assert got[0].sha256_launch.restype is not None  # its entry point bound once
 
 
 def test_kernel_build_is_content_addressed():
@@ -191,8 +238,8 @@ def test_library_name_follows_included_headers(tmp_path):
     digest = lambda: {n: _kernels.source_digest(csrc / f"{n}.cu") for n in names}  # noqa: E731
     before = digest()
     assert before == {n: _kernels.source_digest(_kernels.SOURCES[n]) for n in names}
-    hashes = ("keccak256", "sm3", "ed25519_challenge")
-    shared = csrc / "hash_kernel.cuh"  # included by both hash kernels' headers and the challenge kernel
+    hashes = ("keccak256", "sm3", "sha256", "ed25519_challenge")
+    shared = csrc / "hash_kernel.cuh"  # included by the hash kernels' headers and the challenge kernel
     shared.write_text(shared.read_text() + "\n// edited\n")
     after_shared = digest()
     assert all(after_shared[n] != before[n] for n in hashes)

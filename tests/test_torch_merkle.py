@@ -3,6 +3,8 @@ against the JAX package's MerkleTree, merkle_root, verify_proof and hash
 impls. On the CPU the JAX tree takes its native host route, which
 tests/test_merkle.py pins equal to its fused device program."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -112,11 +114,17 @@ def test_validation_errors():
             merkle.MerkleTree(bad, device="cpu")
     with pytest.raises(ValueError):
         merkle.merkle_root(_leaves(4), width=1, device="cpu")
-    for name in ("sha256", "poseidon", "md5"):
-        with pytest.raises(KeyError, match="ROADMAP A5 and A6"):
+    for name in ("poseidon", "md5"):
+        with pytest.raises(KeyError, match="ROADMAP A6"):
             merkle.merkle_root(_leaves(4), hasher=name, device="cpu")
-        with pytest.raises(KeyError, match="ROADMAP A5 and A6"):
+        with pytest.raises(KeyError, match="ROADMAP A6"):
             suite.hash_impl_by_name(name)
+    # SHA-256 is carried: 4 leaves are one group, bound to their count
+    assert suite.hash_impl_by_name("sha256").name == "sha256"
+    top = hashlib.sha256(_leaves(4).tobytes()).digest()
+    assert merkle.merkle_root(_leaves(4), hasher="sha256", device="cpu") == hashlib.sha256(
+        top + (4).to_bytes(8, "big")
+    ).digest()
     with pytest.raises(IndexError):
         merkle.MerkleTree(_leaves(4), device="cpu").proof(4)
 
