@@ -95,14 +95,32 @@ exits non-zero, printing no result, without them. In order it:
    point and the oracle, and timed. The suite and Ed25519 calls of phases
    7-8 ride the DevicePlane, the default path, and are timed in turns
    with their direct calls (``FISCO_DEVICE_PLANE=0``);
-9. the DevicePlane (``run_plane_phase``): every routed seam (the three
+9. Poseidon, the succinct state plane's commitment hasher
+   (``run_poseidon_phase``): the kernel on a mixed block of 4,096 seeded
+   messages of 0-700 bytes (every 31/62-byte edge included) tiled to
+   10,240 lanes, equal to its plain version on every lane and to the host
+   oracle (``crypto/ref/poseidon.py``, in worker processes) on the 4,096
+   distinct messages, with shuffled starts and 5 bytes off alignment, and
+   on a ``[4,096, 64]`` row block; the state commitment at the plane's
+   defaults, driven through the port's Poseidon suite as
+   ``StatePlane._bootstrap`` and ``preview`` drive theirs: 1,048,576
+   DAG-transfer keys in 64 pages, one ``hash_batch`` of the key blobs and
+   leaf preimages, a ``merkle_tree`` a page and the top tree (wall time;
+   counted again: one launch for the leaves and one a tree level, no plain
+   version), then one 10,240-transfer block's delta of 20,480 keys (wall
+   time); sampled lanes of every level held against the plain version,
+   one whole page tree, the top trees and sampled leaf messages against
+   the oracle; the kernel timed (a call and alone) with its bound at 32,
+   4,224 and all lanes of the mixed block, of the delta's 40,960-message
+   leaf batch and of a merkle level of 10,240 512-byte groups;
+10. the DevicePlane (``run_plane_phase``): every routed seam (the four
    hashes and their address forms, secp256k1 and SM2 verify and recover,
    Ed25519 verify, both admissions, each hasher's ``merkle_tree``) with
    callers of 1, 4, 7, 100 and 1,000 lanes of the mixed blocks released
    together, the first inside ``torch.cuda.stream`` of a stream of its
    own: one dispatch (``stats()``) making one call's launches, each
-   caller's bytes equal to its own direct call's; each hasher's caller
-   alone on a stream of its own while the worker's stream sleeps before the
+   caller's bytes equal to its own direct call's; a keccak-256, SM3 and
+   SHA-256 caller alone on a stream of its own while the worker's stream sleeps before the
    launch, equal to the oracle (with a control copy that skips the event
    and reads stale bytes); a lone QC check (4 and 7 lanes), 4-lane
    secp256k1 ``batch_verify`` and 10,240-tx ``admit_batch`` direct and
@@ -116,7 +134,7 @@ exits non-zero, printing no result, without them. In order it:
    in flight and 64 small admissions queued, starvation off, then with a
    20 ms starvation rule that the small admissions pass: the dispatches'
    order and each queue's age at release;
-10. with ``--parent DIR`` (another checkout, for example the parent commit
+11. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
@@ -126,13 +144,13 @@ exits non-zero, printing no result, without them. In order it:
    stages as the parent composes them (its packed hash kernel and the
    torch ops around it) and as this checkout does, in turns parent, new,
    new, parent;
-11. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
+12. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
    the cycles one warp spends on each field op and group-law op, on an
    inversion mod n (Fermat and safegcd divsteps) and on an SM2 product as
    the loop body around it grows (``clock64()``);
-12. prints every figure beside the card's name and power limit, one JSON
+13. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line; the
    DevicePlane is drained first, so no request of any phase is left
    unanswered.
@@ -159,7 +177,7 @@ import subprocess
 import sys
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 BLOCK_TXS = 10_240  # a 10k-tx block, bucketed as hash_common._bucket does
@@ -638,7 +656,7 @@ def plain_versions_forbidden():
     """While open, every plain hash of the port, every plain form of a hash
     kernel and every plain EC version raises: a counted path run inside it
     shows that no plain version runs on a CUDA path."""
-    from fisco_bcos_tpu_torch.ops import address, ed25519, keccak, secp256k1, sha256, sm2, sm3
+    from fisco_bcos_tpu_torch.ops import address, ed25519, keccak, poseidon, secp256k1, sha256, sm2, sm3
 
     def refuse(*_args, **_kwargs):
         raise AssertionError("a plain version ran on a CUDA path")
@@ -649,7 +667,8 @@ def plain_versions_forbidden():
              (address, "sender_address_plain"), (address, "sm3_sender_address_plain"),
              (sm2, "e_plain"), (secp256k1, "recover_plain"), (secp256k1, "verify_plain"),
              (sm2, "verify_plain"), (ed25519, "verify_plain"), (ed25519, "verify_core"),
-             (ed25519, "challenge_plain"), (ed25519, "sha512_words"), (ed25519, "challenges"))
+             (ed25519, "challenge_plain"), (ed25519, "sha512_words"), (ed25519, "challenges"),
+             (poseidon, "poseidon_packed_plain"), (poseidon, "poseidon_blocks"), (poseidon, "permute_lanes"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -1061,9 +1080,9 @@ def kernel_row(name, source, replaces, kernel_ms, ops, io_bytes, ops_kind="int32
         "ms": kernel_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        # no single PyTorch call computes ECDSA recovery, ECDSA or SM2
-        # verification, keccak-256, SM3 or SHA-256: nothing to time beside
-        # the kernels
+        # no single PyTorch call computes ECDSA recovery, ECDSA, SM2 or
+        # Ed25519 verification, keccak-256, SM3, SHA-256 or Poseidon:
+        # nothing to time beside the kernels
         "library_ms": None,
         "ops": ops,
         "ops_kind": ops_kind,
@@ -1329,24 +1348,29 @@ def sm_admission_stages(rows, device, parent=None) -> dict[str, float]:
     return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
 
 
-def kernel_device_ms(fn, reps: int = 20) -> tuple[float, int] | None:
+def kernel_device_ms(fn, reps: int = 20, tries: int = 3) -> tuple[float, int] | None:
     """The device time of one kernel launch of `fn`, without the launch:
-    the median duration of the device events in one torch.profiler trace of
+    the median duration of the device events in a torch.profiler trace of
     `reps` warm calls, and how many events the trace holds (None when it
-    holds none)."""
+    holds none). The profiler drops the device events of some traces (see
+    device_busy_ms), so up to `tries` traces are taken until one holds
+    them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"]
-    return (statistics.median(spans) / 1e3, len(spans)) if spans else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"]
+        if spans:
+            return statistics.median(spans) / 1e3, len(spans)
+    return None
 
 
 def show_device_ms(m: tuple[float, int] | None) -> str:
@@ -2394,6 +2418,408 @@ def run_ed25519_phase(card: str, device, parent=None) -> tuple[list, list, list]
 
 
 # ---------------------------------------------------------------------------
+# Poseidon: the kernel, the suite and the succinct state plane's commitment
+# ---------------------------------------------------------------------------
+
+POSEIDON_EDGE_LENGTHS = (0, 30, 31, 32, 61, 62, 63, 123, 124, 125)  # every 31/62-byte edge
+# 32-bit multiplies of the least work of a Poseidon permutation, a 32x32->64
+# word product counted as two and a low half as one: a Montgomery product's
+# 64 word products, a squaring's 36, and its REDC's 8 steps, each a factor
+# m = t_i·n0 (a low half) and m·FR (8 word products; no word of FR is 0 or 1);
+# a row of a mix sums its products before one REDC. The least form is the
+# instance's optimized one (eprint 2019/458, Appendix B), with the same output:
+# the MDS factored so that each of the 57 partial rounds mixes by a sparse
+# matrix (word 0 a row of three products, words 1 and 2 one product each: 5
+# products, 3 REDCs) and the 8 full rounds by a dense 3x3 (the last round of
+# the first half by the MDS times the factor moved out of the partial rounds,
+# no extra mix). The kernel (csrc/poseidon.cu) mixes every round densely.
+MULS_FR_REDC = 8 * (1 + 2 * 8)
+MULS_FR_MUL = 2 * 64 + MULS_FR_REDC
+MULS_FR_SQR = 2 * 36 + MULS_FR_REDC
+MULS_FR_MDS_ROW = 3 * 2 * 64 + MULS_FR_REDC
+MULS_FR_SBOX = 2 * MULS_FR_SQR + MULS_FR_MUL  # x^5 = (x^2)^2·x
+MULS_FR_SPARSE_MIX = MULS_FR_MDS_ROW + 2 * MULS_FR_MUL
+# 8 full rounds (three S-boxes, a dense mix) and 57 partial (one, a sparse mix)
+POSEIDON_PERM_MULS = (8 * 3 + 57) * MULS_FR_SBOX + 8 * 3 * MULS_FR_MDS_ROW + 57 * MULS_FR_SPARSE_MIX
+# a block: the permutation and its two elements' encoding (a product by
+# R^2 each, counted); a message: its blocks, then the squeeze (a REDC)
+POSEIDON_BLOCK_MULS = POSEIDON_PERM_MULS + 2 * MULS_FR_MUL
+POSEIDON_REPLACES = "fisco_bcos_tpu/ops/poseidon.py:127"
+# the succinct state plane at its defaults (FISCO_STATE_PAGES = 64): a
+# million-key DAG-transfer state, and one 10,240-transaction block's delta
+# (a transfer writes two balances: 20,480 keys)
+STATE_KEYS = 1 << 20
+STATE_PAGES = 64
+DAG_TABLE = b"dag_transfer"
+COMMIT_SAMPLE = 128  # lanes of each level held against the plain version
+ORACLE_SAMPLE = 1024  # rows and leaf messages held against the host oracle
+
+
+def poseidon_message_muls(n: int) -> int:
+    return (n // 62 + 1) * POSEIDON_BLOCK_MULS + MULS_FR_REDC
+
+
+def poseidon_kernel_fn(device):
+    """The Poseidon kernel's wrapper with the instance's table on `device`:
+    packed args -> [B, 32] uint8."""
+    from fisco_bcos_tpu_torch.ops import _kernels, poseidon
+
+    table = poseidon.kernel_table(device)
+    return lambda data, starts, lengths: _kernels.poseidon_packed(data, starts, lengths, table)
+
+
+def poseidon_row(kernel_ms: float, lengths) -> dict:
+    """The Poseidon kernel's line for messages of `lengths`: its bound is
+    the least multiplies they need, the bytes each message's read and its
+    digest, start and length."""
+    return kernel_row(
+        "poseidon_packed", "fisco_bcos_tpu_torch/csrc/poseidon.cu", POSEIDON_REPLACES, kernel_ms,
+        sum(map(poseidon_message_muls, lengths)), io_bytes=sum(lengths) + len(lengths) * (8 + 4 + 32),
+    )
+
+
+ORACLE_WORKERS = max(1, min(8, os.cpu_count() or 1))
+
+
+@contextlib.contextmanager
+def oracle_pool():
+    """Worker processes for the host oracle (spawned: each imports the
+    oracle's module alone), stopped when the block ends."""
+    import multiprocessing
+
+    with ProcessPoolExecutor(ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        yield pool
+
+
+def oracle_poseidon(pool, msgs) -> list[bytes]:
+    """The port's host oracle of each message, on `pool`'s workers."""
+    from fisco_bcos_tpu_torch.crypto.ref.poseidon import poseidon_hash
+
+    return list(pool.map(poseidon_hash, msgs, chunksize=max(1, len(msgs) // (4 * ORACLE_WORKERS))))
+
+
+def poseidon_mixed_messages() -> list[bytes]:
+    """Poseidon's mixed block: every 31/62-byte edge, then seeded lengths of
+    0-700 bytes (1 to 12 sponge blocks)."""
+    rng = random.Random(SEED + 12)
+    lengths = list(POSEIDON_EDGE_LENGTHS) + [
+        rng.randrange(701) for _ in range(HASH_MIXED - len(POSEIDON_EDGE_LENGTHS))
+    ]
+    return [rng.randbytes(n) for n in lengths]
+
+
+def check_poseidon_block(card: str, device, pool):
+    """The kernel on the mixed block tiled to 10,240 lanes == its plain
+    version on every lane (timed) == the oracle on the 4,096 distinct
+    messages; the same block with shuffled starts and 5 bytes off 16-byte
+    alignment == the first run lane for lane; a [4,096, 64] row block (the
+    address form's input) == plain, its first ORACLE_SAMPLE rows == oracle. Returns (largest difference,
+    plain ms, the tiled block's packed args, its messages)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import poseidon
+    from fisco_bcos_tpu_torch.ops.hash_common import rows_as_packed, upload_packed
+
+    kernel = poseidon_kernel_fn(device)
+    mixed = poseidon_mixed_messages()
+    tiled = [mixed[i % len(mixed)] for i in range(BLOCK_TXS)]
+    args = upload_packed(tiled, device)
+    got, err, plain_ms = compare_and_time(kernel, poseidon.poseidon_packed_plain, args, "poseidon",
+                                          f"mixed block, {BLOCK_TXS:,} lanes")
+    want = got.cpu().numpy()
+    t0 = time.perf_counter()
+    oracle = oracle_poseidon(pool, mixed)
+    oracle_s = time.perf_counter() - t0
+    bad = [i for i, d in enumerate(oracle) if bytes(want[i]) != d]
+    if bad:
+        raise AssertionError(f"poseidon kernel != host oracle on the mixed block, lanes {bad[:8]}")
+    data, starts, lengths = args
+    order = torch.randperm(BLOCK_TXS, generator=torch.Generator().manual_seed(SEED)).to(device)
+    shifted = torch.cat([torch.zeros(5, dtype=torch.uint8, device=device), data])
+    for what, a, lanes in (
+        ("shuffled starts", (data, starts[order].contiguous(), lengths[order].contiguous()), order.cpu().numpy()),
+        ("starts 5 bytes off 16-byte alignment", (shifted, starts + 5, lengths), np.arange(BLOCK_TXS)),
+    ):
+        if not np.array_equal(kernel(*a).cpu().numpy(), want[lanes]):
+            raise AssertionError(f"poseidon kernel on the mixed block, {what} != the same lanes in order")
+    rows = np.random.default_rng(SEED + 13).integers(0, 256, (HASH_MIXED, 64), dtype=np.uint8)
+    row_args = rows_as_packed(torch.from_numpy(rows).to(device))
+    got_rows, row_err, _ = compare_and_time(kernel, poseidon.poseidon_packed_plain, row_args, "poseidon",
+                                            f"[{HASH_MIXED}, 64] row block")
+    if [bytes(d) for d in got_rows[:ORACLE_SAMPLE].cpu().numpy()] != oracle_poseidon(
+            pool, [bytes(r) for r in rows[:ORACLE_SAMPLE]]):
+        raise AssertionError("poseidon kernel != host oracle on the row block")
+    log(f"[{card}] poseidon_packed == plain on every lane of the {BLOCK_TXS:,}-lane mixed block "
+        f"(plain {plain_ms / 1e3:.1f} s), == the host oracle on its {len(mixed):,} distinct messages "
+        f"({oracle_s:.1f} s in worker processes); shuffled and 5 bytes off alignment == the same lanes; "
+        f"[{HASH_MIXED:,}, 64] rows == plain, the first {ORACLE_SAMPLE:,} == oracle")
+    return max(err, row_err), plain_ms, args, tiled
+
+
+def dag_rows(users, balances):
+    """A DAG-transfer state's rows as the state plane hashes them, one row
+    a user (numpy, in bulk): the key blobs flat(str "dag_transfer") ‖
+    flat(bytes key), key = b"u%07d" (bench.py's userAdd names), [N, 28]
+    uint8; and the leaf preimages, blob ‖ Entry.encode() of the row
+    {"balance": 10 ASCII digits}, [N, 58] uint8 (codec/flat.py: u32
+    little-endian lengths; Entry: status u8, field count u32, name, value)."""
+    import struct
+
+    import numpy as np
+
+    def digits(v, width):  # zero-padded decimal ASCII, [N, width]
+        places = 10 ** np.arange(width - 1, -1, -1)
+        return (np.asarray(v, dtype=np.int64)[:, None] // places % 10 + 48).astype(np.uint8)
+
+    n = len(users)
+    head = np.frombuffer(struct.pack("<I", len(DAG_TABLE)) + DAG_TABLE + struct.pack("<I", 8) + b"u", np.uint8)
+    blobs = np.concatenate([np.broadcast_to(head, (n, head.size)), digits(users, 7)], axis=1)
+    entry = np.frombuffer(b"\x00" + struct.pack("<I", 1) + struct.pack("<I", 7) + b"balance" + struct.pack("<I", 10),
+                          np.uint8)
+    preimages = np.concatenate([blobs, np.broadcast_to(entry, (n, entry.size)), digits(balances, 10)], axis=1)
+    return np.ascontiguousarray(blobs), np.ascontiguousarray(preimages)
+
+
+def row_messages(*blocks) -> list[bytes]:
+    """The rows of [N, L] uint8 arrays, as one list of messages."""
+    return [bytes(r) for b in blocks for r in b]
+
+
+def tree_levels(n: int, width: int = 16) -> int:
+    """Launches of a tree of n leaves: one a level above the leaves."""
+    from fisco_bcos_tpu_torch.ops.merkle import bucket_leaves
+
+    m, k = bucket_leaves(n), 0
+    while m > 1:
+        m, k = -(-m // width), k + 1
+    return k
+
+
+def state_commitment(suite_, leaves, pages: list):
+    """The commitment as StatePlane._page_root / _top_root build it, through
+    the suite (its merkle_tree rides the DevicePlane): a tree a non-empty
+    page over its leaves in key-blob order (`pages`: each page's user
+    indices, in that order), 32 zero bytes for an empty page, then the top
+    tree over the page roots. Returns (commitment, page trees, top tree)."""
+    import numpy as np
+
+    trees, roots = [], []
+    for idx in pages:
+        tree = suite_.merkle_tree(leaves[idx]) if len(idx) else None
+        trees.append(tree)
+        roots.append(tree.root if tree is not None else bytes(32))
+    top = suite_.merkle_tree(np.frombuffer(b"".join(roots), dtype=np.uint8).reshape(-1, 32))
+    return top.root, trees, top
+
+
+def sampled_groups(trees, rng, per_level: int):
+    """(group bytes, the kernel's digest of it) of up to `per_level` seeded
+    groups of each level of `trees` (every group where a level has
+    fewer), the short last groups included."""
+    out = []
+    depth = max(len(t.levels) for t in trees if t is not None)
+    for k in range(depth - 1):
+        groups = [(t, g) for t in trees if t is not None and k + 1 < len(t.levels)
+                  for g in range(len(t.levels[k + 1]))]
+        for t, g in rng.sample(groups, min(per_level, len(groups))):
+            out.append((t.levels[k][16 * g : 16 * g + 16].tobytes(), bytes(t.levels[k + 1][g])))
+    return out
+
+
+def check_against_plain(card: str, device, pairs, what: str) -> float:
+    """(message, the kernel's digest) pairs == the plain version on the card
+    (one call over every message). Returns its ms."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import poseidon
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    t0 = time.perf_counter()
+    plain = poseidon.poseidon_packed_plain(*upload_packed([m for m, _ in pairs], device)).cpu().numpy()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    bad = [i for i, (_, d) in enumerate(pairs) if bytes(plain[i]) != d]
+    if bad:
+        raise AssertionError(f"poseidon: the {what} != the plain version at sampled lanes {bad[:8]}")
+    return ms
+
+
+def check_tree_against_oracle(pool, tree, what: str) -> None:
+    """Every level of `tree` and its bound root == the host oracle's, each
+    level's groups hashed in worker processes."""
+    from fisco_bcos_tpu_torch.crypto.ref.poseidon import poseidon_hash
+
+    for k in range(len(tree.levels) - 1):
+        level = tree.levels[k]
+        groups = [level[g : g + 16].tobytes() for g in range(0, len(level), 16)]
+        got = [bytes(d) for d in tree.levels[k + 1]]
+        if oracle_poseidon(pool, groups) != got:
+            raise AssertionError(f"poseidon: {what}, level {k + 1} != the host oracle")
+    if tree.root != poseidon_hash(tree.padded_root + tree.n.to_bytes(8, "big")):
+        raise AssertionError(f"poseidon: {what}'s bound root != the host oracle")
+
+
+def run_state_commitment(card: str, device, pool) -> tuple[dict, list]:
+    """The succinct state plane's commitment at its defaults, driven through
+    the port's Poseidon suite as StatePlane._bootstrap and .preview drive
+    theirs: 1,048,576 DAG-transfer keys in 64 pages (16,384 leaves a page)
+    hashed in one hash_batch (the key blobs, then the leaf preimages), a
+    page's user by H(blob)[:2] mod 64, a tree a page and the top tree; then
+    one 10,240-transfer block's delta (20,480 keys: 40,960 messages) and the
+    touched pages' trees and the top again. The bootstrap runs twice: the
+    second counted (one launch for the leaves and one a tree level, no plain
+    version) and equal to the first. Held against the plain version on the
+    card at COMMIT_SAMPLE seeded lanes of every level (leaves, each page
+    tree level, the top tree; bootstrap and delta; one plain call), and the
+    first page's whole tree, both top trees and ORACLE_SAMPLE leaf messages
+    against the host oracle. Returns the counted launches and the messages and
+    digests of the delta's leaf batch (the timed leaf block)."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto import suite
+
+    poseidon_suite = suite.CryptoSuite(suite.Poseidon(device), suite.Secp256k1Crypto(device))
+    rng = np.random.default_rng(SEED + 14)
+    users = np.arange(STATE_KEYS)  # b"u%07d": blob order is user order
+    balances = rng.integers(1_000_000_000, 2_000_000_000, STATE_KEYS)
+    blobs, preimages = dag_rows(users, balances)
+    t0 = time.perf_counter()
+    msgs = row_messages(blobs, preimages)
+    build_s = time.perf_counter() - t0
+
+    def bootstrap():
+        digests = poseidon_suite.hash_batch(msgs)
+        page = (digests[:STATE_KEYS, 0].astype(np.int64) * 256 + digests[:STATE_KEYS, 1]) % STATE_PAGES
+        order = np.argsort(page, kind="stable")
+        pages = np.split(order, np.cumsum(np.bincount(page, minlength=STATE_PAGES))[:-1])
+        leaves = np.ascontiguousarray(digests[STATE_KEYS:])
+        return (digests, pages, leaves, *state_commitment(poseidon_suite, leaves, pages))
+
+    t0 = time.perf_counter()
+    digests, pages, leaves, commitment, trees, top = bootstrap()
+    first_s = time.perf_counter() - t0
+    expected = {"poseidon_packed": 1 + sum(tree_levels(len(p)) for p in pages if len(p)) + tree_levels(STATE_PAGES)}
+    t0 = time.perf_counter()
+    (digests2, _, _, commitment2, _, _), launches = counted_run(bootstrap, expected, "the state commitment")
+    counted_s = time.perf_counter() - t0
+    if commitment2 != commitment or not np.array_equal(digests2, digests):
+        raise AssertionError("poseidon: a second state commitment over the same rows differs")
+
+    # one block's delta: 10,240 transfers between 20,480 distinct users
+    touched = rng.choice(STATE_KEYS, 2 * BLOCK_TXS, replace=False)
+    amounts = rng.integers(1, 1000, BLOCK_TXS)
+    new_bal = balances[touched].copy()
+    new_bal[:BLOCK_TXS] -= amounts
+    new_bal[BLOCK_TXS:] += amounts
+    d_blobs, d_pre = dag_rows(touched, new_bal)
+    d_msgs = row_messages(d_blobs, d_pre)
+    t0 = time.perf_counter()
+    d_digests = poseidon_suite.hash_batch(d_msgs)
+    if not np.array_equal(d_digests[: 2 * BLOCK_TXS], digests[touched]):
+        raise AssertionError("poseidon: the delta's key blobs hash apart from the bootstrap's")
+    new_leaves = leaves.copy()
+    new_leaves[touched] = d_digests[2 * BLOCK_TXS :]
+    page = (digests[touched, 0].astype(np.int64) * 256 + digests[touched, 1]) % STATE_PAGES
+    dirty = sorted(set(page.tolist()))
+    new_trees = list(trees)
+    for pg in dirty:
+        new_trees[pg] = poseidon_suite.merkle_tree(new_leaves[pages[pg]])
+    roots = [t.root if t is not None else bytes(32) for t in new_trees]
+    new_top = poseidon_suite.merkle_tree(np.frombuffer(b"".join(roots), dtype=np.uint8).reshape(-1, 32))
+    delta_s = time.perf_counter() - t0
+    if new_top.root == commitment:
+        raise AssertionError("poseidon: the delta left the commitment unchanged")
+
+    # held against the plain version (sampled lanes of every level) and the oracle
+    pick = random.Random(SEED + 15)
+    pairs = [(msgs[i], bytes(digests[i])) for i in pick.sample(range(2 * STATE_KEYS), 4 * COMMIT_SAMPLE)]
+    pairs += [(d_msgs[i], bytes(d_digests[i])) for i in pick.sample(range(4 * BLOCK_TXS), COMMIT_SAMPLE)]
+    for forest in (trees, [top], [new_trees[pg] for pg in dirty], [new_top]):
+        pairs += sampled_groups(forest, pick, COMMIT_SAMPLE)
+    plain_ms = check_against_plain(card, device, pairs, "state commitment")
+    t0 = time.perf_counter()
+    first = next(pg for pg in range(STATE_PAGES) if trees[pg] is not None)
+    check_tree_against_oracle(pool, trees[first], f"page {first}'s tree")
+    check_tree_against_oracle(pool, top, "the top tree")
+    check_tree_against_oracle(pool, new_top, "the delta's top tree")
+    sample = pick.sample(range(2 * STATE_KEYS), ORACLE_SAMPLE)
+    if oracle_poseidon(pool, [msgs[i] for i in sample]) != [bytes(digests[i]) for i in sample]:
+        raise AssertionError("poseidon: sampled leaf-batch digests != the host oracle")
+    oracle_s = time.perf_counter() - t0
+    sizes = [len(p) for p in pages]
+    log(f"[{card}] state commitment (poseidon, {STATE_KEYS:,} DAG-transfer keys in {STATE_PAGES} pages of "
+        f"{min(sizes):,}-{max(sizes):,} leaves): {first_s:.3f} s wall the first time, {counted_s:.3f} s counted "
+        f"({launches['poseidon_packed']} launches: 1 leaf batch of {2 * STATE_KEYS:,} messages, one a tree "
+        f"level), the rows' {2 * STATE_KEYS:,} messages built on the host in {build_s:.3f} s; one block's delta "
+        f"({2 * BLOCK_TXS:,} keys, {4 * BLOCK_TXS:,} messages, {len(dirty)} pages touched): {delta_s:.3f} s wall; "
+        f"{len(pairs):,} sampled lanes of every level == plain ({plain_ms / 1e3:.1f} s); page {first}'s whole tree, "
+        f"both top trees and {ORACLE_SAMPLE:,} leaf messages == host oracle ({oracle_s:.1f} s)")
+    return launches, d_msgs
+
+
+def poseidon_timed_blocks(device, mixed_args, mixed, leaf_msgs) -> dict:
+    """Poseidon's timed blocks, what its callers send: the mixed block
+    (hash_batch's messages of 0-700 bytes, 10,240 lanes); the state
+    plane's leaf batch of one 10,240-transaction block (40,960 messages:
+    20,480 key blobs, 20,480 leaf preimages); a merkle level of 10,240
+    groups of 16 seeded nodes (512 bytes, 9 sponge blocks each). Each is
+    (packed args on the card, the messages' lengths)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
+
+    nodes = np.random.default_rng(SEED + 16).integers(0, 256, (BLOCK_TXS * 16, 32), dtype=np.uint8)
+    level = (torch.from_numpy(nodes).to(device).reshape(-1), torch.arange(BLOCK_TXS, device=device) * 512,
+             torch.full((BLOCK_TXS,), 512, dtype=torch.int32, device=device))
+    return {
+        "mixed": (mixed_args, [len(m) for m in mixed]),
+        "state plane leaf batch": (upload_packed(leaf_msgs, device), [len(m) for m in leaf_msgs]),
+        "merkle level": (level, [512] * BLOCK_TXS),
+    }
+
+
+def measure_poseidon(card: str, device, blocks: dict) -> dict:
+    """The kernel on each timed block at 32, 4,224 and all its lanes: a
+    call (CUDA events) and the kernel alone (profiler), each beside its
+    bound. Returns the mixed block's row at 10,240 lanes."""
+    kernel = poseidon_kernel_fn(device)
+    rows = {}
+    for what, (args, lengths) in blocks.items():
+        shown = []
+        for n in (32, 132 * 32, len(lengths)):
+            part = (args[0], args[1][:n], args[2][:n])
+            row = poseidon_row(cuda_ms(lambda: kernel(*part), reps=3, inner=3), lengths[:n])
+            row["device_ms"] = kernel_device_ms(lambda: kernel(*part), reps=5)
+            shown.append(f"{n:,}: call {row['ms']:.4f} ms, alone {show_device_ms(row['device_ms'])}, "
+                         f"bound {row['bound_ms']:.4f} ms ({row['ops']} multiplies), "
+                         f"share {row['bound_ms'] / row['ms']:.3f}")
+        log(f"[{card}] poseidon_packed on the {what} block: " + "; ".join(shown))
+        rows[what] = row
+    return rows["mixed"]
+
+
+def run_poseidon_phase(card: str, device) -> dict:
+    """Poseidon: the mixed block (check_poseidon_block), the succinct state
+    plane's commitment (run_state_commitment), the timed blocks; returns
+    the kernel's row (its launches: the counted commitment's)."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    with oracle_pool() as pool:
+        err, plain_ms, mixed_args, mixed = check_poseidon_block(card, device, pool)
+        launches, leaf_msgs = run_state_commitment(card, device, pool)
+    row = measure_poseidon(card, device, poseidon_timed_blocks(device, mixed_args, mixed, leaf_msgs))
+    row.update(max_abs_err=err, plain_ms=plain_ms, launches=launches["poseidon_packed"])
+    geometry = _kernels.geometry("poseidon", BLOCK_TXS)
+    log(f"[{card}] poseidon phase: {time.perf_counter() - t0:.1f} s; launch geometry at {BLOCK_TXS:,} lanes "
+        f"{json.dumps(geometry)}; {POSEIDON_BLOCK_MULS:,} multiplies a sponge block "
+        f"({POSEIDON_PERM_MULS:,} the permutation, the two elements' encoding counted)")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # The DevicePlane: merged seams, the window, concurrent callers, lanes
 # ---------------------------------------------------------------------------
 
@@ -2535,9 +2961,11 @@ def plane_seams(device, cases, verify_cases, sm_cases, ed_cases) -> list[tuple]:
     (ed_msgs, ed_pubs, ed_sigs), _ = ed25519_tile(ed_cases, BLOCK_TXS)
     secp, sm2_impl, ed = (cls(device) for cls in (suite.Secp256k1Crypto, suite.SM2Crypto, suite.Ed25519Crypto))
     seams = []
-    for name, cls in (("keccak256", suite.Keccak256), ("sm3", suite.SM3), ("sha256", suite.Sha256)):
+    for name, cls in (("keccak256", suite.Keccak256), ("sm3", suite.SM3), ("sha256", suite.Sha256),
+                      ("poseidon", suite.Poseidon)):
         impl = cls(device)
-        sender = {"keccak256": "keccak256_sender", "sm3": "sm3_sender", "sha256": "sha256_packed"}[name]
+        sender = {"keccak256": "keccak256_sender", "sm3": "sm3_sender", "sha256": "sha256_packed",
+                  "poseidon": "poseidon_packed"}[name]
         seams += [
             (f"hash.{name}", lambda lo, hi, impl=impl: impl.hash_batch(msgs[lo:hi]), {f"{name}_packed": 1}),
             (f"address.{name}", lambda lo, hi, impl=impl: impl.address_batch(rec_pubs[lo:hi]), {sender: 1}),
@@ -2594,7 +3022,8 @@ def check_plane_seams(card: str, device, cases, verify_cases, sm_cases, ed_cases
     gen = np.random.default_rng(SEED + 9)
     sizes = [max(n, 2) for n in PLANE_RAGGED]  # one leaf takes the direct path, as in JAX
     forests = [gen.integers(0, 256, (n, 32), dtype=np.uint8) for n in sizes]
-    for name, cls in (("keccak256", suite.Keccak256), ("sm3", suite.SM3), ("sha256", suite.Sha256)):
+    for name, cls in (("keccak256", suite.Keccak256), ("sm3", suite.SM3), ("sha256", suite.Sha256),
+                      ("poseidon", suite.Poseidon)):
         suite_ = suite.CryptoSuite(cls(device), suite.Secp256k1Crypto(device))
         with passthrough():
             direct = [suite_.merkle_tree(leaves) for leaves in forests]
@@ -3412,6 +3841,10 @@ def main() -> int:
     # -- Ed25519: the kernel, verify_batch, the suite's Ed25519Crypto --
     ed_rows, ed_block, ed_cases = run_ed25519_phase(card, device, parent)
 
+    # -- Poseidon: the kernel, the state plane's commitment at its defaults --
+    poseidon_row_ = run_poseidon_phase(card, device)
+    log_kernel(card, poseidon_row_)
+
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
     run_plane_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block, verify_block, sm_block, ed_block)
 
@@ -3424,7 +3857,7 @@ def main() -> int:
     field_bench(card, bench_libs)
 
     drain_plane()  # every request of every phase answered: a failed one has raised
-    rows = (recover, verify, sm2_row, *hash_rows, *ed_rows)
+    rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_)
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))
     log(json.dumps({
         "ok": True,

@@ -29,8 +29,9 @@ Single-item calls (``hash``, ``generate_keypair``, ``sign``, ``verify``,
 native core; both give the same bytes (RFC 6979 nonces; RFC 8032 for
 Ed25519). ``Ed25519Crypto`` is the signature scheme of the QC certificates
 (``consensus/qc.py``); its batch verify runs the Ed25519 challenge and
-verify kernels on the suite's device. Poseidon is not ported (ROADMAP A6):
-``hash_impl_by_name`` raises for it.
+verify kernels on the suite's device. ``Poseidon`` is the succinct state
+plane's commitment hasher (``FISCO_STATE_HASH=poseidon``); the plane builds
+its suite with :func:`hash_impl_by_name`.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ..device import resolve_device
 from ..device.plane import get_plane, plane_route, plane_wait, plane_wait_deferred
 from ..ops import ed25519 as ed_ops
 from ..ops import keccak as keccak_ops
+from ..ops import poseidon as poseidon_ops
 from ..ops import merkle as merkle_ops
 from ..ops import secp256k1 as secp_ops
 from ..ops import sha256 as sha256_ops
@@ -220,6 +222,14 @@ class SM3(HashImpl):
         return sm3_sender_address_device(qx, qy, every)
 
 
+def _packed_address(packed_hash, pubs: np.ndarray, dev: torch.device) -> np.ndarray:
+    """One launch of a packed hash kernel over the keys as 64-byte rows,
+    bytes 12..31 of each digest (JAX ``calculate_address_batch``): the
+    address of a hash whose kernel has no sender form."""
+    digests = packed_hash(*rows_as_packed(torch.tensor(pubs, device=dev)))
+    return digests[:, 12:].cpu().numpy()
+
+
 class Sha256(HashImpl):
     name = "sha256"
 
@@ -227,20 +237,32 @@ class Sha256(HashImpl):
         return sha256_ops.sha256_batch_async(msgs, dev)
 
     def _address_direct(self, pubs, dev):
-        """One launch of the packed kernel over the keys as 64-byte rows,
-        bytes 12..31 of each digest (JAX ``calculate_address_batch``): the
-        kernel has no sender form."""
-        digests = sha256_ops.sha256_packed(*rows_as_packed(torch.tensor(pubs, device=dev)))
-        return digests[:, 12:].cpu().numpy()
+        return _packed_address(sha256_ops.sha256_packed, pubs, dev)
 
 
-_HASH_IMPLS: dict[str, type[HashImpl]] = {"keccak256": Keccak256, "sm3": SM3, "sha256": Sha256}
+class Poseidon(HashImpl):
+    """The SNARK-friendly hash (JAX ``crypto/suite.py`` ``Poseidon``): the
+    single-message hash on the host through the port's oracle, the batch
+    calls through the Poseidon kernel."""
+
+    name = "poseidon"
+
+    def _batch_async_direct(self, msgs, dev):
+        return poseidon_ops.poseidon_batch_async(msgs, dev)
+
+    def _address_direct(self, pubs, dev):
+        return _packed_address(poseidon_ops.poseidon_packed, pubs, dev)
+
+
+_HASH_IMPLS: dict[str, type[HashImpl]] = {
+    "keccak256": Keccak256, "sm3": SM3, "sha256": Sha256, "poseidon": Poseidon,
+}
 
 
 def hash_impl_by_name(name: str) -> HashImpl:
-    """Hash impl registry lookup. An unknown name raises, naming what is
-    not ported yet: one node silently hashing with another function than
-    its peers would fork the state commitment."""
+    """Hash impl registry lookup (the ``FISCO_STATE_HASH`` selection seam).
+    An unknown name raises: one node silently hashing with another function
+    than its peers would fork the state commitment."""
     hasher_fns(name)  # raises for a hasher the port does not carry
     return _HASH_IMPLS[name]()
 

@@ -46,6 +46,7 @@ SOURCES = {
     "sha256": CSRC / "sha256.cu",
     "ed25519_verify": CSRC / "ed25519_verify.cu",
     "ed25519_challenge": CSRC / "ed25519_challenge.cu",
+    "poseidon": CSRC / "poseidon.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -78,6 +79,8 @@ _ENTRIES = {
     "ed25519_verify": ("ed25519_verify", "ed25519_verify_launch", [_P] * 3 + [_I]),
     # rows, data, starts, lengths; messages; bytes of data
     "ed25519_challenge": ("ed25519_challenge", "ed25519_challenge_launch", [_P] * 4 + [_I, _LL]),
+    # data, starts, lengths, table, out; table words; messages; bytes of data
+    "poseidon_packed": ("poseidon", "poseidon_launch", [_P] * 5 + [_I, _I, _LL]),
 }
 KERNELS = {kernel: entry[0] for kernel, entry in _ENTRIES.items()}
 
@@ -351,8 +354,8 @@ def ed25519_challenge(rows, data, starts, lengths):
 
 
 # ---------------------------------------------------------------------------
-# Hash kernels (csrc/keccak256.cu, csrc/sm3.cu, csrc/sha256.cu): one C
-# entry point a form
+# Hash kernels (csrc/keccak256.cu, csrc/sm3.cu, csrc/sha256.cu,
+# csrc/poseidon.cu): one C entry point a form
 # ---------------------------------------------------------------------------
 
 
@@ -404,6 +407,23 @@ def sha256_packed(data, starts, lengths, routes=None):
     """SHA-256 of each message of a packed batch on the card ([B, 32]
     uint8); see :func:`_packed_hash`."""
     return _packed_hash("sha256_packed", data, starts, lengths, routes)
+
+
+def poseidon_packed(data, starts, lengths, table):
+    """Poseidon of each message of a packed batch on the card ([B, 32]
+    uint8 big-endian digests; the ranges as in :func:`_packed_hash`), with
+    the instance's constants from `table`, int32 [W] on the same device
+    (ops/poseidon.py kernel_table; the kernel refuses a table of another
+    length)."""
+    dev, b, _ = _packed_args("poseidon_packed", data, starts, lengths, None)
+    _require(table, "table", torch.int32, (table.numel(),), dev)
+    out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+    if b:
+        _launch(
+            "poseidon_packed", dev, data.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
+            table.data_ptr(), out.data_ptr(), table.numel(), b, data.numel(),
+        )
+    return out
 
 
 def keccak256_tx_hash(data, starts, lengths):

@@ -25,10 +25,12 @@ import numpy as np
 import torch
 
 from ..crypto.ref.keccak import keccak256 as ref_keccak256
+from ..crypto.ref.poseidon import poseidon_hash as ref_poseidon
 from ..crypto.ref.sha2 import sha256 as ref_sha256
 from ..crypto.ref.sm3 import sm3 as ref_sm3
 from ..device import resolve_device
 from .keccak import keccak256_packed
+from .poseidon import poseidon_packed
 from .sha256 import sha256_packed
 from .sm3 import sm3_packed
 
@@ -37,6 +39,7 @@ _HASHERS = {
     "keccak256": (keccak256_packed, ref_keccak256),
     "sm3": (sm3_packed, ref_sm3),
     "sha256": (sha256_packed, ref_sha256),
+    "poseidon": (poseidon_packed, ref_poseidon),
 }
 
 
@@ -48,8 +51,8 @@ def hasher_fns(name: str):
         return _HASHERS[name]
     except KeyError:
         raise KeyError(
-            f"hasher {name!r} is not ported: the port carries keccak256, sm3 and "
-            "sha256; poseidon is ROADMAP A6"
+            f"unknown hasher {name!r}: the port carries keccak256, sm3, sha256 and "
+            "poseidon, every hasher of the JAX package"
         ) from None
 
 

@@ -19,7 +19,7 @@ import torch
 import fisco_bcos_tpu_torch
 from fisco_bcos_tpu_torch.crypto import admission, suite
 from fisco_bcos_tpu_torch.device import resolve_device
-from fisco_bcos_tpu_torch.ops import _kernels, ed25519, keccak, merkle, secp256k1, sha256, sm2, sm3
+from fisco_bcos_tpu_torch.ops import _kernels, ed25519, keccak, merkle, poseidon, secp256k1, sha256, sm2, sm3
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -76,7 +76,8 @@ def test_importing_the_port_loads_no_jax():
         "fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle",
         "fisco_bcos_tpu_torch.ops.ed25519", "fisco_bcos_tpu_torch.crypto.ref.ed25519",
         "fisco_bcos_tpu_torch.device.plane", "fisco_bcos_tpu_torch.ops.sha256",
-        "fisco_bcos_tpu_torch.crypto.ref.sha2",
+        "fisco_bcos_tpu_torch.crypto.ref.sha2", "fisco_bcos_tpu_torch.ops.poseidon",
+        "fisco_bcos_tpu_torch.crypto.ref.poseidon",
     } <= port
     assert not sorted(m for m in port - bare if _forbidden(m))
 
@@ -107,6 +108,13 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: suite.Sha256().hash_batch([b"x"]),
         lambda: suite.Sha256().address_batch(pub),
         lambda: merkle.merkle_root(np.zeros((3, 32), np.uint8), hasher="sha256"),
+        lambda: poseidon.poseidon_batch([b"x"]),
+        lambda: poseidon.poseidon_batch_async([b"x"]),
+        lambda: suite.Poseidon().hash_batch([b"x"]),
+        lambda: suite.hash_impl_by_name("poseidon").hash_batch_async([b"x"]),
+        lambda: suite.Poseidon().address_batch(pub),
+        lambda: merkle.merkle_root(np.zeros((3, 32), np.uint8), hasher="poseidon"),
+        lambda: merkle.MerkleTree(np.zeros((3, 32), np.uint8), hasher="poseidon"),
         lambda: suite.Keccak256().hash_batch([b"x"]),
         lambda: suite.SM3().hash_batch_async([b"x"]),
         lambda: merkle.merkle_root(np.zeros((3, 32), np.uint8)),
@@ -166,6 +174,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_loading(monkeypatch):
                     _kernels.keccak256_tx_hash):
         with pytest.raises(ValueError):
             wrapper(*packed)
+    with pytest.raises(ValueError):
+        _kernels.poseidon_packed(*packed, torch.from_numpy(poseidon.KERNEL_TABLE))
     ok = torch.ones((4,), dtype=torch.bool)
     h = torch.zeros((4, 32), dtype=torch.uint8)
     for call in (

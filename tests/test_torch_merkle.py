@@ -12,6 +12,7 @@ import torch
 from fisco_bcos_tpu.crypto import suite as jsuite
 from fisco_bcos_tpu.ops import merkle as jmerkle
 from fisco_bcos_tpu_torch.crypto import suite
+from fisco_bcos_tpu_torch.crypto.ref.poseidon import poseidon_hash
 from fisco_bcos_tpu_torch.ops import _kernels, merkle
 
 HASHERS = ("keccak256", "sm3")
@@ -114,11 +115,15 @@ def test_validation_errors():
             merkle.MerkleTree(bad, device="cpu")
     with pytest.raises(ValueError):
         merkle.merkle_root(_leaves(4), width=1, device="cpu")
-    for name in ("poseidon", "md5"):
-        with pytest.raises(KeyError, match="ROADMAP A6"):
-            merkle.merkle_root(_leaves(4), hasher=name, device="cpu")
-        with pytest.raises(KeyError, match="ROADMAP A6"):
-            suite.hash_impl_by_name(name)
+    with pytest.raises(KeyError, match="unknown hasher 'md5'"):
+        merkle.merkle_root(_leaves(4), hasher="md5", device="cpu")
+    with pytest.raises(KeyError, match="unknown hasher 'md5'"):
+        suite.hash_impl_by_name("md5")
+    # Poseidon is carried: one leaf is its own padded root, bound to its count
+    assert suite.hash_impl_by_name("poseidon").name == "poseidon"
+    assert merkle.merkle_root(_leaves(1), hasher="poseidon", device="cpu") == poseidon_hash(
+        _leaves(1).tobytes() + (1).to_bytes(8, "big")
+    )
     # SHA-256 is carried: 4 leaves are one group, bound to their count
     assert suite.hash_impl_by_name("sha256").name == "sha256"
     top = hashlib.sha256(_leaves(4).tobytes()).digest()

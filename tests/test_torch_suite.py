@@ -215,8 +215,10 @@ def test_suite_shape_and_device(suites):
         assert port.signature_impl.name == jax_suite.signature_impl.name
         assert port.signature_impl.sig_len == jax_suite.signature_impl.sig_len
         assert port.device == port.signature_impl.device == torch.device("cpu")
-    with pytest.raises(KeyError, match="ROADMAP A6"):
-        suite.hash_impl_by_name("poseidon")
+    assert isinstance(suite.hash_impl_by_name("poseidon"), suite.Poseidon)
+    assert suite.hash_impl_by_name("poseidon").device is None
+    with pytest.raises(KeyError, match="unknown hasher"):
+        suite.hash_impl_by_name("md5")
     assert isinstance(suite.hash_impl_by_name("sha256"), suite.Sha256)
 
 
