@@ -98,7 +98,8 @@ exits non-zero, printing no result, without them. In order it:
 9. Poseidon, the succinct state plane's commitment hasher
    (``run_poseidon_phase``): the kernel on a mixed block of 4,096 seeded
    messages of 0-700 bytes (every 31/62-byte edge included) tiled to
-   10,240 lanes, equal to its plain version on every lane and to the host
+   10,240 lanes, equal to its plain version on every lane (its first 32
+   and 4,224 lanes, launched alone, the same) and to the host
    oracle (``crypto/ref/poseidon.py``, in worker processes) on the 4,096
    distinct messages, with shuffled starts and 5 bytes off alignment, and
    on a ``[4,096, 64]`` row block; the state commitment at the plane's
@@ -110,9 +111,12 @@ exits non-zero, printing no result, without them. In order it:
    version), then one 10,240-transfer block's delta of 20,480 keys (wall
    time); sampled lanes of every level held against the plain version,
    one whole page tree, the top trees and sampled leaf messages against
-   the oracle; the kernel timed (a call and alone) with its bound at 32,
-   4,224 and all lanes of the mixed block, of the delta's 40,960-message
-   leaf batch and of a merkle level of 10,240 512-byte groups;
+   the oracle, and the delta's launches counted; the kernel timed (a call
+   and alone) with its bound at 32, 4,224 and all lanes of the mixed
+   block, of the delta's 40,960-message leaf batch and of a merkle level of
+   10,240 512-byte groups; one page tree at the 17,408-leaf bucket, its
+   wall time (direct and through the suite) and each level's kernel time
+   beside its bound, and one 512-byte group alone (a message's latency);
 10. the DevicePlane (``run_plane_phase``): every routed seam (the four
    hashes and their address forms, secp256k1 and SM2 verify and recover,
    Ed25519 verify, both admissions, each hasher's ``merkle_tree``) with
@@ -138,7 +142,9 @@ exits non-zero, printing no result, without them. In order it:
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
-   byte-row redesign takes five limb tensors and the 60-row comb): equal
+   byte-row redesign takes five limb tensors and the 60-row comb; each
+   Poseidon kernel its own checkout's constants table, on the mixed block
+   and the merkle level): equal
    on every lane, timed in turns parent, new, new, parent; a kernel the
    parent lacks is not timed against it; and times both admission paths'
    stages as the parent composes them (its packed hash kernel and the
@@ -148,8 +154,9 @@ exits non-zero, printing no result, without them. In order it:
    warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
    the cycles one warp spends on each field op and group-law op, on an
-   inversion mod n (Fermat and safegcd divsteps) and on an SM2 product as
-   the loop body around it grows (``clock64()``);
+   inversion mod n (Fermat and safegcd divsteps), on Poseidon's GF(FR) ops,
+   rounds and permutation and on an SM2 product as the loop body around it
+   grows (``clock64()``);
 13. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line; the
    DevicePlane is drained first, so no request of any phase is left
@@ -167,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib.util
 import json
 import os
@@ -2432,7 +2440,8 @@ POSEIDON_EDGE_LENGTHS = (0, 30, 31, 32, 61, 62, 63, 123, 124, 125)  # every 31/6
 # matrix (word 0 a row of three products, words 1 and 2 one product each: 5
 # products, 3 REDCs) and the 8 full rounds by a dense 3x3 (the last round of
 # the first half by the MDS times the factor moved out of the partial rounds,
-# no extra mix). The kernel (csrc/poseidon.cu) mixes every round densely.
+# no extra mix). The kernel (csrc/poseidon.cu) runs that form, four lanes a
+# message, its idle lanes' sink products not counted.
 MULS_FR_REDC = 8 * (1 + 2 * 8)
 MULS_FR_MUL = 2 * 64 + MULS_FR_REDC
 MULS_FR_SQR = 2 * 36 + MULS_FR_REDC
@@ -2535,6 +2544,9 @@ def check_poseidon_block(card: str, device, pool):
     if bad:
         raise AssertionError(f"poseidon kernel != host oracle on the mixed block, lanes {bad[:8]}")
     data, starts, lengths = args
+    for n in (32, 132 * 32):  # other launch geometries: == the block's first lanes, so == plain
+        if not np.array_equal(kernel(data, starts[:n], lengths[:n]).cpu().numpy(), want[:n]):
+            raise AssertionError(f"poseidon kernel on the first {n:,} lanes != the same lanes of the block")
     order = torch.randperm(BLOCK_TXS, generator=torch.Generator().manual_seed(SEED)).to(device)
     shifted = torch.cat([torch.zeros(5, dtype=torch.uint8, device=device), data])
     for what, a, lanes in (
@@ -2551,7 +2563,8 @@ def check_poseidon_block(card: str, device, pool):
             pool, [bytes(r) for r in rows[:ORACLE_SAMPLE]]):
         raise AssertionError("poseidon kernel != host oracle on the row block")
     log(f"[{card}] poseidon_packed == plain on every lane of the {BLOCK_TXS:,}-lane mixed block "
-        f"(plain {plain_ms / 1e3:.1f} s), == the host oracle on its {len(mixed):,} distinct messages "
+        f"(plain {plain_ms / 1e3:.1f} s; its first 32 and 4,224 lanes alone the same), == the host oracle on "
+        f"its {len(mixed):,} distinct messages "
         f"({oracle_s:.1f} s in worker processes); shuffled and 5 bytes off alignment == the same lanes; "
         f"[{HASH_MIXED:,}, 64] rows == plain, the first {ORACLE_SAMPLE:,} == oracle")
     return max(err, row_err), plain_ms, args, tiled
@@ -2678,6 +2691,7 @@ def run_state_commitment(card: str, device, pool) -> tuple[dict, list]:
     import numpy as np
 
     from fisco_bcos_tpu_torch.crypto import suite
+    from fisco_bcos_tpu_torch.ops import _kernels
 
     poseidon_suite = suite.CryptoSuite(suite.Poseidon(device), suite.Secp256k1Crypto(device))
     rng = np.random.default_rng(SEED + 14)
@@ -2714,8 +2728,11 @@ def run_state_commitment(card: str, device, pool) -> tuple[dict, list]:
     new_bal[BLOCK_TXS:] += amounts
     d_blobs, d_pre = dag_rows(touched, new_bal)
     d_msgs = row_messages(d_blobs, d_pre)
+    drain_plane()
+    before = dict(_kernels.LAUNCHES)
     t0 = time.perf_counter()
     d_digests = poseidon_suite.hash_batch(d_msgs)
+    leaf_s = time.perf_counter() - t0
     if not np.array_equal(d_digests[: 2 * BLOCK_TXS], digests[touched]):
         raise AssertionError("poseidon: the delta's key blobs hash apart from the bootstrap's")
     new_leaves = leaves.copy()
@@ -2723,11 +2740,18 @@ def run_state_commitment(card: str, device, pool) -> tuple[dict, list]:
     page = (digests[touched, 0].astype(np.int64) * 256 + digests[touched, 1]) % STATE_PAGES
     dirty = sorted(set(page.tolist()))
     new_trees = list(trees)
+    t1 = time.perf_counter()
     for pg in dirty:
         new_trees[pg] = poseidon_suite.merkle_tree(new_leaves[pages[pg]])
+    trees_s = time.perf_counter() - t1
     roots = [t.root if t is not None else bytes(32) for t in new_trees]
     new_top = poseidon_suite.merkle_tree(np.frombuffer(b"".join(roots), dtype=np.uint8).reshape(-1, 32))
     delta_s = time.perf_counter() - t0
+    drain_plane()
+    delta_launches = _kernels.LAUNCHES["poseidon_packed"] - before["poseidon_packed"]
+    want_launches = 1 + sum(tree_levels(len(pages[pg])) for pg in dirty) + tree_levels(STATE_PAGES)
+    if delta_launches != want_launches:
+        raise AssertionError(f"poseidon: the delta made {delta_launches} launches, not {want_launches}")
     if new_top.root == commitment:
         raise AssertionError("poseidon: the delta left the commitment unchanged")
 
@@ -2752,7 +2776,9 @@ def run_state_commitment(card: str, device, pool) -> tuple[dict, list]:
         f"{min(sizes):,}-{max(sizes):,} leaves): {first_s:.3f} s wall the first time, {counted_s:.3f} s counted "
         f"({launches['poseidon_packed']} launches: 1 leaf batch of {2 * STATE_KEYS:,} messages, one a tree "
         f"level), the rows' {2 * STATE_KEYS:,} messages built on the host in {build_s:.3f} s; one block's delta "
-        f"({2 * BLOCK_TXS:,} keys, {4 * BLOCK_TXS:,} messages, {len(dirty)} pages touched): {delta_s:.3f} s wall; "
+        f"({2 * BLOCK_TXS:,} keys, {4 * BLOCK_TXS:,} messages, {len(dirty)} pages touched): {delta_s:.3f} s wall "
+        f"(the leaf batch {leaf_s:.3f} s, the page trees {trees_s:.3f} s), "
+        f"{delta_launches} launches (1 leaf batch, one a tree level); "
         f"{len(pairs):,} sampled lanes of every level == plain ({plain_ms / 1e3:.1f} s); page {first}'s whole tree, "
         f"both top trees and {ORACLE_SAMPLE:,} leaf messages == host oracle ({oracle_s:.1f} s)")
     return launches, d_msgs
@@ -2800,23 +2826,71 @@ def measure_poseidon(card: str, device, blocks: dict) -> dict:
     return rows["mixed"]
 
 
-def run_poseidon_phase(card: str, device) -> dict:
+PAGE_TREE_LEAVES = 16_400  # a page of the state above (16,081-16,712 leaves): the 17,408-leaf bucket
+
+
+def measure_page_tree(card: str, device) -> None:
+    """One page tree at the 17,408-leaf bucket, as StatePlane.preview
+    builds each touched page's: its wall time (host clock, median of 5)
+    built directly (ops/merkle.py MerkleTree) and through the suite's
+    merkle_tree (the DevicePlane's seam); each level's kernel time (a call
+    by CUDA events, alone by the profiler) beside its bound and geometry;
+    one 512-byte group alone (9 sponge blocks: a message's latency)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import suite
+    from fisco_bcos_tpu_torch.ops import _kernels, merkle
+
+    leaves = np.random.default_rng(SEED + 17).integers(0, 256, (PAGE_TREE_LEAVES, 32), dtype=np.uint8)
+    poseidon_suite = suite.CryptoSuite(suite.Poseidon(device), suite.Secp256k1Crypto(device))
+    direct_ms = host_ms(lambda: merkle.MerkleTree(leaves, hasher="poseidon", device=device), reps=5)
+    suite_ms = host_ms(lambda: poseidon_suite.merkle_tree(leaves), reps=5)
+    kernel = poseidon_kernel_fn(device)
+    cur, _ = merkle._padded_leaves(leaves, 16, device)
+    shown, total = [], 0.0
+    while cur.shape[0] > 1:
+        n = cur.shape[0]
+        first = torch.arange(0, n, 16, device=device)
+        args = (cur.reshape(-1), first * 32, ((n - first).clamp(max=16) * 32).to(torch.int32))
+        row = poseidon_row(cuda_ms(lambda: kernel(*args)), args[2].tolist())
+        alone = kernel_device_ms(lambda: kernel(*args), reps=5)
+        total += row["ms"]
+        shown.append(f"{args[1].shape[0]:,} groups: call {row['ms']:.4f} ms, alone {show_device_ms(alone)}, bound "
+                     f"{row['bound_ms']:.4f} ms (share {row['bound_ms'] / row['ms']:.3f}), geometry "
+                     f"{json.dumps(_kernels.geometry('poseidon', args[1].shape[0]))}")
+        cur = kernel(*args)
+    one = (cur.new_zeros(512), torch.zeros(1, dtype=torch.int64, device=device),
+           torch.full((1,), 512, dtype=torch.int32, device=device))
+    one_ms = cuda_ms(lambda: kernel(*one))
+    one_alone = kernel_device_ms(lambda: kernel(*one), reps=5)
+    per_block = "not measured" if one_alone is None else f"{one_alone[0] / 9:.4f} ms"
+    log(f"[{card}] poseidon page tree of {PAGE_TREE_LEAVES:,} leaves ({merkle.bucket_leaves(PAGE_TREE_LEAVES):,} "
+        f"bucketed): {direct_ms:.3f} ms wall direct, {suite_ms:.3f} ms through the suite; levels: "
+        + "; ".join(shown) + f" ({total:.4f} ms of calls); one 512-byte group alone: call {one_ms:.4f} ms, "
+        f"alone {show_device_ms(one_alone)}, {per_block} a sponge block")
+
+
+def run_poseidon_phase(card: str, device) -> tuple[dict, dict]:
     """Poseidon: the mixed block (check_poseidon_block), the succinct state
-    plane's commitment (run_state_commitment), the timed blocks; returns
-    the kernel's row (its launches: the counted commitment's)."""
+    plane's commitment (run_state_commitment), the timed blocks, a page
+    tree; returns the kernel's row (its launches: the counted
+    commitment's) and the timed blocks."""
     from fisco_bcos_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
     with oracle_pool() as pool:
         err, plain_ms, mixed_args, mixed = check_poseidon_block(card, device, pool)
         launches, leaf_msgs = run_state_commitment(card, device, pool)
-    row = measure_poseidon(card, device, poseidon_timed_blocks(device, mixed_args, mixed, leaf_msgs))
+    blocks = poseidon_timed_blocks(device, mixed_args, mixed, leaf_msgs)
+    row = measure_poseidon(card, device, blocks)
+    measure_page_tree(card, device)
     row.update(max_abs_err=err, plain_ms=plain_ms, launches=launches["poseidon_packed"])
     geometry = _kernels.geometry("poseidon", BLOCK_TXS)
     log(f"[{card}] poseidon phase: {time.perf_counter() - t0:.1f} s; launch geometry at {BLOCK_TXS:,} lanes "
         f"{json.dumps(geometry)}; {POSEIDON_BLOCK_MULS:,} multiplies a sponge block "
         f"({POSEIDON_PERM_MULS:,} the permutation, the two elements' encoding counted)")
-    return row
+    return row, blocks
 
 
 # ---------------------------------------------------------------------------
@@ -3389,11 +3463,13 @@ def load_kernels_module(checkout: str):
     return mod
 
 
-def timed_kernel_args(device, block, verify_block, sm_block, forms: dict, ed_block) -> dict:
+def timed_kernel_args(device, block, verify_block, sm_block, forms: dict, ed_block, poseidon_blocks) -> dict:
     """Each kernel's wrapper arguments on its timed block, comb included;
     the hash kernels' packed forms' on the tx payloads, their other forms'
-    `forms` (form_inputs)."""
-    from fisco_bcos_tpu_torch.ops import ed25519, secp256k1, sm2
+    `forms` (form_inputs); Poseidon's on its mixed block and, keyed
+    "poseidon_packed@merkle level", its merkle level (run_poseidon_phase's
+    timed blocks), each with the constants table."""
+    from fisco_bcos_tpu_torch.ops import ed25519, poseidon, secp256k1, sm2
     from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
 
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
@@ -3409,6 +3485,8 @@ def timed_kernel_args(device, block, verify_block, sm_block, forms: dict, ed_blo
         "ed25519_verify": (ed25519_rows_tensor(*ed25519_tile(ed_block, BLOCK_TXS)[0], device),
                            ed25519.comb_words(device)),
         "ed25519_challenge": ed25519_challenge_args(*ed25519_tile(ed_block, BLOCK_TXS)[0], device),
+        "poseidon_packed": (*poseidon_blocks["mixed"][0], poseidon.kernel_table(device)),
+        "poseidon_packed@merkle level": (*poseidon_blocks["merkle level"][0], poseidon.kernel_table(device)),
     }
 
 
@@ -3420,17 +3498,52 @@ def takes_limbs(kernels) -> bool:
     return len(inspect.signature(kernels.secp256k1_verify).parameters) == 6
 
 
-def parent_kernel_args(parent, device, verify_block) -> dict:
+def load_checkout_module(checkout: str, module: str):
+    """A module of another checkout's port package (``ops.poseidon``, say),
+    imported under an alias package, so that its relative imports resolve
+    inside that checkout."""
+    alias = "checkout_" + hashlib.sha256(str(Path(checkout).resolve()).encode()).hexdigest()[:12]
+    if alias not in sys.modules:
+        root = Path(checkout).resolve() / "fisco_bcos_tpu_torch"
+        spec = importlib.util.spec_from_file_location(alias, root / "__init__.py",
+                                                      submodule_search_locations=[str(root)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module(f"{alias}.{module}")
+
+
+def checkout_poseidon_table(checkout: str, device):
+    """Another checkout's Poseidon constants table (its ops/poseidon.py
+    KERNEL_TABLE, in its own kernel's layout) on `device`, or None where it
+    has no Poseidon."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import poseidon
+
+    if Path(checkout).resolve() == Path(__file__).resolve().parent:
+        return poseidon.kernel_table(device)
+    if not (Path(checkout) / "fisco_bcos_tpu_torch" / "ops" / "poseidon.py").exists():
+        return None
+    return torch.from_numpy(load_checkout_module(checkout, "ops.poseidon").KERNEL_TABLE).to(device)
+
+
+def parent_kernel_args(parent, device, verify_block, checkout: str, timed_args: dict) -> dict:
     """Arguments of the parent checkout's kernels whose input layout differs
     from this checkout's: a verify kernel from before the byte rows gets
     five [n, 16] limb tensors and the [60, 8] comb of 4-bit windows on the
-    same timed block."""
+    same timed block; the Poseidon kernel the same messages with the
+    parent's own constants table."""
     from fisco_bcos_tpu_torch.ops import secp256k1
 
-    if not takes_limbs(parent):
-        return {}
-    *arrays, _ = verify_arrays(verify_block, BLOCK_TXS)
-    return {"secp256k1_verify": (*verify_limbs(*arrays, device), secp256k1.comb_words(device))}
+    out = {}
+    table = checkout_poseidon_table(checkout, device)
+    if table is not None:
+        out.update({k: (*args[:3], table) for k, args in timed_args.items() if k.startswith("poseidon_packed")})
+    if takes_limbs(parent):
+        *arrays, _ = verify_arrays(verify_block, BLOCK_TXS)
+        out["secp256k1_verify"] = (*verify_limbs(*arrays, device), secp256k1.comb_words(device))
+    return out
 
 
 def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) -> None:
@@ -3443,11 +3556,11 @@ def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) 
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
-        old = getattr(parent, name, None)
+        old = getattr(parent, name.split("@")[0], None)
         if old is None:
             log(f"[{card}] {name}: the parent checkout has no such kernel; not timed against it")
             continue
-        new = getattr(_kernels, name)
+        new = getattr(_kernels, name.split("@")[0])
         old_args = parent_args.get(name, args)
         got, want = new(*args), old(*old_args)
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -3460,7 +3573,13 @@ def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) 
             f"(new/parent {(times[1] + times[2]) / (times[0] + times[3]):.3f})")
 
 
-FIELD_BENCH_OPS = 21  # field_bench.cu's op codes 0..20
+FIELD_BENCH_OPS = 31  # field_bench.cu's op codes 0..30
+# loop iterations of an op code (each median of 32 lanes' clock64()):
+# cheap field ops many times, a group law or a Poseidon round fewer, a
+# decompression or a Poseidon permutation twice
+FIELD_BENCH_ITERS = {**dict.fromkeys((0, 1, 2, 3, 4, 5, 6, 15, 16, 21, 22, 29, 30), 400),
+                     **dict.fromkeys((13, 14), 8), **dict.fromkeys((20, 28), 2),
+                     **dict.fromkeys((23, 24, 25), 100)}
 BODY_SIZES = (1, 4, 8, 16, 24, 32, 64)  # products a loop body, op code 100 + K
 
 
@@ -3601,7 +3720,7 @@ def lane_scaling(card: str, timed_args: dict) -> None:
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
-        fn = getattr(_kernels, name)
+        fn = getattr(_kernels, name.split("@")[0])
         times, device = [], []
         for n in (32, 132 * 32, BLOCK_TXS):
             part = tuple(a[:n] if a.shape[0] == BLOCK_TXS else a for a in args)
@@ -3630,10 +3749,11 @@ def build_field_bench(checkout: str | Path) -> Path:
     return out
 
 
-def field_bench(card: str, libs: dict) -> None:
+def field_bench(card: str, libs: dict, tables: dict) -> None:
     """One warp's cycles (median over its 32 lanes, clock64()) per field op
     and group-law op, and per SM2 product for loop bodies of K products,
-    for each built library ({label: path})."""
+    for each built library ({label: path}); Poseidon's ops over each
+    checkout's constants table ({label: tensor on the card, or None})."""
     import ctypes
 
     import torch
@@ -3644,18 +3764,21 @@ def field_bench(card: str, libs: dict) -> None:
     fns = {}
     for label, path in libs.items():
         lib = ctypes.CDLL(str(path))
-        lib.field_bench_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        lib.field_bench_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
         lib.field_bench_run.restype = ctypes.c_int
         lib.field_bench_name.argtypes = [ctypes.c_int]
         lib.field_bench_name.restype = ctypes.c_char_p
         fns[label] = lib
 
-    def cycles(lib, op: int, iters: int) -> float | None:
+    def cycles(label: str, op: int, iters: int) -> float | None:
+        lib, table = fns[label], tables.get(label)
+        ptr = None if table is None else table.data_ptr()
         io = io0.cuda()
-        err = lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, 2)  # warm
+        err = lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, 2, ptr)  # warm
         if err == -1:
             return None  # an op this checkout's sources lack
-        err = err or lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, iters)
+        err = err or lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, iters, ptr)
         if err:
             raise RuntimeError(f"field_bench op {op} failed: CUDA error {err}")
         return statistics.median(cyc.cpu().tolist()) / iters
@@ -3665,10 +3788,10 @@ def field_bench(card: str, libs: dict) -> None:
 
     labels = list(fns)
     for op in range(FIELD_BENCH_OPS):
-        iters = 400 if op < 7 or op in (15, 16) else 2 if op == 20 else 40 if op < 13 or op > 16 else 8
+        iters = FIELD_BENCH_ITERS.get(op, 40)
         name = fns[labels[0]].field_bench_name(op).decode()
         log(f"[{card}] field bench, one warp, cycles per {name}: "
-            + ", ".join(f"{lb} {show(cycles(fns[lb], op, iters))}" for lb in labels))
+            + ", ".join(f"{lb} {show(cycles(lb, op, iters))}" for lb in labels))
     sizes = {lb: sass_by_function(path) for lb, path in libs.items()}
     for k in BODY_SIZES:
         iters = max(8, 800 // k)
@@ -3678,7 +3801,7 @@ def field_bench(card: str, libs: dict) -> None:
             return f" ({n * 16 / 1024:.0f} KiB)" if n else ""
 
         log(f"[{card}] field bench, one warp, loop body of {k} SM2 products: cycles per product "
-            + ", ".join(f"{lb} {cycles(fns[lb], 100 + k, iters) / k:.1f}{body(lb)}" for lb in labels))
+            + ", ".join(f"{lb} {cycles(lb, 100 + k, iters) / k:.1f}{body(lb)}" for lb in labels))
 
 
 ROW_KEYS = (
@@ -3842,19 +3965,20 @@ def main() -> int:
     ed_rows, ed_block, ed_cases = run_ed25519_phase(card, device, parent)
 
     # -- Poseidon: the kernel, the state plane's commitment at its defaults --
-    poseidon_row_ = run_poseidon_phase(card, device)
+    poseidon_row_, poseidon_blocks = run_poseidon_phase(card, device)
     log_kernel(card, poseidon_row_)
 
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
     run_plane_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block, verify_block, sm_block, ed_block)
 
-    timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block)
+    timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block, poseidon_blocks)
     if parent:
-        time_against_parent(card, parent, timed_args, parent_kernel_args(parent, device, verify_block))
+        time_against_parent(card, parent, timed_args,
+                            parent_kernel_args(parent, device, verify_block, args.parent, timed_args))
     lane_scaling(card, timed_args)
     call_anatomy(card, timed_args["keccak256_packed"])
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
-    field_bench(card, bench_libs)
+    field_bench(card, bench_libs, {label: checkout_poseidon_table(c, device) for label, c in checkouts.items()})
 
     drain_plane()  # every request of every phase answered: a failed one has raised
     rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_)

@@ -88,30 +88,138 @@ assert all(
 assert all(_limbs_int(_MDS_MONT[i, j]) * _RINV % FR == _REF_MDS[i][j] for i in range(T) for j in range(T))
 
 
+# ---------------------------------------------------------------------------
+# The sparse partial-round form (eprint 2019/458, Appendix B), the kernel's:
+# the same permutation with a sparse mix in every partial round
+# ---------------------------------------------------------------------------
+
+
+def _mat_mul(a, b):
+    return [[sum(a[i][k] * b[k][j] for k in range(len(b))) % FR for j in range(len(b[0]))]
+            for i in range(len(a))]
+
+
+def _mat_vec(a, v):
+    return [sum(a[i][k] * v[k] for k in range(len(v))) % FR for i in range(len(a))]
+
+
+def _mat_inv(a):
+    """The inverse of a square matrix over GF(FR), by Gauss-Jordan."""
+    n = len(a)
+    m = [list(row) + [int(i == j) for j in range(n)] for i, row in enumerate(a)]
+    for c in range(n):
+        p = next(r for r in range(c, n) if m[r][c])
+        m[c], m[p] = m[p], m[c]
+        inv = pow(m[c][c], -1, FR)
+        m[c] = [x * inv % FR for x in m[c]]
+        for r in range(n):
+            if r != c and m[r][c]:
+                f = m[r][c]
+                m[r] = [(x - f * y) % FR for x, y in zip(m[r], m[c])]
+    return [row[n:] for row in m]
+
+
+def _sparse_form():
+    """The instance in the form the kernel runs, over plain ints:
+    (start constants [T], mixes [N_ROUNDS][T][T], end constants
+    [N_ROUNDS][T]). Round r boxes its words (all of them in a full round,
+    word 0 in a partial one), mixes by mixes[r], then adds end[r]; the
+    start constants are added before round 0.
+
+    Derived from the oracle's constants and MDS in two steps:
+      1. constants moved: a partial round's constant on words 1 and 2 goes
+         through the round before it (M^-1, then past the S-box, which
+         leaves those words alone), so each partial round after the first
+         keeps one scalar k_r, added to word 0 after its S-box;
+      2. matrices factored, last partial round first: its mix N = S·P with
+         P = diag(1, N̂) (N̂ the lower-right 2x2) and S = [[n00, v], [w,
+         I]] sparse; P commutes with the S-box on word 0 and with k_r, so it
+         moves into the round before (N = P·M there); the first partial
+         round's P reaches the last full round of the first half (its mix
+         becomes P·M, and the first partial round's constants P·c).
+    Then k_r is moved past S_r into the end constants: S_r·(k_r, 0, 0)."""
+    mds = [list(r) for r in _REF_MDS]
+    c = [list(r) for r in _REF_RC]
+    first, last = _HALF, _HALF + ref.R_PARTIAL - 1  # the partial rounds' span
+    m_inv = _mat_inv(mds)
+    k = [0] * N_ROUNDS
+    for i in range(last - 1, first - 1, -1):  # step 1
+        u = _mat_vec(m_inv, c[i + 1])
+        c[i] = [c[i][0], (c[i][1] + u[1]) % FR, (c[i][2] + u[2]) % FR]
+        k[i], c[i + 1] = u[0], [0] * T
+    mixes = [mds] * N_ROUNDS
+    n = mds
+    for r in range(last, first - 1, -1):  # step 2
+        b = [row[1:] for row in n[1:]]
+        v = _mat_mul([n[0][1:]], _mat_inv(b))[0]
+        mixes[r] = [[n[0][0]] + v, [n[1][0], 1, 0], [n[2][0], 0, 1]]
+        p = [[1, 0, 0], [0] + b[0], [0] + b[1]]
+        n = _mat_mul(p, mds)
+    mixes[first - 1] = n
+    c[first] = _mat_vec(p, c[first])
+    end = [[0] * T for _ in range(N_ROUNDS)]
+    for r in range(N_ROUNDS):
+        nxt = c[r + 1] if r + 1 < N_ROUNDS else [0] * T  # moved partial rounds' are zero
+        moved = [k[r] * mixes[r][i][0] % FR for i in range(T)]
+        end[r] = [(x + y) % FR for x, y in zip(nxt, moved)]
+    return c[0], mixes, end
+
+
+_SPARSE_START, _SPARSE_MIX, _SPARSE_END = _sparse_form()
+
+
+def sparse_permutation(state) -> list[int]:
+    """The permutation over plain ints in the sparse form the kernel runs
+    (:func:`_sparse_form`); equals ``ref.permutation``."""
+    s = [(x + c) % FR for x, c in zip(state, _SPARSE_START)]
+    for r in range(N_ROUNDS):
+        s = [pow(x, ref.ALPHA, FR) for x in s] if _FULL_FLAG[r] else [pow(s[0], ref.ALPHA, FR)] + s[1:]
+        s = [(x + e) % FR for x, e in zip(_mat_vec(_SPARSE_MIX[r], s), _SPARSE_END[r])]
+    return s
+
+
+# partial rounds mix sparsely: [[a, v1, v2], [w1, 1, 0], [w2, 0, 1]]
+assert all(_SPARSE_MIX[r][1][1:] == [1, 0] and _SPARSE_MIX[r][2][1:] == [0, 1]
+           for r in range(N_ROUNDS) if not _FULL_FLAG[r])
+for _s in ([0, 0, 0], [1, 2, 3], [FR - 1, 5, 0]):
+    assert sparse_permutation(_s) == ref.permutation(_s)
+
+
 def _words(v: int) -> list[int]:
     """A value < 2^256 as 8 little-endian 32-bit words."""
     return [(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
 
 
+# csrc/poseidon.cu's PT_* layout, in 32-bit words: FR, n0 = -FR^-1 mod 2^32
+# and 7 zero words, zero, R^2 mod FR, the start constants [3], a block of 12
+# values a round ([65]: its end constants [3], then its mix [3][3] row by
+# row), the full-round flags [65], 3 zero words. Values are 8 words each, in
+# the Montgomery domain but FR, n0, zero and R^2.
+TABLE_ROUND_VALUES = T + T * T  # 3 end constants + 9 mix entries
+TABLE_LAYOUT = {"fr": 0, "n0": 8, "zero": 16, "r2": 24, "start": 32, "rounds": 56}
+TABLE_LAYOUT["full"] = TABLE_LAYOUT["rounds"] + N_ROUNDS * TABLE_ROUND_VALUES * 8
+TABLE_WORDS = TABLE_LAYOUT["full"] + N_ROUNDS + 3
+
+
+def _mont_words(v: int) -> list[int]:
+    return _words(v * _R % FR)
+
+
 def _kernel_table() -> np.ndarray:
-    """The kernel's constants (csrc/poseidon.cu's PT_* layout) as int32
-    words: FR, R^2 mod FR, -FR^-1 mod 2^32 and 7 zero words, the MDS entries
-    [3][3] and the round constants [65][3] in the Montgomery domain (8 words
-    each), the full-round flags [65], 3 zero words."""
-    words = _words(FR) + _words(_F.r2_int) + [(-pow(FR, -1, 1 << 32)) % (1 << 32)] + [0] * 7
-    for i in range(T):
-        for j in range(T):
-            words += _words(_limbs_int(_MDS_MONT[i, j]))
+    """The kernel's constants (csrc/poseidon.cu's PT_* layout, above) as
+    int32 words, from the sparse form."""
+    words = _words(FR) + [(-pow(FR, -1, 1 << 32)) % (1 << 32)] + [0] * 7 + [0] * 8 + _words(_F.r2_int)
+    words += [w for c in _SPARSE_START for w in _mont_words(c)]
     for r in range(N_ROUNDS):
-        for i in range(T):
-            words += _words(_limbs_int(_RC_MONT[r, i]))
+        values = list(_SPARSE_END[r]) + [m for row in _SPARSE_MIX[r] for m in row]
+        words += [w for v in values for w in _mont_words(v)]
     words += [int(f) for f in _FULL_FLAG] + [0] * 3
     return np.array(words, dtype=np.uint32).view(np.int32)
 
 
 KERNEL_TABLE = _kernel_table()
-assert KERNEL_TABLE.size % 4 == 0
-assert (int(KERNEL_TABLE[16]) * FR) % (1 << 32) == (1 << 32) - 1  # n0·FR ≡ -1
+assert KERNEL_TABLE.size == TABLE_WORDS and KERNEL_TABLE.size % 4 == 0
+assert (int(KERNEL_TABLE[TABLE_LAYOUT["n0"]]) * FR) % (1 << 32) == (1 << 32) - 1  # n0·FR ≡ -1
 
 
 @lru_cache(maxsize=None)

@@ -4,11 +4,15 @@ module's ``_RC_MONT``, ``_MDS_MONT`` and ``_FULL_FLAG``; the plain packed
 version (``ops/poseidon.py``) against the JAX oracle and its padding against
 the JAX ``pad_poseidon``; merkle roots with hasher ``"poseidon"`` against the
 JAX state plane's independent walker; the ``Poseidon`` HashImpl through the
-DevicePlane against its direct call; and the kernel's arithmetic
-(``csrc/poseidon.cu``) built with g++: its Montgomery product, squaring, MDS
-row and permutation against Python integers and the oracle. No JAX program
-is traced (the JAX sponge's XLA-CPU compile takes minutes); the kernel
-itself runs only on the card, through chip_smoke.py."""
+DevicePlane against its direct call; the sparse partial-round form the
+kernel runs (``ops/poseidon.py``), from its table, against the oracle's
+permutation; and the kernel's arithmetic (``csrc/poseidon.cu``) built with
+g++, a lane group's four lanes run one after another: its Montgomery
+product, squaring, MDS row, permutation and sponge against Python integers
+and the oracle, the rows of its lane programs walked for hazards, its
+launch geometry. No JAX program is traced (the JAX sponge's XLA-CPU compile
+takes minutes); the kernel itself runs only on the card, through
+chip_smoke.py."""
 
 import ctypes
 import re
@@ -52,23 +56,69 @@ extern "C" void host_fr_op(int op, const u32* a, const u32* b, const u32* table,
 
 // lane i: the permutation of the Montgomery-domain state s[24i..], in place
 extern "C" void host_permute(u32* s, const u32* table, int n) {{
-  for (int i = 0; i < n; i++) {{
-    u32* w = s + 24 * i;
-    poseidon_permute(w, w + 8, w + 16, table, table + PT_FR, table[PT_N0]);
-  }}
+  for (int i = 0; i < n; i++) poseidon_permute(s + 24 * i, table);
 }}
 
-// message i of the packed batch -> out[32 i ..], the digest as the kernel stores it
+// message i of the packed batch -> out[32 i ..], the digest as the kernel
+// stores it; with `warp`, every message runs the blocks of the batch's
+// longest, as the lane groups of one warp do
 extern "C" void host_poseidon(const uint8_t* data, const int64_t* starts, const int32_t* lengths,
-                              const u32* table, uint8_t* out, int n) {{
+                              const u32* table, uint8_t* out, int n, int warp) {{
+  int wblocks = 0;
+  for (int i = 0; i < n; i++) {{
+    const int nb = (int)(lengths[i] / POSEIDON_BLOCK_BYTES + 1);
+    wblocks = nb > wblocks ? nb : wblocks;
+  }}
   for (int i = 0; i < n; i++) {{
     u32 d[8];
-    poseidon_message(data + starts[i], lengths[i], table, d);
+    if (warp) {{
+      u32 sl[PS_SLOT_WORDS], x[8];
+      ps_message(data + starts[i], lengths[i], (int)(lengths[i] / POSEIDON_BLOCK_BYTES + 1), wblocks, sl, 1,
+                 table, x);
+      ps_digest(d, x, table);
+    }} else {{
+      poseidon_message(data + starts[i], lengths[i], table, d);
+    }}
     for (int j = 0; j < 32; j++) out[32 * i + j] = (uint8_t)(d[j >> 2] >> (8 * (j & 3)));
   }}
 }}
 
 extern "C" int host_table_words() {{ return PT_WORDS; }}
+
+// Every row of every lane program: each op's operands in range, one kind
+// a row, and no op writing a slot that another lane's op of the row reads
+// or writes (so the lanes may run a row in any order). Returns the
+// offences; *rows gets the rows walked.
+extern "C" int host_row_hazards(int* rows) {{
+  int bad = 0;
+  for (int r = 0; r < PS_PROG_ROWS; r++) {{
+    *rows = r + 1;
+    bool rd[POSEIDON_GROUP][64] = {{}}, wr[POSEIDON_GROUP][64] = {{}};
+    for (int j = 0; j < POSEIDON_GROUP; j++) {{
+      const u64 op = PS_PROGS[r][j];
+      const u32 kind = (u32)(op >> 62), d = (u32)op & 63;
+      bad += kind != (u32)(PS_PROGS[r][0] >> 62);
+      bad += d >= PS_SLOTS;
+      wr[j][d] = true;
+      // fields 1..8: a0, b0, a1, b1, a2, b2, c, e; a squaring reads a0 alone
+      for (int k = 1; k <= 8; k++) {{
+        const u32 c = (u32)(op >> (6 * k)) & 63;
+        const bool used = kind == PS_SQR ? k == 1 : k >= 7 || k <= 2 * (int)kind;
+        if (!used) continue;
+        bad += (c >= PS_SLOTS && c < PS_K0) || (c > PS_M22 && c < PS_ZERO) || c > PS_ST2;
+        if (c < PS_SLOTS) rd[j][c] = true;
+      }}
+    }}
+    for (int j = 0; j < POSEIDON_GROUP; j++)
+      for (int k = 0; k < POSEIDON_GROUP; k++)
+        for (int s = 0; s < PS_SLOTS; s++)
+          if (k != j && wr[j][s] && (rd[k][s] || wr[k][s])) bad++;
+  }}
+  return bad;
+}}
+
+extern "C" int host_slots() {{ return PS_SLOTS; }}
+extern "C" int host_prog_rows() {{ return PS_PROG_ROWS; }}
 """
 
 
@@ -114,17 +164,24 @@ def test_tables_match_the_jax_module():
     np.testing.assert_array_equal(poseidon._RC_MONT, np.asarray(jposeidon._RC_MONT, dtype=np.int64))
     np.testing.assert_array_equal(poseidon._MDS_MONT, np.asarray(jposeidon._MDS_MONT, dtype=np.int64))
     np.testing.assert_array_equal(poseidon._FULL_FLAG, np.asarray(jposeidon._FULL_FLAG, dtype=np.int64))
-    # the kernel's table: the same constants as 32-bit words, in csrc/poseidon.cu's layout
+    # the kernel's table, in csrc/poseidon.cu's layout: FR, n0, zero, R^2,
+    # then the sparse form's constants (test_sparse_form_from_the_table_...)
     t = poseidon.KERNEL_TABLE.view(np.uint32)
-    assert _ints(t[0:8]) == [FR] and _ints(t[8:16]) == [R * R % FR]
-    assert int(t[16]) * FR % (1 << 32) == (1 << 32) - 1 and not t[17:24].any()
-    mds = [v * R_INV % FR for v in _ints(t[24:96])]
-    assert mds == [m for row in ref.mds_matrix() for m in row]
-    rc_end = 96 + 65 * 24
-    rc = [v * R_INV % FR for v in _ints(t[96:rc_end])]
-    assert rc == [c for row in ref.round_constants() for c in row]
-    assert t[rc_end : rc_end + 65].tolist() == jposeidon._FULL_FLAG.tolist()
-    assert t.size == rc_end + 65 + 3 and not t[rc_end + 65 :].any()
+    assert _ints(t[0:8]) == [FR] and _ints(t[24:32]) == [R * R % FR]
+    assert int(t[8]) * FR % (1 << 32) == (1 << 32) - 1 and not t[9:24].any()
+    start = [v * R_INV % FR for v in _ints(t[32:56])]
+    assert start == [c for c in ref.round_constants()[0]]  # round 0's constants stay where they were
+    full = 56 + 65 * 96
+    rounds = [v * R_INV % FR for v in _ints(t[56:full])]
+    # the full rounds' mixes are the MDS but the last of the first half's (the moved factor's)
+    mds = [m for row in ref.mds_matrix() for m in row]
+    assert [r for r in range(65) if rounds[12 * r + 3 : 12 * r + 12] == mds] == [0, 1, 2, 61, 62, 63, 64]
+    # the full rounds' end constants are the next round's (none after the last)
+    for r in (0, 1, 2, 61, 62, 63):
+        assert rounds[12 * r : 12 * r + 3] == list(ref.round_constants()[r + 1])
+    assert rounds[12 * 64 : 12 * 64 + 3] == [0, 0, 0]
+    assert t[full : full + 65].tolist() == jposeidon._FULL_FLAG.tolist()
+    assert t.size == full + 65 + 3 and not t[full + 65 :].any()
 
 
 def test_plain_matches_the_jax_oracle_and_padding():
@@ -234,9 +291,13 @@ def host(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     lib.host_fr_op.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
     lib.host_permute.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    lib.host_poseidon.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
-    for fn in (lib.host_fr_op, lib.host_permute, lib.host_poseidon):
+    lib.host_poseidon.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+    lib.poseidon_geometry.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.host_row_hazards.argtypes = [ctypes.c_void_p]
+    for fn in (lib.host_fr_op, lib.host_permute, lib.host_poseidon, lib.poseidon_geometry):
         fn.restype = None
+    for fn in (lib.host_row_hazards, lib.host_prog_rows, lib.host_table_words, lib.host_slots):
+        fn.restype = ctypes.c_int
     lib.table = np.ascontiguousarray(poseidon.KERNEL_TABLE.view(np.uint32))
     return lib
 
@@ -307,8 +368,21 @@ def test_kernel_sponge_matches_the_oracle(host, layout):
     lengths = np.ascontiguousarray(lengths, dtype=np.int32)
     out = np.zeros((len(starts), 32), np.uint8)
     host.host_poseidon(data.ctypes.data, starts.ctypes.data, lengths.ctypes.data, host.table.ctypes.data,
-                       out.ctypes.data, len(starts))
+                       out.ctypes.data, len(starts), 0)
     assert [bytes(o) for o in out] == [ref.poseidon_hash(data[s : s + n].tobytes()) for s, n in zip(starts, lengths)]
+
+
+def test_kernel_sponge_in_a_warp_keeps_each_digest(host):
+    """Lane groups of one warp run the blocks of its longest message: a
+    message of fewer blocks absorbs zeros after its own and keeps the
+    digest of its last block (lengths 0 to 700 bytes, 1 to 12 blocks)."""
+    rng = np.random.default_rng(21)
+    msgs = [rng.bytes(int(n)) for n in (0, 61, 62, 700, 123, 5, 640, 186)]
+    data, starts, lengths = (np.ascontiguousarray(a) for a in hash_common.pack_messages(msgs))
+    out = np.zeros((len(msgs), 32), np.uint8)
+    host.host_poseidon(data.ctypes.data, starts.ctypes.data, lengths.ctypes.data, host.table.ctypes.data,
+                       out.ctypes.data, len(msgs), 1)
+    assert [bytes(o) for o in out] == [ref.poseidon_hash(m) for m in msgs]
 
 
 def test_kernel_source_design():
@@ -321,10 +395,76 @@ def test_kernel_source_design():
     assert shape == {"T": str(ref.T), "RATE": str(ref.RATE), "ROUNDS": str(ref.N_ROUNDS), "CHUNK": str(ref.CHUNK)}
     words = {f"{int(w):08x}" for w in poseidon.KERNEL_TABLE.view(np.uint32) if w > 0xFFFF}
     assert not [w for w in words if re.search(w, src, re.IGNORECASE)]
-    for needle in ("cudaGetLastError", "poseidon_geometry", "table_words != PT_WORDS", "#pragma unroll 1"):
+    for needle in ("cudaGetLastError", "poseidon_geometry", "table_words != PT_WORDS", "#pragma unroll 1",
+                   "__reduce_max_sync", "__syncwarp", "PS_LANE_FOR", "__launch_bounds__"):
         assert needle in src
 
 
 def test_host_table_length_is_the_layouts(host):
-    host.host_table_words.restype = ctypes.c_int
-    assert host.host_table_words() == poseidon.KERNEL_TABLE.size
+    assert host.host_table_words() == poseidon.KERNEL_TABLE.size == poseidon.TABLE_WORDS
+
+
+def test_lane_rows_have_no_hazards(host):
+    """No row of any lane program mixes kinds of op, reads an operand out of
+    range, or writes a slot that another lane's op of the row reads or
+    writes, so a group's lanes may run a row in any order (as the host
+    build runs them, one after another)."""
+    rows = ctypes.c_int(0)
+    assert host.host_row_hazards(ctypes.byref(rows)) == 0
+    assert rows.value == host.host_prog_rows() == 13  # absorb 1, start 1, two full rounds 8, partial 3
+
+
+@pytest.mark.parametrize("n", [1, 5, 68, 1088, 10240, 40960])
+def test_geometry_fills_the_card(host, n):
+    """Four lanes a message, 8 messages a warp: every message gets a lane
+    group; a page tree's 1,088-message level spreads over at least 100 of
+    the 132 SMs (one warp a block); a 10,240-message launch holds at least
+    two warps for each of the 528 schedulers; blocks hold at most 4 warps."""
+    out = (ctypes.c_int * 3)()
+    host.poseidon_geometry(n, out)
+    threads, blocks, smem = out
+    assert threads % 32 == 0 and 32 <= threads <= 128 and blocks * threads >= 4 * n
+    assert blocks * threads < 4 * n + threads  # no block without a message
+    assert smem == threads // 32 * 8 * host.host_slots() * 32  # a message's slots, 32 bytes each
+    if n == 1088:
+        assert blocks >= 100
+    if n >= 10240:
+        assert blocks * threads // 32 >= 2 * 132 * 4
+
+
+def _table_values(t: np.ndarray, at: int, count: int) -> list[int]:
+    """`count` 8-word values of the kernel table from word `at`, out of the
+    Montgomery domain."""
+    return [v * R_INV % FR for v in _ints(t[at : at + 8 * count])]
+
+
+def test_sparse_form_from_the_table_matches_the_oracle():
+    """The kernel's constants, read back from its table and applied in
+    Python integers as its rows apply them (start constants, then each
+    round's S-boxes, mix and end constants), give ref.permutation on seeded
+    states and on [0, 0, 0], [FR-1]*3 and [1, 0, FR-1]; every partial
+    round's mix is sparse; ops/poseidon.py's own sparse_permutation agrees."""
+    t = poseidon.KERNEL_TABLE.view(np.uint32)
+    lay = poseidon.TABLE_LAYOUT
+    start = _table_values(t, lay["start"], 3)
+    blocks = [_table_values(t, lay["rounds"] + 96 * r, 12) for r in range(65)]
+    full = t[lay["full"] : lay["full"] + 65].tolist()
+    assert full == jposeidon._FULL_FLAG.tolist()
+    for r in range(65):
+        if not full[r]:
+            assert blocks[r][3 + 4 : 3 + 6] == [1, 0] and blocks[r][3 + 7 : 3 + 9] == [0, 1]
+
+    def permute(s):
+        s = [(x + c) % FR for x, c in zip(s, start)]
+        for r in range(65):
+            end, mix = blocks[r][:3], blocks[r][3:]
+            s = [pow(x, 5, FR) for x in s] if full[r] else [pow(s[0], 5, FR)] + s[1:]
+            s = [(sum(mix[3 * i + j] * s[j] for j in range(3)) + end[i]) % FR for i in range(3)]
+        return s
+
+    rng = np.random.default_rng(0x5A)
+    states = [[int.from_bytes(rng.bytes(32), "big") % FR for _ in range(3)] for _ in range(6)]
+    states += [[0, 0, 0], [FR - 1] * 3, [1, 0, FR - 1]]
+    for s in states:
+        want = ref.permutation(s)
+        assert permute(s) == want and poseidon.sparse_permutation(s) == want
