@@ -87,9 +87,14 @@ exits non-zero, printing no result, without them. In order it:
    (one launch of each kernel, every plain version and the host challenges
    made to raise) and times it, its stages (host_pad: the byte joins and
    the pack; upload; challenge; verify; download; with ``--parent``, the
-   parent's composition in turns) and both kernels at 4, 7, 100 and 10,240
-   lanes (with ``--parent``, in turns with the parent's verify kernel and
-   its host challenges); drives ``Ed25519Crypto`` on the card, as
+   parent's kernels in the same composition, in turns), the verify kernel
+   at 4, 7, 100 and 10,240 lanes and the challenge kernel at 4, 7, 32,
+   4,224 and 10,240 (a call and alone, with its one-warp floor); with
+   ``--parent``, the verify kernel in turns with the parent's, and
+   ``verify_batch`` at 4, 7 and 10,240 lanes and the QC check
+   (``Ed25519Crypto.batch_verify``) at 4 and 7 with the parent's challenge
+   kernel in the path and with this one's, in turns; drives
+   ``Ed25519Crypto`` on the card, as
    ``Ed25519QCScheme.verify_cert`` does, ``batch_verify`` and
    ``batch_recover`` at the same sizes, counted, equal to the ops entry
    point and the oracle, and timed. The suite and Ed25519 calls of phases
@@ -146,17 +151,27 @@ exits non-zero, printing no result, without them. In order it:
    Poseidon kernel its own checkout's constants table, on the mixed block
    and the merkle level): equal
    on every lane, timed in turns parent, new, new, parent; a kernel the
-   parent lacks is not timed against it; and times both admission paths'
+   parent lacks is not timed against it (SHA-256 on its mixed block and
+   merkle level at 32, 4,224 and 10,240 lanes, the challenge at 4, 7, 32,
+   4,224 and 10,240, each kernel on fresh rows); and times both admission paths'
    stages as the parent composes them (its packed hash kernel and the
    torch ops around it) and as this checkout does, in turns parent, new,
    new, parent;
-12. times each kernel at 32, 4,224 and 10,240 lanes of its timed block (one
-   warp, one warp a SM, the block), and, with ``csrc/field_bench.cu`` built
+12. times each kernel at 32, 4,224 and 10,240 lanes of
+   its timed block (one warp, one warp a SM, the block); splits the host
+   time of a packed keccak call and of a 4-lane challenge call (with
+   ``--parent``, beside the parent's wrappers); and, with
+   ``csrc/field_bench.cu`` built
    against this checkout's sources (and the parent's, with ``--parent``),
    the cycles one warp spends on each field op and group-law op, on an
    inversion mod n (Fermat and safegcd divsteps), on Poseidon's GF(FR) ops,
    rounds and permutation and on an SM2 product as the loop body around it
-   grows (``clock64()``);
+   grows (``clock64()``), and a block of SHA-256 and SHA-512 in the
+   kernels' form and in the forms they did not take (the whole unroll,
+   passes of 8 or 16 rounds; a 700-byte message's lane through one route
+   or both, warm and cold, one lane or a round lane and a schedule lane a
+   message), the challenge's lane and pair and its reduction mod L, each
+   beside the bound's count of instructions a block;
 13. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line; the
    DevicePlane is drained first, so no request of any phase is left
@@ -269,6 +284,22 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> int:
+    """The SM clock now (nvidia-smi, MHz): read right after a timed run,
+    while the card still holds the clock it ran at."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return int(out.stdout.strip().splitlines()[0])
+
+
+def one_warp_floor_ms(cycles: int, mhz: int) -> float:
+    """What one warp can reach when the card is not full: the instructions
+    of its longest message's blocks, at one issue a cycle and `mhz`."""
+    return cycles / (mhz * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -1599,7 +1630,10 @@ def measure_sha256(card: str, device, launches: int) -> dict:
     """The SHA-256 kernel on each of sha256_timed_blocks: == its plain
     version == hashlib on every lane; a call (CUDA events) and the kernel
     alone (profiler) at 32, 4,224 and 10,240 lanes, each beside its bound
-    from those messages' compressions. Returns the mixed block's row at
+    from those messages' compressions and its one-warp floor (the longest
+    message's compressions at one issue a cycle, at the SM clock read after
+    the timing); then merkle_root over 10,240 leaves and each of its
+    levels' launches, a call and alone. Returns the mixed block's row at
     10,240 lanes, with `launches` (its path's: the merkle root)."""
     kernel, _, _, blocks, block_ops, replaces = hash_fns("sha256")
     rows = {}
@@ -1615,12 +1649,45 @@ def measure_sha256(card: str, device, launches: int) -> dict:
             )
             row.update(max_abs_err=err, plain_ms=plain_ms, launches=launches,
                        device_ms=kernel_device_ms(lambda: kernel(*part)))
-            shown.append(f"{n:,}: call {row['ms']:.4f} ms, alone {show_device_ms(row['device_ms'])}, "
-                         f"bound {row['bound_ms']:.4f} ms ({row['ops']} instructions)")
-        log(f"[{card}] sha256_packed on the {what} block: " + "; ".join(shown)
-            + f"; plain {plain_ms:.1f} ms at {BLOCK_TXS:,}")
+            shown.append((n, row, max(blocks(len(m)) for m in msgs[:n]) * block_ops))
+        mhz = sm_clock_mhz()  # once, after the timings: nvidia-smi between them lets the clock fall
+        log(f"[{card}] sha256_packed on the {what} block: " + "; ".join(
+            f"{n:,}: call {row['ms']:.4f} ms, alone {show_device_ms(row['device_ms'])}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['ops']} instructions), one-warp floor "
+            f"{one_warp_floor_ms(cycles, mhz):.4f} ms" for n, row, cycles in shown)
+            + f" (floors at {mhz} MHz); plain {plain_ms:.1f} ms at {BLOCK_TXS:,}")
         rows[what] = row
+    measure_sha256_root(card, device)
     return rows["mixed"]
+
+
+def measure_sha256_root(card: str, device) -> None:
+    """merkle_root with hasher "sha256" over 10,240 seeded leaves on the
+    card (host clock, synchronised) and each of its levels' launches: a call
+    (CUDA events) and alone (profiler), with the level's groups."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels, merkle
+
+    leaves = torch.from_numpy(np.random.default_rng(SEED + 9).integers(0, 256, (BLOCK_TXS, 32), dtype=np.uint8))
+    on_card = leaves.to(device)
+    root_ms = host_ms(lambda: merkle.merkle_root(on_card, hasher="sha256"), reps=5)
+    padded, _ = merkle._padded_leaves(on_card, 16, device)
+    levels = merkle._device_levels(padded, 16, "sha256")
+    shown = []
+    for cur in levels[:-1]:
+        # the level's packed arguments as merkle._level makes them, so that
+        # the profiler sees the kernel alone
+        first = torch.arange(0, cur.shape[0], 16, device=device)
+        args = (cur.reshape(-1), first * 32, ((cur.shape[0] - first).clamp(max=16) * 32).to(torch.int32))
+        if not torch.equal(_kernels.sha256_packed(*args), merkle._level(cur, 16, _kernels.sha256_packed)):
+            raise AssertionError("sha256 merkle level != merkle._level")
+        ms = cuda_ms(lambda args=args: _kernels.sha256_packed(*args))
+        alone = kernel_device_ms(lambda args=args: _kernels.sha256_packed(*args))
+        shown.append(f"{first.shape[0]:,} groups: call {ms:.4f} ms, alone {show_device_ms(alone)}")
+    log(f"[{card}] merkle_root (sha256) over {BLOCK_TXS:,} leaves on the card: {root_ms:.3f} ms; its "
+        f"{len(levels) - 1} levels: " + "; ".join(shown))
 
 
 def form_inputs(block, sm_block, device) -> dict:
@@ -1957,6 +2024,9 @@ def run_suite_phase(card: str, block, cases, sm_block, sm_cases, verify_cases, t
 # QC committees of 4 and 7 (consensus/qc.py verify_cert: one batch a
 # quorum), a few hundred lanes, a 10k block
 ED25519_LANES = (4, 7, 100, BLOCK_TXS)
+# the challenge kernel's timed lanes: the QC shapes (4, 7), one warp, one
+# warp a SM, the block
+CHALLENGE_LANES = (4, 7, 32, 132 * 32, BLOCK_TXS)
 ED25519_VERIFY_LAUNCHES = {"ed25519_challenge": 1, "ed25519_verify": 1}
 # the mixed block's message lengths: with the 64-byte prefix R ‖ A, every
 # SHA-512 padding edge (47/48/49 spill the length field, 63/64/65 fill a
@@ -2229,42 +2299,34 @@ def ed25519_stages(rows, device, parent=None) -> dict[str, float]:
     each run warm and ending synchronised: host_pad (the byte joins of R ‖ S
     ‖ A and the pack of the messages), upload (rows and packed messages),
     challenge (the kernel), verify (the kernel), download. With `parent`
-    (another checkout's kernels module), the stages as that checkout's
-    verify_batch ran them: host_pad hashes the challenges on the host
-    (device_inputs), upload the rows alone, no challenge stage, verify
-    through its kernel."""
+    (another checkout's kernels module), the same stages through that
+    checkout's two kernels."""
     import torch
 
-    from fisco_bcos_tpu_torch.ops import ed25519
+    from fisco_bcos_tpu_torch.ops import _kernels, ed25519
     from fisco_bcos_tpu_torch.ops.hash_common import pack_messages
 
     (msgs, pubs, sigs), _ = ed25519_tile(rows, BLOCK_TXS)
+    kernels = parent or _kernels
+    comb = ed25519.comb_words(device)
     st: dict = {}
 
     def host_pad():
-        if parent is None:
-            st["host"] = (ed25519.signature_rows(pubs, sigs), *pack_messages(msgs))
-        else:
-            st["host"] = (ed25519.device_inputs(msgs, pubs, sigs),)
+        st["host"] = (ed25519.signature_rows(pubs, sigs), *pack_messages(msgs))
 
     def upload():
         st["dev"] = [torch.from_numpy(a).to(device) for a in st["host"]]
 
     def challenge():
-        ed25519.challenge_device(*st["dev"])
+        kernels.ed25519_challenge(*st["dev"])
 
     def verify():
-        rows_dev = st["dev"][0]
-        if parent is None:
-            st["ok"] = ed25519.verify_device(rows_dev)
-        else:
-            st["ok"] = parent.ed25519_verify(rows_dev, ed25519.comb_words(device))
+        st["ok"] = kernels.ed25519_verify(st["dev"][0], comb)
 
     def download():
         st["ok"].cpu().numpy()
 
-    stages = (host_pad, upload, verify, download) if parent else (host_pad, upload, challenge, verify, download)
-    return {fn.__name__: host_ms(fn, reps=3) for fn in stages}
+    return {fn.__name__: host_ms(fn, reps=3) for fn in (host_pad, upload, challenge, verify, download)}
 
 
 def measure_ed25519_kernels(card: str, rows, device) -> tuple[dict, dict]:
@@ -2278,12 +2340,20 @@ def measure_ed25519_kernels(card: str, rows, device) -> tuple[dict, dict]:
     ch_rows, data, starts, lengths = ed25519_challenge_args(msgs, pubs, sigs, device)
     times = {
         "ed25519_verify": [cuda_ms(lambda n=n: ed25519.verify_device(dev_rows[:n])) for n in ED25519_LANES],
-        "ed25519_challenge": [cuda_ms(lambda n=n: ed25519.challenge_device(ch_rows[:n], data, starts[:n], lengths[:n]))
-                              for n in ED25519_LANES],
     }
-    for name, t in times.items():
-        log(f"[{card}] {name} kernel at " + " / ".join(f"{n:,}" for n in ED25519_LANES)
-            + " lanes: " + " / ".join(f"{x:.4f}" for x in t) + " ms")
+    log(f"[{card}] ed25519_verify kernel at " + " / ".join(f"{n:,}" for n in ED25519_LANES)
+        + " lanes: " + " / ".join(f"{x:.4f}" for x in times["ed25519_verify"]) + " ms")
+    shown = []
+    for n in CHALLENGE_LANES:
+        part = (ch_rows[:n], data, starts[:n], lengths[:n])  # cut once, outside the timed calls
+        fn = lambda part=part: ed25519.challenge_device(*part)  # noqa: E731
+        times.setdefault("ed25519_challenge", []).append(cuda_ms(fn))
+        shown.append((n, times["ed25519_challenge"][-1], kernel_device_ms(fn),
+                      ed25519_challenge_ops(max(len(m) for m in msgs[:n]))))
+    mhz = sm_clock_mhz()  # once, after the timings
+    log(f"[{card}] ed25519_challenge kernel on the timed block: " + "; ".join(
+        f"{n:,}: call {ms:.4f} ms, alone {show_device_ms(alone)}, one-warp floor "
+        f"{one_warp_floor_ms(cycles, mhz):.4f} ms" for n, ms, alone, cycles in shown) + f" (floors at {mhz} MHz)")
     host = dev_rows[: len(rows)].cpu().numpy()
     per_case = [ed25519_verify_multiplies(int.from_bytes(bytes(r[32:64]), "little"),
                                           int.from_bytes(bytes(r[96:]), "little")) for r in host]
@@ -2304,32 +2374,57 @@ def measure_ed25519_kernels(card: str, rows, device) -> tuple[dict, dict]:
 
 
 def ed25519_against_parent(card: str, parent, rows, device) -> None:
-    """At 4, 7, 100 and 10,240 lanes of the timed block, in turns parent,
-    new, new, parent (CUDA events): the verify kernel against the parent
-    checkout's (equal on every lane), and the challenge kernel against the
-    route the parent checkout takes for it, the host's hashlib challenges
-    and the upload of the rows (a host clock a call, synchronised)."""
+    """In turns parent, new, new, parent: the verify kernel against the
+    parent checkout's at 4, 7, 100 and 10,240 lanes of the timed block
+    (CUDA events; equal on every lane); then verify_batch at 4, 7 and
+    10,240 lanes and the QC check (Ed25519Crypto.batch_verify, as
+    Ed25519QCScheme.verify_cert calls it) at 4 and 7, with the parent
+    checkout's challenge kernel in the path and with this checkout's (host
+    clock a call, synchronised; equal verdicts). The challenge kernels
+    themselves are timed against each other in time_against_parent."""
+    import numpy as np
     import torch
 
-    from fisco_bcos_tpu_torch.ops import ed25519
+    from fisco_bcos_tpu_torch.crypto.suite import Ed25519Crypto
+    from fisco_bcos_tpu_torch.ops import _kernels, ed25519
 
-    (msgs, pubs, sigs), _ = ed25519_tile(rows, BLOCK_TXS)
+    (msgs, pubs, sigs), want = ed25519_tile(rows, BLOCK_TXS)
     dev_rows = ed25519_rows_tensor(msgs, pubs, sigs, device)
     comb = ed25519.comb_words(device)
-    ch_rows, data, starts, lengths = ed25519_challenge_args(msgs, pubs, sigs, device)
     for n in ED25519_LANES:
         old = lambda n=n: parent.ed25519_verify(dev_rows[:n], comb)  # noqa: E731
         new = lambda n=n: ed25519.verify_device(dev_rows[:n])  # noqa: E731
         if not torch.equal(old(), new()):
             raise AssertionError(f"ed25519_verify != the parent checkout's at {n} lanes")
         v = [cuda_ms(f) for f in (old, new, new, old)]
-        host = lambda n=n: torch.from_numpy(ed25519.device_inputs(msgs[:n], pubs[:n], sigs[:n])).to(device)  # noqa: E731
-        kernel = lambda n=n: ed25519.challenge_device(ch_rows[:n], data, starts[:n], lengths[:n])  # noqa: E731
-        c = [host_ms(host, reps=5), cuda_ms(kernel), cuda_ms(kernel), host_ms(host, reps=5)]
-        log(f"[{card}] Ed25519 at {n:,} lanes, in turns with the parent checkout: ed25519_verify parent "
-            f"{v[0]:.4f}, new {v[1]:.4f}, new {v[2]:.4f}, parent {v[3]:.4f} ms (new/parent "
-            f"{(v[1] + v[2]) / (v[0] + v[3]):.3f}); challenges: the parent's host hashlib and upload "
-            f"{c[0]:.4f}, kernel {c[1]:.4f}, kernel {c[2]:.4f}, host {c[3]:.4f} ms")
+        log(f"[{card}] ed25519_verify at {n:,} lanes, in turns with the parent checkout: parent {v[0]:.4f}, "
+            f"new {v[1]:.4f}, new {v[2]:.4f}, parent {v[3]:.4f} ms (new/parent {(v[1] + v[2]) / (v[0] + v[3]):.3f})")
+    if getattr(parent, "ed25519_challenge", None) is None:
+        log(f"[{card}] the parent checkout has no challenge kernel: its paths are not timed against this one's")
+        return
+    impl = Ed25519Crypto(device)
+    ours = _kernels.ed25519_challenge
+
+    def with_parent(fn):
+        def run():
+            _kernels.ed25519_challenge = parent.ed25519_challenge
+            try:
+                return fn()
+            finally:
+                _kernels.ed25519_challenge = ours
+        return run
+
+    calls = [("verify_batch", n, lambda n=n: ed25519.verify_batch(msgs[:n], pubs[:n], sigs[:n]))
+             for n in (4, 7, BLOCK_TXS)]
+    calls += [("QC check (Ed25519Crypto.batch_verify)", n, lambda n=n: impl.batch_verify(msgs[:n], pubs[:n], sigs[:n]))
+              for n in (4, 7)]
+    for what, n, fn in calls:
+        if not (np.array_equal(fn(), want[:n]) and np.array_equal(with_parent(fn)(), want[:n])):
+            raise AssertionError(f"{what} at {n} lanes != host oracle, with this or the parent's challenge kernel")
+        t = [host_ms(f, reps=9) for f in (with_parent(fn), fn, fn, with_parent(fn))]
+        log(f"[{card}] {what} at {n:,} lanes, the parent checkout's challenge kernel in the path and this "
+            f"one's, in turns: parent {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, parent {t[3]:.4f} ms "
+            f"(new/parent {(t[1] + t[2]) / (t[0] + t[3]):.3f})")
 
 
 def check_ed25519_suite(card: str, cases, device) -> None:
@@ -3466,9 +3561,11 @@ def load_kernels_module(checkout: str):
 def timed_kernel_args(device, block, verify_block, sm_block, forms: dict, ed_block, poseidon_blocks) -> dict:
     """Each kernel's wrapper arguments on its timed block, comb included;
     the hash kernels' packed forms' on the tx payloads, their other forms'
-    `forms` (form_inputs); Poseidon's on its mixed block and, keyed
-    "poseidon_packed@merkle level", its merkle level (run_poseidon_phase's
-    timed blocks), each with the constants table."""
+    `forms` (form_inputs); SHA-256's on its mixed block and, keyed
+    "sha256_packed@merkle level", its merkle level (sha256_timed_blocks);
+    Poseidon's on its mixed block and, keyed "poseidon_packed@merkle
+    level", its merkle level (run_poseidon_phase's timed blocks), each with
+    the constants table."""
     from fisco_bcos_tpu_torch.ops import ed25519, poseidon, secp256k1, sm2
     from fisco_bcos_tpu_torch.ops.hash_common import upload_packed
 
@@ -3481,6 +3578,8 @@ def timed_kernel_args(device, block, verify_block, sm_block, forms: dict, ed_blo
         "sm2_verify": (*sm2_device_inputs(sm_payloads, sigs128, device), sm2.comb_words(device)),
         "keccak256_packed": upload_packed(payloads, device),
         "sm3_packed": upload_packed(sm_payloads, device),
+        **{"sha256_packed" + ("" if what == "mixed" else f"@{what}"): args
+           for what, (args, _) in sha256_timed_blocks(device).items()},
         **forms,
         "ed25519_verify": (ed25519_rows_tensor(*ed25519_tile(ed_block, BLOCK_TXS)[0], device),
                            ed25519.comb_words(device)),
@@ -3546,31 +3645,58 @@ def parent_kernel_args(parent, device, verify_block, checkout: str, timed_args: 
     return out
 
 
+# lanes at which a kernel is timed against the parent checkout's (others:
+# the whole timed block)
+PARENT_LANES = {"sha256_packed": (32, 132 * 32, BLOCK_TXS), "ed25519_challenge": CHALLENGE_LANES}
+IN_PLACE = ("ed25519_challenge",)  # kernels that write their first argument
+
+
+def first_lanes(args, n: int) -> tuple:
+    """A kernel's timed arguments cut to their first n lanes (every
+    argument with a row a lane of the timed block)."""
+    return tuple(a[:n] if a.shape[0] == BLOCK_TXS else a for a in args)
+
+
 def time_against_parent(card: str, parent, timed_args: dict, parent_args: dict) -> None:
     """Each kernel and the parent checkout's on the same timed block (each
     fed its own input layout, from `parent_args` where the layouts differ):
     equal on every lane, then CUDA-event times in turns parent, new, new,
-    parent."""
+    parent; at PARENT_LANES' lane counts where it names the kernel, else
+    on the whole block. A kernel that writes its rows in place is compared
+    on fresh copies."""
     import torch
 
     from fisco_bcos_tpu_torch.ops import _kernels
 
     for name, args in timed_args.items():
-        old = getattr(parent, name.split("@")[0], None)
+        kernel = name.split("@")[0]
+        old = getattr(parent, kernel, None)
         if old is None:
             log(f"[{card}] {name}: the parent checkout has no such kernel; not timed against it")
             continue
-        new = getattr(_kernels, name.split("@")[0])
-        old_args = parent_args.get(name, args)
-        got, want = new(*args), old(*old_args)
-        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-        if not all(torch.equal(a, b) for a, b in pairs):
-            raise AssertionError(f"{name} kernel != the parent checkout's on the timed block")
-        turns = ((old, old_args), (new, args), (new, args), (old, old_args))
-        times = [cuda_ms(lambda f=f, a=a: f(*a)) for f, a in turns]
-        log(f"[{card}] {name} @ {BLOCK_TXS} lanes against the parent checkout (equal on every lane): "
-            f"parent {times[0]:.4f}, new {times[1]:.4f}, new {times[2]:.4f}, parent {times[3]:.4f} ms "
-            f"(new/parent {(times[1] + times[2]) / (times[0] + times[3]):.3f})")
+        new = getattr(_kernels, kernel)
+        for n in PARENT_LANES.get(kernel, (BLOCK_TXS,)):
+            part, old_part = first_lanes(args, n), first_lanes(parent_args.get(name, args), n)
+            if kernel in IN_PLACE:
+                got = new(part[0].clone(), *part[1:])
+                want = old(old_part[0].clone(), *old_part[1:])
+            else:
+                got, want = new(*part), old(*old_part)
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError(f"{name} kernel != the parent checkout's on the timed block at {n} lanes")
+            turns = ((old, old_part), (new, part), (new, part), (old, old_part))
+            times = [cuda_ms(lambda f=f, a=a: f(*a)) for f, a in turns]
+            alone = ""
+            if kernel in PARENT_LANES:  # the kernels alone too (profiler), in turns
+                dev = [kernel_device_ms(lambda f=f, a=a: f(*a)) for f, a in turns]
+                alone = "; alone " + ", ".join(f"{w} {show_device_ms(d)}" for w, d in
+                                               zip(("parent", "new", "new", "parent"), dev))
+                if all(dev):
+                    alone += f" (new/parent {(dev[1][0] + dev[2][0]) / (dev[0][0] + dev[3][0]):.3f})"
+            log(f"[{card}] {name} @ {n:,} lanes against the parent checkout (equal on every lane): "
+                f"parent {times[0]:.4f}, new {times[1]:.4f}, new {times[2]:.4f}, parent {times[3]:.4f} ms "
+                f"(new/parent {(times[1] + times[2]) / (times[0] + times[3]):.3f}){alone}")
 
 
 FIELD_BENCH_OPS = 31  # field_bench.cu's op codes 0..30
@@ -3674,15 +3800,37 @@ def stage_sweep(card: str, libs: dict, device) -> None:
         log(f"[{card}] keccak256 packed, staging buffer sweep on the {what} (equal digests): " + "; ".join(shown))
 
 
-def call_anatomy(card: str, args) -> None:
-    """Where the host time of one packed keccak call goes, on the tx
-    payloads (`args`): the wrapper's checks, an output allocation, the
-    current stream read as an object and as the raw handle, the bound C
-    entry point alone, the whole wrapper, and one small torch op beside
-    them. Host clock a call, the best of 5 runs of 1,000 calls."""
+def host_us(parts: dict) -> dict[str, float]:
+    """Host µs a call of each part, the best of 5 runs of 1,000 calls, the
+    card synchronised around each run."""
     import torch
 
-    from fisco_bcos_tpu_torch.ops import _kernels
+    out = {}
+    for what, part in parts.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                part()
+            runs.append((time.perf_counter() - t0) * 1e3)  # ms for 1,000 calls: µs a call
+        torch.cuda.synchronize()
+        out[what] = min(runs)
+    return out
+
+
+def call_anatomy(card: str, args, ch_args, parent=None) -> None:
+    """Where the host time of one call goes: a packed keccak call on the tx
+    payloads (`args`), and a challenge call on the first 4 lanes (a QC
+    check) of the Ed25519 timed block (`ch_args`): the wrapper's checks, an
+    output allocation, the current stream read as an object and as the raw
+    handle, the bound C entry point alone, the whole wrapper (and, for the
+    challenge, ed25519.challenge_device), and one small torch op beside
+    them; with `parent`, the parent checkout's whole wrappers beside. Host
+    clock a call, the best of 5 runs of 1,000 calls."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels, ed25519
 
     data, starts, lengths = args
     dev, b = data.device, starts.shape[0]
@@ -3699,18 +3847,28 @@ def call_anatomy(card: str, args) -> None:
         "the whole wrapper": lambda: _kernels.keccak256_packed(data, starts, lengths),
         "one small torch op (starts + 1)": lambda: starts + 1,
     }
-    shown = []
-    for what, part in parts.items():
-        runs = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(1000):
-                part()
-            runs.append((time.perf_counter() - t0) * 1e3)  # ms for 1,000 calls: µs a call
-        torch.cuda.synchronize()
-        shown.append(f"{what} {min(runs):.2f}")
-    log(f"[{card}] keccak256_packed call anatomy, host µs a call: " + ", ".join(shown))
+    if parent is not None:
+        parts["the parent checkout's whole wrapper"] = lambda: parent.keccak256_packed(data, starts, lengths)
+    log(f"[{card}] keccak256_packed call anatomy, host µs a call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host_us(parts).items()))
+    rows, data, starts, lengths = first_lanes(ch_args, 4)
+    ch, _ = _kernels._entry("ed25519_challenge")
+    b = starts.shape[0]
+    full = ch_args
+    parts = {
+        "checks": lambda: _kernels._challenge_args(rows, data, starts, lengths),
+        "three slices to 4 lanes (what the harness once timed with each call)":
+            lambda: (full[0][:4], full[2][:4], full[3][:4]),
+        "the C entry point": lambda: ch(rows.data_ptr(), data.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
+                                        b, data.numel(), dev.index, stream),
+        "the whole wrapper": lambda: _kernels.ed25519_challenge(rows, data, starts, lengths),
+        "ed25519.challenge_device": lambda: ed25519.challenge_device(rows, data, starts, lengths),
+        "one small torch op (starts + 1)": lambda: starts + 1,
+    }
+    if parent is not None and getattr(parent, "ed25519_challenge", None) is not None:
+        parts["the parent checkout's whole wrapper"] = lambda: parent.ed25519_challenge(rows, data, starts, lengths)
+    log(f"[{card}] ed25519_challenge call anatomy at 4 lanes, host µs a call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host_us(parts).items()))
 
 
 def lane_scaling(card: str, timed_args: dict) -> None:
@@ -3723,12 +3881,76 @@ def lane_scaling(card: str, timed_args: dict) -> None:
         fn = getattr(_kernels, name.split("@")[0])
         times, device = [], []
         for n in (32, 132 * 32, BLOCK_TXS):
-            part = tuple(a[:n] if a.shape[0] == BLOCK_TXS else a for a in args)
+            part = first_lanes(args, n)
             times.append(cuda_ms(lambda: fn(*part)))
             device.append(kernel_device_ms(lambda: fn(*part)))
         log(f"[{card}] {name} at 32 / 4,224 / {BLOCK_TXS:,} lanes: "
             + " / ".join(f"{t:.4f}" for t in times) + " ms a call; the kernel alone (profiler) "
             + " / ".join(map(show_device_ms, device)))
+
+
+# The field bench's hash ops (csrc/field_bench.cu op codes 31-44): (op code,
+# blocks an iteration, iterations, the bound's count of instructions a
+# block, None for the reduction mod L alone). A cold op runs once in a
+# fresh launch, with no warm-up.
+HASH_BENCH_OPS = (
+    *((op, 1, 200, SHA256_COMPRESS_OPS) for op in (31, 32, 33)),
+    *((op, 12, 20, SHA256_COMPRESS_OPS) for op in (34, 35)), (36, 12, 1, SHA256_COMPRESS_OPS),
+    (37, 12, 20, SHA256_COMPRESS_OPS), *((op, 1, 100, SHA512_BLOCK_OPS) for op in (38, 39, 40)),
+    (41, 1, 40, SHA512_BLOCK_OPS + MULS_MOD_L), (42, 1, 40, SHA512_BLOCK_OPS + MULS_MOD_L), (43, 1, 400, None),
+    (44, 1, 1, SHA512_BLOCK_OPS + MULS_MOD_L),
+)
+HASH_BENCH_COLD = (36, 44)
+
+
+def field_bench_libs(libs: dict) -> dict:
+    """{label: the field bench library loaded, its entry points bound}."""
+    import ctypes
+
+    out = {}
+    for label, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.field_bench_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+        lib.field_bench_run.restype = ctypes.c_int
+        lib.field_bench_name.argtypes = [ctypes.c_int]
+        lib.field_bench_name.restype = ctypes.c_char_p
+        out[label] = lib
+    return out
+
+
+def hash_bench(card: str, libs: dict) -> None:
+    """One warp's cycles a block (clock64(), the median of its 32 lanes) of
+    each of the field bench's hash ops, for each built library ({label:
+    path}): SHA-256's compression and SHA-512's block in the kernels' form
+    and the forms they did not take, a 700-byte message's 12 blocks through
+    one lane (the staged route alone; both routes compiled in, warm and
+    cold) and through a pair of lanes (a round lane and a schedule lane), the
+    challenge's lane (warm and cold) and pair on a 32-byte message (a block
+    and the reduction), and the reduction mod L alone; each beside the bound's count
+    of instructions a block and the instructions a cycle that makes."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    io0 = torch.randint(0, 2**31, (64 * 8,), generator=gen, dtype=torch.int64).to(torch.int32)
+    cyc = torch.zeros(32, dtype=torch.int64, device="cuda")
+    fns = field_bench_libs(libs)
+    for op, blocks, iters, ops in HASH_BENCH_OPS:
+        shown = []
+        for label, lib in fns.items():
+            io = io0.cuda()
+            err = 0 if op in HASH_BENCH_COLD else lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, 2, None)
+            err = err or lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, iters, None)
+            if err == -1:
+                shown.append(f"{label} not in this checkout")
+                continue
+            if err:
+                raise RuntimeError(f"field_bench hash op {op} failed: CUDA error {err}")
+            c = statistics.median(cyc.cpu().tolist()) / iters / blocks
+            shown.append(f"{label} {c:.1f}" + (f" ({ops / c:.3f} a cycle)" if ops else ""))
+        name = next(iter(fns.values())).field_bench_name(op).decode()
+        count = f"{ops} instructions a block by the bound's count" if ops else f"{MULS_MOD_L} multiplies"
+        log(f"[{card}] hash bench, one warp, cycles a block: {name} ({count}): " + ", ".join(shown))
 
 
 def build_field_bench(checkout: str | Path) -> Path:
@@ -3754,22 +3976,12 @@ def field_bench(card: str, libs: dict, tables: dict) -> None:
     and group-law op, and per SM2 product for loop bodies of K products,
     for each built library ({label: path}); Poseidon's ops over each
     checkout's constants table ({label: tensor on the card, or None})."""
-    import ctypes
-
     import torch
 
     gen = torch.Generator().manual_seed(SEED)
     io0 = torch.randint(0, 2**31, (64 * 8,), generator=gen, dtype=torch.int64).to(torch.int32)
     cyc = torch.zeros(32, dtype=torch.int64, device="cuda")
-    fns = {}
-    for label, path in libs.items():
-        lib = ctypes.CDLL(str(path))
-        lib.field_bench_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p]
-        lib.field_bench_run.restype = ctypes.c_int
-        lib.field_bench_name.argtypes = [ctypes.c_int]
-        lib.field_bench_name.restype = ctypes.c_char_p
-        fns[label] = lib
+    fns = field_bench_libs(libs)
 
     def cycles(label: str, op: int, iters: int) -> float | None:
         lib, table = fns[label], tables.get(label)
@@ -3976,9 +4188,10 @@ def main() -> int:
         time_against_parent(card, parent, timed_args,
                             parent_kernel_args(parent, device, verify_block, args.parent, timed_args))
     lane_scaling(card, timed_args)
-    call_anatomy(card, timed_args["keccak256_packed"])
+    call_anatomy(card, timed_args["keccak256_packed"], timed_args["ed25519_challenge"], parent)
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
     field_bench(card, bench_libs, {label: checkout_poseidon_table(c, device) for label, c in checkouts.items()})
+    hash_bench(card, bench_libs)
 
     drain_plane()  # every request of every phase answered: a failed one has raised
     rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_)

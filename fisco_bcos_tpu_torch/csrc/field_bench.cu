@@ -6,7 +6,13 @@
 // ops, rounds and permutation likewise (a message's latency: one thread a
 // message in a checkout before the lane groups, a group of four lanes
 // after; a product's REDC in u64 before them, in PTX carry chains after),
-// and 8 words handed between lanes by slots and by shuffles. Not a kernel
+// and 8 words handed between lanes by slots and by shuffles. SHA-256's
+// compression and SHA-512's block in the checkout's form and in the forms
+// the kernels did not take (the whole unroll, passes of 8 or 16 rounds), a
+// lane's 700-byte message (12 blocks) through the staged route alone and
+// with both routes compiled in, cold and warm, one lane or a round lane and
+// a schedule lane a message, the Ed25519 challenge's lane and pair and its
+// reduction mod L (op codes 31-44). Not a kernel
 // of any path: chip_smoke.py builds it against a checkout's csrc/ (-I that
 // directory; hence the angle brackets) and prints what it measures.
 //
@@ -38,6 +44,14 @@
 #define FB_HAS_POSEIDON 1
 #endif
 
+// The hash kernels' bodies in the checkout's form. hash_kernel.cuh defines
+// the CUDA error string that wide_int.cuh already gave: its copy takes
+// another name here.
+#define fisco_cuda_error_string fisco_hash_error_string
+#include <sha256.cuh>
+#include <ed25519_challenge.cu>
+#undef fisco_cuda_error_string
+
 #ifdef SLOT_WORDS
 #define FB_SQR_MM(r, a) mm_sqr(r, a)
 #define FB_SQR_FN(r, a) fn_sqr(r, a)
@@ -51,7 +65,10 @@ enum {
   FB_SM2_DBL, FB_SM2_ADD, FB_SM2_MADD, FB_SECP_DBL, FB_SECP_ADD, FB_SECP_MADD,
   FB_FN_INV_FERMAT, FB_FN_INV_DIVSTEP, FB_ED_MUL, FB_ED_SQR, FB_ED_DBL, FB_ED_ADD, FB_ED_MADD,
   FB_ED_DECOMP, FB_FR_MUL, FB_FR_SQR, FB_FR_SBOX, FB_FR_MDS_ROW, FB_FR_SPARSE_MIX, FB_PS_FULL_ROUND, FB_PS_PARTIAL_ROUND, FB_PS_PERMUTE,
-  FB_XCHG_SLOTS, FB_XCHG_SHFL, FB_OPS
+  FB_XCHG_SLOTS, FB_XCHG_SHFL, FB_SHA256_COMPRESS, FB_SHA256_COMPRESS_PASS8, FB_SHA256_COMPRESS_PASS16,
+  FB_SHA256_LANE, FB_SHA256_LANE_ROUTES, FB_SHA256_LANE_COLD, FB_SHA256_PAIR, FB_SHA512_BLOCK,
+  FB_SHA512_BLOCK_FULL, FB_SHA512_BLOCK_PASS8, FB_CHALLENGE_LANE, FB_CHALLENGE_PAIR, FB_MOD_L,
+  FB_CHALLENGE_COLD, FB_OPS
 };
 
 extern "C" const char* field_bench_name(int op) {
@@ -68,7 +85,19 @@ extern "C" const char* field_bench_name(int op) {
       "Poseidon full round, a lane group's 4 rows", "Poseidon partial round, a lane group's 3 rows",
       "Poseidon permutation (a lane group; one thread a message before)",
       "8 words between the lanes of a group: shared-memory slots (put, __syncwarp, get)",
-      "8 words between the lanes of a group: 8 __shfl_sync"};
+      "8 words between the lanes of a group: 8 __shfl_sync",
+      "SHA-256 compression, the checkout's form (all 64 rounds unrolled)",
+      "SHA-256 compression, passes of 8 rounds", "SHA-256 compression, passes of 16 rounds",
+      "SHA-256 lane, a 700-byte staged message (12 blocks), the staged route alone",
+      "SHA-256 lane, the same with both routes compiled in (the kernel's form)",
+      "SHA-256 lane, both routes, its first message in a fresh launch (cold)",
+      "SHA-256 pair, a round lane and a schedule lane a 700-byte message",
+      "SHA-512 block, the checkout's form (passes of 16 rounds)", "SHA-512 block, all 80 rounds unrolled",
+      "SHA-512 block, passes of 8 rounds",
+      "Ed25519 challenge lane, a 32-byte staged message (1 block and mod L)",
+      "Ed25519 challenge pair, a round lane and a schedule lane a 32-byte message",
+      "Ed25519 challenge, the Barrett reduction mod L",
+      "Ed25519 challenge lane, its first message in a fresh launch (cold)"};
   return op >= 0 && op < FB_OPS ? names[op] : "";
 }
 
@@ -254,6 +283,261 @@ static int launch_poseidon(u32* io, long long* cyc, int iters, const u32* table)
 }
 #endif  // FB_HAS_POSEIDON
 
+#ifdef SHA512_PASS  // this checkout's hash forms; an earlier checkout's sources lack SHA512_PASS
+// The forms the kernels did not take, kept to be timed against theirs
+// (PERF.md §6). A compression whose rounds after the first 16 run in
+// rolled passes of PASS unrolled rounds (FULL: all unrolled); with passes of
+// 8 the 16-word window turns half way, so that slot k holds W[t0 - 8 + k].
+#define FB_FULL 0
+template <int PASS>
+__device__ void fb_sha256_compress(uint32_t* v, uint32_t* w) {
+  uint32_t s[8];
+  for (int k = 0; k < 8; k++) s[k] = v[k];
+#pragma unroll
+  for (int j = 0; j < 16; j++) sha256_round(s, j, SHA256_K[j] + w[j]);
+#pragma unroll 1
+  for (int t0 = 16; t0 < 64; t0 += PASS) {
+#pragma unroll
+    for (int j = 0; j < PASS; j++) {
+      sha256_expand(w, j);
+      sha256_round(s, j, SHA256_K[t0 + j] + w[j]);
+    }
+    if constexpr (PASS == 8) {
+#pragma unroll
+      for (int k = 0; k < 8; k++) {
+        const uint32_t x = w[k];
+        w[k] = w[k + 8];
+        w[k + 8] = x;
+      }
+    }
+  }
+  for (int k = 0; k < 8; k++) v[k] += s[k];
+}
+
+template <int PASS>
+__device__ void fb_sha512_compress(uint64_t* h, uint64_t* w) {
+  uint64_t s[8];
+  for (int k = 0; k < 8; k++) s[k] = h[k];
+#pragma unroll
+  for (int j = 0; j < 16; j++) sha512_round(s, j, SHA512_K[j] + w[j]);
+  if constexpr (PASS == FB_FULL) {
+#pragma unroll
+    for (int j = 16; j < 80; j++) {
+      sha512_expand(w, j);
+      sha512_round(s, j, SHA512_K[j] + w[j & 15]);
+    }
+  } else {
+#pragma unroll 1
+    for (int t0 = 16; t0 < 80; t0 += PASS) {
+#pragma unroll
+      for (int j = 0; j < PASS; j++) {
+        sha512_expand(w, j);
+        sha512_round(s, j, SHA512_K[t0 + j] + w[j]);
+      }
+      if constexpr (PASS == 8) {
+#pragma unroll
+        for (int k = 0; k < 8; k++) {
+          const uint64_t x = w[k];
+          w[k] = w[k + 8];
+          w[k + 8] = x;
+        }
+      }
+    }
+  }
+  for (int k = 0; k < 8; k++) h[k] += s[k];
+}
+
+// Two lanes a message, the design the kernels did not take: lane t of a
+// warp serves message t % 16, as its round lane below 16 and its schedule
+// lane above. A slot holds a block's round inputs W[t] + K[t] (SHA-512: of
+// rounds 16-79, two words each, low first) and 4 words of padding, so that 8
+// messages' slots at that stride (a quarter-warp's 16-byte accesses) fall
+// on 32 distinct banks.
+#define FB_SHA256_SLOT 68
+#define FB_SHA512_SLOT 132
+
+// SHA-256's schedule lane on block blk: its 64 round inputs into kw.
+__device__ void fb_sha256_schedule(const MsgReader& msg, uint32_t len, uint32_t blk, uint32_t* kw) {
+  uint32_t w[16];
+  sha256_block(msg, len, blk, w);
+#pragma unroll
+  for (int j = 0; j < 16; j += 4)
+    *(uint4*)(kw + j) = make_uint4(w[j] + SHA256_K[j], w[j + 1] + SHA256_K[j + 1],
+                                   w[j + 2] + SHA256_K[j + 2], w[j + 3] + SHA256_K[j + 3]);
+#pragma unroll 1
+  for (int t0 = 16; t0 < 64; t0 += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; j++) sha256_expand(w, j);
+#pragma unroll
+    for (int j = 0; j < 16; j += 4)
+      *(uint4*)(kw + t0 + j) = make_uint4(w[j] + SHA256_K[t0 + j], w[j + 1] + SHA256_K[t0 + j + 1],
+                                          w[j + 2] + SHA256_K[t0 + j + 2], w[j + 3] + SHA256_K[t0 + j + 3]);
+  }
+}
+
+// SHA-256's round lane on one block: v += CF(v, block) from kw, one 16-byte
+// read every four rounds.
+__device__ void fb_sha256_rounds(uint32_t* v, const uint32_t* kw) {
+  uint32_t s[8];
+  for (int k = 0; k < 8; k++) s[k] = v[k];
+#pragma unroll 1
+  for (int t0 = 0; t0 < 64; t0 += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; j += 4) {
+      const uint4 q = *(const uint4*)(kw + t0 + j);
+      sha256_round(s, j, q.x);
+      sha256_round(s, j + 1, q.y);
+      sha256_round(s, j + 2, q.z);
+      sha256_round(s, j + 3, q.w);
+    }
+  }
+  for (int k = 0; k < 8; k++) v[k] += s[k];
+}
+
+// SHA-512's schedule lane on block blk: rounds 16-79's inputs into slot.
+__device__ void fb_sha512_schedule(const uint64_t* prefix, const MsgReader& msg, uint32_t len, uint32_t blk,
+                                   uint32_t* slot) {
+  uint64_t w[16];
+  sha512_block(prefix, msg, len, blk, w);
+#pragma unroll 1
+  for (int t0 = 16; t0 < 80; t0 += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; j++) sha512_expand(w, j);
+#pragma unroll
+    for (int j = 0; j < 16; j += 2) {
+      const uint64_t a = w[j] + SHA512_K[t0 + j], b = w[j + 1] + SHA512_K[t0 + j + 1];
+      *(uint4*)(slot + 2 * (t0 - 16 + j)) = make_uint4((uint32_t)a, (uint32_t)(a >> 32), (uint32_t)b,
+                                                       (uint32_t)(b >> 32));
+    }
+  }
+}
+
+// SHA-512's round lane: rounds 16-79 of a block from its slot, then h += s.
+__device__ void fb_sha512_rounds_from(uint64_t* h, uint64_t* s, const uint32_t* slot) {
+#pragma unroll 1
+  for (int t0 = 16; t0 < 80; t0 += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; j += 2) {
+      const uint4 q = *(const uint4*)(slot + 2 * (t0 - 16 + j));
+      sha512_round(s, j, (uint64_t)q.y << 32 | q.x);
+      sha512_round(s, j + 1, (uint64_t)q.w << 32 | q.z);
+    }
+  }
+  for (int k = 0; k < 8; k++) h[k] += s[k];
+}
+#endif  // SHA512_PASS
+
+// The hashes' ops for one warp. Each lane's message lies in shared memory
+// at an offset of its own mod 4 (the staged route's words); an iteration's
+// result is folded back into the message or the state, so that no iteration
+// can be hoisted. `staged` is always true at run time but unknown to the
+// compiler, so a "both routes" op compiles the direct route too, as the
+// kernels do. Cycles an iteration: one compression or block, one message
+// (a pair's: one message a lane pair), one reduction; the cold ops record
+// the first iteration alone.
+#define FB_MSG_WORDS 176  // a lane's 704 bytes: a 700-byte message at an offset of 0-3
+#define FB_SLOT_WORDS 2176  // the larger of the pairs' slots: 2 x 16 x 68 (SHA-256), 16 x 132
+
+template <int OP>
+__global__ void hash_bench(u32* io, long long* cyc, int iters) {
+  __shared__ __align__(16) uint32_t msgs[32 * FB_MSG_WORDS + 8];
+  __shared__ __align__(16) uint32_t slots[FB_SLOT_WORDS];
+  const int lane = threadIdx.x;
+  for (int k = lane; k < 32 * FB_MSG_WORDS + 8; k += 32) msgs[k] = io[k & 511] * 2654435761u + (uint32_t)k;
+  __syncwarp();
+  uint32_t v[8], w[16], ra[16], x[16], kk[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  uint64_t h[8], w64[16];
+  for (int i = 0; i < 16; i++) {
+    w[i] = io[16 * lane + i];
+    ra[i] = io[(16 * lane + 5 * i) & 511];
+    x[i] = w[i] ^ ra[i];
+    w64[i] = (uint64_t)w[i] << 32 | ra[i];
+  }
+  for (int i = 0; i < 8; i++) v[i] = w[i] ^ w[i + 8], h[i] = w64[i] ^ w64[i + 8];
+  const bool staged = iters > 0;
+  const int m = OP == FB_SHA256_PAIR || OP == FB_CHALLENGE_PAIR ? lane & 15 : lane;
+  const uint32_t off = (uint32_t)m * 4 * FB_MSG_WORDS + (m & 3);  // the lane's message, in bytes
+  uint32_t* own = msgs + off / 4 + 1;  // a word of it, which each iteration changes
+  long long t0 = clock64(), first = 0;
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) {
+    if (OP == FB_SHA256_COMPRESS) sha256_compress(v, w), w[0] ^= v[0];
+    if (OP == FB_SHA512_BLOCK) sha512_compress(h, w64), w64[0] ^= h[0];
+    if (OP == FB_MOD_L) {  // every word of x changes, so no product can be hoisted
+      mod_l(x, kk);
+      for (int i = 0; i < 16; i++) x[i] += kk[i & 7];
+    }
+#ifdef SHA512_PASS  // this checkout's forms
+    if (OP == FB_SHA256_COMPRESS_PASS16) fb_sha256_compress<16>(v, w), w[0] ^= v[0];
+    if (OP == FB_SHA256_COMPRESS_PASS8) fb_sha256_compress<8>(v, w), w[0] ^= v[0];
+    if (OP == FB_SHA512_BLOCK_FULL) fb_sha512_compress<FB_FULL>(h, w64), w64[0] ^= h[0];
+    if (OP == FB_SHA512_BLOCK_PASS8) fb_sha512_compress<8>(h, w64), w64[0] ^= h[0];
+    if (OP == FB_SHA256_LANE) sha256_lane(MsgReader::staged(msgs, off), 700, 12, v), *own ^= v[0];
+    if (OP == FB_SHA256_LANE_ROUTES || OP == FB_SHA256_LANE_COLD) {
+      const MsgReader r = staged ? MsgReader::staged(msgs, off) : MsgReader::direct((const uint8_t*)io);
+      sha256_lane(r, 700, 12, v);
+      *own ^= v[0];
+    }
+    if (OP == FB_SHA256_PAIR) {  // phase p: the schedule lane fills block p's slot, the round lane runs p - 1's
+      for (int i = 0; i < 8; i++) v[i] = SHA256_IV[i];
+      const int nb = (int)sha256_blocks_of(700);
+      uint32_t* slot = slots + m * FB_SHA256_SLOT;  // and its second slot, `stride` words on
+      const int stride = 16 * FB_SHA256_SLOT;
+      for (int p = 0; p <= nb; p++) {
+        if (lane >= 16 && p < nb) fb_sha256_schedule(MsgReader::staged(msgs, off), 700, p, slot + (p & 1) * stride);
+        if (lane < 16 && p >= 1) fb_sha256_rounds(v, slot + ((p - 1) & 1) * stride);
+        __syncwarp();
+      }
+      if (lane < 16) *own ^= v[0];
+      __syncwarp();
+    }
+    if (OP == FB_CHALLENGE_LANE || OP == FB_CHALLENGE_COLD) {
+      challenge_lane(ra, MsgReader::staged(msgs, off), 32, 1, kk);
+      *own ^= kk[0];
+    }
+    if (OP == FB_CHALLENGE_PAIR) {  // the schedule lane fills the slot while the round lane runs 0-15
+      uint64_t prefix[8], s[8], w1[16];
+      uint32_t* slot = slots + m * FB_SHA512_SLOT;
+      ra_prefix(ra, prefix);
+      for (int i = 0; i < 8; i++) h[i] = SHA512_IV[i];
+      if (lane >= 16) {
+        fb_sha512_schedule(prefix, MsgReader::staged(msgs, off), 32, 0, slot);
+      } else {
+        sha512_block(prefix, MsgReader::staged(msgs, off), 32, 0, w1);
+        for (int i = 0; i < 8; i++) s[i] = h[i];
+#pragma unroll
+        for (int j = 0; j < 16; j++) sha512_round(s, j, SHA512_K[j] + w1[j]);
+      }
+      __syncwarp();
+      if (lane < 16) fb_sha512_rounds_from(h, s, slot), challenge_finish(h, kk), *own ^= kk[0];
+      __syncwarp();
+    }
+#else  // the parent's forms: a reader type a route
+    if (OP == FB_SHA256_LANE) Sha256::message(WordReader{msgs, off}, 700, v), *own ^= v[0];
+    if (OP == FB_SHA256_LANE_ROUTES || OP == FB_SHA256_LANE_COLD) {
+      if (staged) Sha256::message(WordReader{msgs, off}, 700, v);
+      else Sha256::message(ByteReader{(const uint8_t*)io}, 700, v);
+      *own ^= v[0];
+    }
+    if (OP == FB_CHALLENGE_LANE || OP == FB_CHALLENGE_COLD) {
+      challenge_lane(ra, WordReader{msgs, off}, 32, kk);
+      *own ^= kk[0];
+    }
+#endif
+    if ((OP == FB_SHA256_LANE_COLD || OP == FB_CHALLENGE_COLD) && k == 0) first = clock64() - t0;
+  }
+  long long t1 = clock64();
+  for (int i = 0; i < 8; i++) io[8 * lane + i] = v[i] ^ kk[i] ^ x[i] ^ w[i] ^ (uint32_t)h[i] ^ (uint32_t)w64[i];
+  io[8 * lane] ^= msgs[lane];
+  cyc[lane] = OP == FB_SHA256_LANE_COLD || OP == FB_CHALLENGE_COLD ? first : t1 - t0;
+}
+
+template <int OP>
+static int launch_hash(u32* io, long long* cyc, int iters) {
+  hash_bench<OP><<<1, 32>>>(io, cyc, iters);
+  return (int)cudaDeviceSynchronize();
+}
+
 // K dependent SM2 products a loop iteration: the loop body is ~K products
 // of code.
 template <int K>
@@ -290,7 +574,8 @@ static int launch_op(u32* io, long long* cyc, int iters) {
 }
 
 // Runs op `op` (or, for op = 100 + K, the body-size bench with K products a
-// body) `iters` times in one warp; cyc gets each lane's cycles. `table`:
+// body) `iters` times in one warp; cyc gets each lane's cycles (for a
+// cold op, the first iteration's). `table`:
 // the checkout's Poseidon constants on the card (ops/poseidon.py
 // KERNEL_TABLE), or null; an op the checkout lacks returns -1.
 extern "C" int field_bench_run(void* io, void* cyc, int op, int iters, const void* table) {
@@ -340,6 +625,22 @@ extern "C" int field_bench_run(void* io, void* cyc, int op, int iters, const voi
     case FB_PS_PERMUTE: return launch_poseidon<FB_PS_PERMUTE>(w, c, iters, tab);
     case FB_XCHG_SLOTS: return launch_poseidon<FB_XCHG_SLOTS>(w, c, iters, tab);
     case FB_XCHG_SHFL: return launch_poseidon<FB_XCHG_SHFL>(w, c, iters, tab);
+#endif
+    case FB_SHA256_COMPRESS: return launch_hash<FB_SHA256_COMPRESS>(w, c, iters);
+    case FB_SHA256_LANE: return launch_hash<FB_SHA256_LANE>(w, c, iters);
+    case FB_SHA256_LANE_ROUTES: return launch_hash<FB_SHA256_LANE_ROUTES>(w, c, iters);
+    case FB_SHA256_LANE_COLD: return launch_hash<FB_SHA256_LANE_COLD>(w, c, iters);
+    case FB_SHA512_BLOCK: return launch_hash<FB_SHA512_BLOCK>(w, c, iters);
+    case FB_CHALLENGE_LANE: return launch_hash<FB_CHALLENGE_LANE>(w, c, iters);
+    case FB_MOD_L: return launch_hash<FB_MOD_L>(w, c, iters);
+    case FB_CHALLENGE_COLD: return launch_hash<FB_CHALLENGE_COLD>(w, c, iters);
+#ifdef SHA512_PASS
+    case FB_SHA256_COMPRESS_PASS8: return launch_hash<FB_SHA256_COMPRESS_PASS8>(w, c, iters);
+    case FB_SHA256_COMPRESS_PASS16: return launch_hash<FB_SHA256_COMPRESS_PASS16>(w, c, iters);
+    case FB_SHA256_PAIR: return launch_hash<FB_SHA256_PAIR>(w, c, iters);
+    case FB_SHA512_BLOCK_FULL: return launch_hash<FB_SHA512_BLOCK_FULL>(w, c, iters);
+    case FB_SHA512_BLOCK_PASS8: return launch_hash<FB_SHA512_BLOCK_PASS8>(w, c, iters);
+    case FB_CHALLENGE_PAIR: return launch_hash<FB_CHALLENGE_PAIR>(w, c, iters);
 #endif
     case 101: body_size_bench<1><<<1, 32>>>(w, c, iters); break;
     case 104: body_size_bench<4><<<1, 32>>>(w, c, iters); break;

@@ -123,6 +123,91 @@ struct WordReader {
   }
 };
 
+// Bytes of the 8-byte value hi:lo picked by a selector's nibbles: byte k of
+// the result is byte (sel >> 4k) & 7 of it. One PRMT on the card.
+HDEV uint32_t byte_perm(uint32_t lo, uint32_t hi, uint32_t sel) {
+#ifdef __CUDA_ARCH__
+  return __byte_perm(lo, hi, sel);
+#else
+  const uint64_t x = (uint64_t)hi << 32 | lo;
+  uint32_t r = 0;
+  for (int k = 0; k < 4; k++) r |= (uint32_t)(x >> (8 * ((sel >> (4 * k)) & 7)) & 0xFF) << (8 * k);
+  return r;
+#endif
+}
+
+// A message through either route, the route chosen at run time, so that the
+// code that consumes its words is compiled once (sha256.cuh,
+// ed25519_challenge.cu): its bytes as 4-byte aligned words (staged, in shared
+// memory on the card: `words` not null, the message from byte `off` on; the
+// words must run 4 bytes past the last one read) or where they lie (`bytes`,
+// global memory; no byte outside the message is loaded). It reads N
+// big-endian 32-bit words at a time, from a multiple of 4 bytes into the
+// message, with one test of the route for all N: a staged word is one
+// byte_perm of two aligned words, its selector fixed by off mod 4.
+struct MsgReader {
+  const uint32_t* words;
+  uint32_t off;
+  const uint8_t* bytes;
+  uint32_t sel;
+
+  static HINL MsgReader staged(const uint32_t* w, uint32_t off) {
+    const uint32_t r = off & 3;
+    return MsgReader{w, off, nullptr, r << 12 | (r + 1) << 8 | (r + 2) << 4 | (r + 3)};
+  }
+  static HINL MsgReader direct(const uint8_t* p) { return MsgReader{nullptr, 0, p, 0}; }
+
+  // message bytes [i, i + 4N), all inside the message
+  template <int N>
+  HINL void be32s(uint32_t i, uint32_t* out) const {
+    if (words) {
+      const uint32_t q = (off + i) >> 2;
+      uint32_t lo = words[q];
+#pragma unroll
+      for (int k = 0; k < N; k++) {
+        const uint32_t hi = words[q + k + 1];
+        out[k] = byte_perm(lo, hi, sel);
+        lo = hi;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; k++) out[k] = load_bytes<uint32_t, 4, true>(bytes + i + 4 * k, 4);
+    }
+  }
+
+  // bytes [i, i + 4N) of which the first `rem` (any value) are the
+  // message's and the rest read as zero; a staged word wholly past the
+  // message is read from word 0 and masked, a direct one not loaded
+  template <int N>
+  HINL void be32s_head(uint32_t i, int rem, uint32_t* out) const {
+    if (words) {
+      const uint32_t q = (off + i) >> 2;
+#pragma unroll
+      for (int k = 0; k < N; k++) {
+        const int b = rem - 4 * k;  // message bytes from this word's start on
+        const uint32_t qk = b > 0 ? q + k : 0;
+        const uint32_t v = byte_perm(words[qk], words[qk + 1], sel);
+        out[k] = b >= 4 ? v : b > 0 ? v & ~(0xFFFFFFFFu >> (8 * b)) : 0u;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; k++) {
+        const int b = rem - 4 * k;
+        out[k] = load_bytes<uint32_t, 4, true>(bytes + i + 4 * k, b <= 0 ? 0 : b >= 4 ? 4 : b);
+      }
+    }
+  }
+};
+
+// The warp meets (__syncwarp on the card; nothing in a host build, which
+// runs one lane at a time): lanes that took different branches run what
+// follows together, as one copy of it.
+HDEV void warp_meet() {
+#ifdef __CUDA_ARCH__
+  __syncwarp();
+#endif
+}
+
 // [16] int32 16-bit limbs (little-endian, as the EC kernels keep a 256-bit
 // value) -> [8] big-endian 32-bit words: the value's 32 bytes, big-endian.
 // Only each limb's low 16 bits count, as in limbs_to_bytes_device.

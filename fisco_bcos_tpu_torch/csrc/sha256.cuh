@@ -1,12 +1,22 @@
 // SHA-256 (FIPS 180-4) of one message, padded in registers: the arithmetic
-// of sha256.cu, host compilable. A message comes through a reader
-// (hash_kernel.cuh) as 64-byte blocks of big-endian words; the padding is
-// SM3's (sm3.cuh): 0x80, zeros, the 64-bit big-endian bit length.
+// of sha256.cu, host compilable. A message comes through a MsgReader
+// (hash_kernel.cuh: staged words or its bytes where they lie, chosen at run
+// time, so the compression below is compiled once) as 64-byte blocks of
+// big-endian words; the padding is SM3's (sm3.cuh): 0x80, zeros, the 64-bit
+// big-endian bit length.
 //
-// The chaining state is 8 32-bit words in registers. The message schedule
-// runs over a rolling window of 16 words: at round j >= 16 the slot j & 15
-// holds W[j-16] and receives W[j]. The 64 rounds unroll, so every slot index
-// and every K[j] is a constant.
+// A block wholly inside the message loads as 16 plain words; only the last
+// one or two blocks form the padding, in 32-bit arithmetic.
+//
+// The chaining state is 8 32-bit words in registers; a round writes only d
+// and h, and the next round renames the eight (round j names s[(k - j) & 7]
+// the k-th of a..h), so after 8 rounds the names are back where they began.
+// The message schedule runs over a rolling window of 16 words: at round
+// t >= 16 the slot t & 15 holds W[t-16] and receives W[t]. All 64 rounds
+// are unrolled, about 1.4 k instructions: on chip_smoke.py's field bench
+// the fastest form a block on the H100 (no constant loads of K, no renaming
+// at a pass's end; the bench keeps passes of 8 and 16 rounds to time
+// against it), and its one copy stays far inside the instruction cache.
 
 #ifndef FISCO_SHA256_CUH
 #define FISCO_SHA256_CUH
@@ -34,81 +44,102 @@ HCONST uint32_t SHA256_IV[8] = {
 // x >>> n for n in 1..31
 HDEV uint32_t rotr32(uint32_t x, int n) { return (x >> n) | (x << (32 - n)); }
 
+// Round j (j mod 8 names the registers of s) with kw = K[t] + W[t]
+HDEV void sha256_round(uint32_t* s, int j, uint32_t kw) {
+  const uint32_t a = s[(8 - j) & 7], b = s[(9 - j) & 7], c = s[(10 - j) & 7];
+  const uint32_t e = s[(12 - j) & 7], f = s[(13 - j) & 7], g = s[(14 - j) & 7];
+  uint32_t& d = s[(11 - j) & 7];
+  uint32_t& h = s[(15 - j) & 7];
+  const uint32_t t1 = h + (rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25)) + ((e & f) ^ (~e & g)) + kw;
+  d += t1;
+  h = t1 + (rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22)) + ((a & b) ^ (a & c) ^ (b & c));
+}
+
+// W[t] into slot j & 15 of the window, over W[t - 16] (t = j mod 16)
+HDEV void sha256_expand(uint32_t* w, int j) {
+  const uint32_t w15 = w[(j + 1) & 15], w2 = w[(j + 14) & 15];
+  w[j & 15] += (rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3)) + w[(j + 9) & 15] +
+               (rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10));
+}
+
 // One compression: v += CF(v, block); w holds the block's 16 big-endian
 // words and is used as the schedule's window.
 HDEV void sha256_compress(uint32_t* v, uint32_t* w) {
-  uint32_t a = v[0], b = v[1], c = v[2], d = v[3], e = v[4], f = v[5], g = v[6], h = v[7];
+  uint32_t s[8];
 #pragma unroll
-  for (int j = 0; j < 64; j++) {
-    if (j >= 16) {  // W[j] = s1(W[j-2]) + W[j-7] + s0(W[j-15]) + W[j-16]
-      const uint32_t w15 = w[(j + 1) & 15], w2 = w[(j + 14) & 15];
-      const uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
-      w[j & 15] += s0 + w[(j + 9) & 15] + s1;
-    }
-    const uint32_t big_s1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
-    const uint32_t ch = (e & f) ^ (~e & g);
-    const uint32_t t1 = h + big_s1 + ch + SHA256_K[j] + w[j & 15];
-    const uint32_t big_s0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
-    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + big_s0 + maj;
+  for (int k = 0; k < 8; k++) s[k] = v[k];
+#pragma unroll
+  for (int j = 0; j < 16; j++) sha256_round(s, j, SHA256_K[j] + w[j]);
+#pragma unroll
+  for (int j = 16; j < 64; j++) {
+    sha256_expand(w, j);
+    sha256_round(s, j, SHA256_K[j] + w[j & 15]);
   }
-  v[0] += a; v[1] += b; v[2] += c; v[3] += d;
-  v[4] += e; v[5] += f; v[6] += g; v[7] += h;
+#pragma unroll
+  for (int k = 0; k < 8; k++) v[k] += s[k];
 }
 
-// SHA-256 of msg[0..len) (a ByteReader or a WordReader) from the IV into v:
-// (len + 8) / 64 + 1 blocks, the padding formed word by word as they load.
-template <class R>
-HDEV void sha256_absorb(uint32_t* v, const R& msg, int64_t len) {
-  const int64_t nblocks = (len + 8) / 64 + 1;
-  const uint64_t bits = (uint64_t)len * 8;
+// Blocks of a message of len bytes: room for 0x80 and the 8-byte length
+HDEV uint32_t sha256_blocks_of(uint32_t len) { return (len + 8) / 64 + 1; }
+
+// Block blk of the padded message as 16 big-endian words. A block wholly
+// inside the message is 16 plain reads; a tail block (the last one or two)
+// reads the message bytes it holds, puts 0x80 after them and, if it is the
+// last, the bit length in its last two words.
+HDEV void sha256_block(const MsgReader& msg, uint32_t len, uint32_t blk, uint32_t* w) {
+  const uint32_t off = 64 * blk;
+  if (off + 64 <= len) {
+    msg.be32s<16>(off, w);
+    return;
+  }
+  const int rem = (int)(len - off);  // message bytes from the block's start on: below 64, maybe below 0
+  msg.be32s_head<16>(off, rem, w);
 #pragma unroll
-  for (int i = 0; i < 8; i++) v[i] = SHA256_IV[i];
-  for (int64_t blk = 0; blk < nblocks; blk++) {
-    const int64_t off = blk * 64;
-    const int64_t rem = len - off;  // message bytes from this block's start on
-    uint32_t w[16];
+  for (int i = 0; i < 16; i++) {
+    const int k = rem - 4 * i;  // message bytes from this word's start on
+    w[i] |= k >= 0 && k < 4 ? 0x80u << (24 - 8 * k) : 0u;
+  }
+  if (rem < 56) {  // the last block: words 14 and 15 hold no message byte
+    w[14] = len >> 29;
+    w[15] = len << 3;
+  }
+}
+
+// SHA-256 of the len bytes through `msg`, one lane: the chaining value
+// (big-endian words) into v. The lane runs wb blocks, as many as the
+// longest message of its warp (at least its own): past its own last block
+// it compresses zeros and keeps its chaining value, so every block of the
+// warp is one pass of all its lanes. After a block's words are formed,
+// the warp meets: its lanes that loaded a full block and those that padded
+// a tail run the one copy of the compression together.
+HDEV void sha256_lane(const MsgReader& msg, uint32_t len, uint32_t wb, uint32_t* v) {
 #pragma unroll
-    for (int i = 0; i < 16; i++) {
-      const int64_t k = rem - 4 * i;  // message bytes from this word's start on
-      uint32_t word = msg.be32(off + 4 * i, k);
-      if (k >= 0 && k < 4) word |= 0x80u << (24 - 8 * k);
-      w[i] = word;
+  for (int k = 0; k < 8; k++) v[k] = SHA256_IV[k];
+  const uint32_t nb = sha256_blocks_of(len);
+#pragma unroll 1
+  for (uint32_t blk = 0; blk < wb; blk++) {
+    uint32_t w[16], u[8];
+    if (blk < nb) {
+      sha256_block(msg, len, blk, w);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; i++) w[i] = 0;
     }
-    if (blk == nblocks - 1) {
-      w[14] |= (uint32_t)(bits >> 32);
-      w[15] |= (uint32_t)bits;
-    }
-    sha256_compress(v, w);
+    warp_meet();
+#pragma unroll
+    for (int k = 0; k < 8; k++) u[k] = v[k];
+    sha256_compress(u, w);
+#pragma unroll
+    for (int k = 0; k < 8; k++) v[k] = blk < nb ? u[k] : v[k];
   }
 }
 
 // sha256(msg[0..len)) -> out[0..32), big-endian, the bytes read where they lie.
 HDEV void sha256_message(const uint8_t* msg, int64_t len, uint8_t* out) {
   uint32_t v[8];
-  sha256_absorb(v, ByteReader{msg}, len);
+  sha256_lane(MsgReader::direct(msg), (uint32_t)len, sha256_blocks_of((uint32_t)len), v);
 #pragma unroll
   for (int i = 0; i < 32; i++) out[i] = (uint8_t)(v[i >> 2] >> (24 - 8 * (i & 3)));
 }
-
-// The kernel body's hash policy (hash_kernel.cuh): digests leave as memory
-// order words (d[j] = bytes 4j..4j+3, little-endian).
-struct Sha256 {
-  template <class R>
-  HDEV void message(const R& msg, int64_t len, uint32_t* d) {
-    uint32_t v[8];
-    sha256_absorb(v, msg, len);
-#pragma unroll
-    for (int i = 0; i < 8; i++) d[i] = bswap32(v[i]);
-  }
-};
 
 #endif  // FISCO_SHA256_CUH

@@ -333,6 +333,18 @@ def ed25519_verify(rows, comb):
     return ok
 
 
+def _challenge_args(rows, data, starts, lengths) -> tuple[torch.device, int]:
+    """Checks of the challenge kernel's inputs: the packed batch's
+    (:func:`_packed_args`), and rows uint8 [>= B, 128], contiguous, 16-byte
+    aligned, on the same device. Returns (device, B)."""
+    dev, b, _ = _packed_args("ed25519_challenge", data, starts, lengths, None)
+    _require(rows, "rows", torch.uint8, (rows.shape[0], 128), dev)
+    if rows.shape[0] < b:
+        raise ValueError(f"ed25519_challenge: {rows.shape[0]} rows for {b} messages")
+    _aligned16(rows, "rows", "ed25519_challenge")
+    return dev, b
+
+
 def ed25519_challenge(rows, data, starts, lengths):
     """Launch the Ed25519 challenge kernel over a packed batch of B messages
     (data uint8 [N], starts int64 [B], lengths int32 [B]; every range inside
@@ -340,11 +352,7 @@ def ed25519_challenge(rows, data, starts, lengths):
     all on one CUDA device: writes each message's k_neg = (L - SHA-512(R ‖ A
     ‖ M) mod L) mod L into bytes 96..127 of its row, in place; rows past B
     are not touched. Returns rows."""
-    dev, b, _ = _packed_args("ed25519_challenge", data, starts, lengths, None)
-    _require(rows, "rows", torch.uint8, (rows.shape[0], 128), dev)
-    if rows.shape[0] < b:
-        raise ValueError(f"ed25519_challenge: {rows.shape[0]} rows for {b} messages")
-    _aligned16(rows, "rows", "ed25519_challenge")
+    dev, b = _challenge_args(rows, data, starts, lengths)
     if b:
         _launch(
             "ed25519_challenge", dev, rows.data_ptr(), data.data_ptr(), starts.data_ptr(),

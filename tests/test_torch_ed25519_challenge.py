@@ -1,10 +1,11 @@
 """The Ed25519 challenges, k_neg = (L - SHA-512(R ‖ A ‖ M) mod L) mod L
 written into bytes 96..127 of each lane's row: the CUDA kernel's arithmetic
-(csrc/ed25519_challenge.cu) built as host C++, through both of its message
-readers, and the plain PyTorch version (ops/ed25519.py challenge_plain),
-against hashlib and Python integers (ops/ed25519.py challenges, the
-oracle), on seeded messages of 0-300 bytes with every SHA-512 padding edge
-after the 64-byte prefix; the Barrett reduction mod L alone on its edges;
+(csrc/ed25519_challenge.cu) built as host C++, through both routes of its
+message reader, a warp of messages of unequal lengths at a time, and the
+plain PyTorch version (ops/ed25519.py challenge_plain), against hashlib
+and Python integers (ops/ed25519.py challenges, the oracle), on seeded
+messages of 0-300 bytes with every SHA-512 padding edge after the 64-byte
+prefix; the Barrett reduction mod L alone on its edges;
 and the rows as the verify path makes them against device_inputs, the
 bucket's zero rows included. No JAX program is traced; the kernel itself
 runs only on the card, through chip_smoke.py."""
@@ -59,15 +60,26 @@ static void put(const uint32_t* k, uint8_t* out) {{
   for (int j = 0; j < 32; j++) out[j] = (uint8_t)(k[j >> 2] >> (8 * (j & 3)));
 }}
 
+static MsgReader reader(const uint8_t* data, const uint32_t* words, int64_t start) {{
+  return words ? MsgReader::staged(words, (uint32_t)start) : MsgReader::direct(data + start);
+}}
+
 // rows[i] gains message i's k_neg; words: the packed data as 4-byte aligned
-// words (the staged route's reader) or null (each message read where it lies)
+// words (the staged route, every lane running the blocks of the batch's
+// longest message, as the lanes of a warp do) or null (each message read
+// where it lies, its own blocks)
 extern "C" void host_challenge(uint8_t* rows, const uint8_t* data, const uint32_t* words,
                                const int64_t* starts, const int32_t* lengths, int n) {{
+  uint32_t wb = 0;
+  for (int i = 0; i < n; i++) {{
+    const uint32_t nb = sha512_blocks_of((uint32_t)lengths[i]);
+    wb = nb > wb ? nb : wb;
+  }}
   for (int i = 0; i < n; i++) {{
     uint32_t ra[16], k[8];
     lane_words(rows + ED25519_ROW_BYTES * i, ra);
-    if (words) challenge_lane(ra, WordReader{{words, (uint32_t)starts[i]}}, lengths[i], k);
-    else challenge_lane(ra, ByteReader{{data + starts[i]}}, lengths[i], k);
+    challenge_lane(ra, reader(data, words, starts[i]), (uint32_t)lengths[i],
+                   words ? wb : sha512_blocks_of((uint32_t)lengths[i]), k);
     put(k, rows + ED25519_ROW_BYTES * i + 96);
   }}
 }}
@@ -115,6 +127,34 @@ def test_kernel_challenge_on_host_matches_hashlib(host_lib, staged):
     msgs, pubs, sigs = _batch()
     rows = _host_rows(host_lib, msgs, pubs, sigs, staged)
     assert [bytes(r[96:]) for r in rows[: len(msgs)]] == _oracle(msgs, pubs, sigs)
+
+
+# eight of the edge lengths, 1 to 3 blocks, run as one warp
+WARP_OF_EIGHT = (300, 0, 47, 48, 176, 32, 111, 192)
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["read where it lies", "staged words"])
+def test_a_warp_of_eight_lengths_on_host(host_lib, staged):
+    """Eight messages of 0-300 bytes (1-3 blocks) run as one warp, every
+    lane to the longest message's blocks on the staged route, == hashlib."""
+    rng = random.Random(8)
+    msgs = [rng.randbytes(n) for n in WARP_OF_EIGHT]
+    pubs, sigs = [rng.randbytes(32) for _ in msgs], [rng.randbytes(64) for _ in msgs]
+    rows = _host_rows(host_lib, msgs, pubs, sigs, staged)
+    assert [bytes(r[96:]) for r in rows[: len(msgs)]] == _oracle(msgs, pubs, sigs)
+
+
+def test_lane_on_each_edge_length_alone(host_lib):
+    """A message of each SHA-512 padding edge's length (after the 64-byte
+    prefix) alone, its lane running only its own blocks, through both
+    routes: full blocks load without the padding logic, the last one or
+    two form it; == hashlib."""
+    for n in EDGE_LENGTHS:
+        rng = random.Random(n)
+        msgs, pubs, sigs = [rng.randbytes(n)], [rng.randbytes(32)], [rng.randbytes(64)]
+        for staged in (False, True):
+            rows = _host_rows(host_lib, msgs, pubs, sigs, staged)
+            assert bytes(rows[0][96:]) == _oracle(msgs, pubs, sigs)[0], (n, staged)
 
 
 def test_kernel_reduction_mod_l_on_host(host_lib):

@@ -2,11 +2,12 @@
 (``ops/sha256.py``) against hashlib on every padding edge and on seeded
 messages of 0-700 bytes, and once against the JAX package's
 ``sha256_batch`` at the 32-lane bucket; the kernel's arithmetic
-(``csrc/sha256.cuh``) built with g++ and read through both of the hash
-kernels' readers against the plain version; the ``Sha256`` HashImpl
-against the JAX ``Sha256``; merkle roots with hasher ``"sha256"`` against a
-tree built with hashlib. The kernel itself runs only on the card, through
-chip_smoke.py."""
+(``csrc/sha256.cuh``) built with g++ and read through both routes of its
+message reader against the plain version and hashlib, on every padding
+edge alone and with a warp of messages of unequal lengths run to the
+warp's longest; the ``Sha256`` HashImpl against the JAX ``Sha256``;
+merkle roots with hasher ``"sha256"`` against a tree built with hashlib.
+The kernel itself runs only on the card, through chip_smoke.py."""
 
 import ctypes
 import hashlib
@@ -36,16 +37,27 @@ extern "C" void host_sha256(const uint8_t* data, const int64_t* starts, const in
   for (int i = 0; i < n; i++) sha256_message(data + starts[i], lengths[i], out + 32 * i);
 }}
 
-// the same through the staged route's reader: message i at byte starts[i]
-// of the 4-byte aligned words, the digest as the kernel stores it
+static void put_digest(const uint32_t* v, uint8_t* out) {{
+  for (int j = 0; j < 32; j++) out[j] = (uint8_t)(v[j >> 2] >> (24 - 8 * (j & 3)));
+}}
+
+// the same through the staged route: message i at byte starts[i] of the
+// 4-byte aligned words; every lane runs the blocks of the batch's longest
+// message, as the lanes of one warp do
 extern "C" void host_sha256_words(const uint32_t* words, const int64_t* starts,
                                   const int32_t* lengths, uint8_t* out, int n) {{
+  uint32_t wb = 0;
   for (int i = 0; i < n; i++) {{
-    uint32_t d[8];
-    Sha256::message(WordReader{{words, (uint32_t)starts[i]}}, lengths[i], d);
-    for (int j = 0; j < 32; j++) out[32 * i + j] = (uint8_t)(d[j >> 2] >> (8 * (j & 3)));
+    const uint32_t nb = sha256_blocks_of((uint32_t)lengths[i]);
+    wb = nb > wb ? nb : wb;
+  }}
+  for (int i = 0; i < n; i++) {{
+    uint32_t v[8];
+    sha256_lane(MsgReader::staged(words, (uint32_t)starts[i]), (uint32_t)lengths[i], wb, v);
+    put_digest(v, out + 32 * i);
   }}
 }}
+
 """
 
 
@@ -78,14 +90,19 @@ def host_sha256(tmp_path_factory):
         fn.restype = None
 
     def run(data, starts, lengths, words=False) -> np.ndarray:
+        """Digests [n, 32]: each read where it lies, its own blocks, or
+        (words) staged, every lane to the batch's longest message's blocks."""
         data = np.ascontiguousarray(data, dtype=np.uint8)
-        if words:  # 4-byte aligned, with the 12 bytes the reader may load past the end
-            data = np.concatenate([data, np.zeros(16 - data.size % 4, dtype=np.uint8)]).view(np.uint32)
         starts = np.ascontiguousarray(starts, dtype=np.int64)
         lengths = np.ascontiguousarray(lengths, dtype=np.int32)
         out = np.zeros((len(starts), 32), dtype=np.uint8)
-        fn = lib.host_sha256_words if words else lib.host_sha256
-        fn(data.ctypes.data, starts.ctypes.data, lengths.ctypes.data, out.ctypes.data, len(starts))
+        if words:  # 4-byte aligned, with the 12 bytes the reader may load past the end
+            staged = np.concatenate([data, np.zeros(16 - data.size % 4, dtype=np.uint8)]).view(np.uint32)
+            lib.host_sha256_words(staged.ctypes.data, starts.ctypes.data, lengths.ctypes.data,
+                                  out.ctypes.data, len(starts))
+        else:
+            lib.host_sha256(data.ctypes.data, starts.ctypes.data, lengths.ctypes.data, out.ctypes.data,
+                            len(starts))
         return out
 
     return run
@@ -141,14 +158,66 @@ def test_kernel_arithmetic_on_host(host_sha256, layout):
     assert [bytes(w) for w in want] == [hashlib.sha256(m).digest() for m in msgs]
 
 
+# every SHA-256 padding edge: one block (0, 1, 55), the length field
+# spilling into a second (56, 63), a block exactly full (64), the same a
+# block later (119, 120), and the mixed blocks' longest, 12 blocks (700)
+PADDING_EDGES = (0, 1, 55, 56, 63, 64, 119, 120, 700)
+# a warp of eight messages of unequal lengths, from 1 to 12 blocks
+WARP_OF_EIGHT = (700, 0, 64, 55, 300, 120, 1, 513)
+ROUTES = {"read where it lies": False, "staged words": True}
+
+
+def _packed_at(msgs, rng):
+    """msgs packed at seeded gaps of 0-15 bytes: (data, starts, lengths)."""
+    gaps = rng.integers(0, 16, len(msgs))
+    data = np.frombuffer(b"".join(bytes(int(g)) + m for g, m in zip(gaps, msgs)), dtype=np.uint8)
+    lengths = np.array([len(m) for m in msgs])
+    starts = np.cumsum([int(g) + len(m) for g, m in zip(gaps, msgs)]) - lengths
+    return data, starts, lengths
+
+
+@pytest.mark.parametrize("n", PADDING_EDGES)
+def test_lane_on_each_padding_edge(host_sha256, n):
+    """A message of each padding edge's length alone, through both routes,
+    at each offset mod 4 of the staged words: its lane's full blocks load
+    without the padding logic, its last one or two form it; == hashlib."""
+    rng = np.random.default_rng(n)
+    msg = rng.bytes(n)
+    for gap in range(4):
+        data = np.frombuffer(bytes(gap) + msg, dtype=np.uint8)
+        for route, words in ROUTES.items():
+            got = host_sha256(data, np.array([gap]), np.array([n]), words=words)
+            assert bytes(got[0]) == hashlib.sha256(msg).digest(), (gap, route)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_lane_a_warp_of_eight_lengths(host_sha256, route):
+    """Eight messages of 1-12 blocks run as one warp (every lane to the
+    longest message's blocks, compressing zeros past its own) == hashlib."""
+    rng = np.random.default_rng(8)
+    msgs = [rng.bytes(n) for n in WARP_OF_EIGHT]
+    data, starts, lengths = _packed_at(msgs, rng)
+    got = host_sha256(data, starts, lengths, words=ROUTES[route])
+    assert [bytes(g) for g in got] == [hashlib.sha256(m).digest() for m in msgs]
+
+
 def test_kernel_source_design_and_constants():
-    """The packed form of the shared hash kernel body, the launch's CUDA
-    error returned, the geometry exported, and K and the IV equal to the
-    plain version's copies."""
+    """The kernel body of its own (no longer the shared packed hash body):
+    one lane a message through sha256_lane, the warp to its longest
+    message's blocks, each message through one MsgReader (one copy of the
+    compression, its 64 rounds unrolled), the launch's CUDA error
+    returned, the geometry exported, and K and the IV equal to the plain
+    version's copies."""
     src = _kernels.SOURCES["sha256"].read_text()
     header = (_kernels.CSRC / "sha256.cuh").read_text()
     assert '#include "sha256.cuh"' in src and '#include "hash_kernel.cuh"' in header
-    assert "packed_hash_launch<Sha256, false>" in src
+    assert "__global__ void __launch_bounds__(HASH_THREADS)\nsha256_kernel(" in src
+    assert "packed_hash_launch<Sha256" not in src and "struct Sha256" not in header
+    assert "sha256_lane(msg, valid ? (uint32_t)len : 0u, wb, v)" in src
+    assert "__reduce_max_sync" in src and "warp_meet();" in header
+    assert "MsgReader::staged(" in src and "MsgReader::direct(" in src
+    assert "sha256_compress(u, w);" in header and "for (int j = 16; j < 64; j++)" in header
+    assert "SHA256_LANES" not in src and "#pragma unroll 1\n  for (int t0" not in header
     assert 'extern "C" int sha256_launch(' in src and 'extern "C" void sha256_geometry(' in src
     for name, table in (("SHA256_K", sha256._K), ("SHA256_IV", sha256._IV)):
         body = re.search(r"%s\[\d+\] = \{([^}]*)\}" % name, header).group(1)
