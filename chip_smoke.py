@@ -122,7 +122,21 @@ exits non-zero, printing no result, without them. In order it:
    10,240 512-byte groups; one page tree at the 17,408-leaf bucket, its
    wall time (direct and through the suite) and each level's kernel time
    beside its bound, and one 512-byte group alone (a message's latency);
-10. the DevicePlane (``run_plane_phase``): every routed seam (the four
+10. BLS12-381, the aggregate-QC pairing check (``run_bls_phase``): on a
+   mixed block of 11 seeded aggregate checks of an 8-member committee (a
+   quorum, a single signer, the whole committee; an apk with a signer too
+   many or too few, the wrong message, another quorum's signature, a
+   malformed key, an empty signer set, a malformed signature, one outside
+   the subgroup) tiled to 1,024 lanes, holds the pairing kernel against
+   its plain version on the card (verdicts and GT elements, every lane)
+   and against the host oracle (``crypto/ref/bls12_381.py``: verdicts and
+   GT elements); drives ``BLSCrypto.aggregate_verify_batch``, the QC
+   check's path, on the block between the counters (one launch, every
+   plain version and the host pairing made to raise); times the kernel
+   alone, ``pairing_check_batch``, the QC check (through the plane and
+   direct, in turns) and the plain version at 1, 4, 64 and 1,024 lanes
+   beside the bound and the oracle's host time for one check;
+11. the DevicePlane (``run_plane_phase``): every routed seam (the four
    hashes and their address forms, secp256k1 and SM2 verify and recover,
    Ed25519 verify, both admissions, each hasher's ``merkle_tree``) with
    callers of 1, 4, 7, 100 and 1,000 lanes of the mixed blocks released
@@ -143,7 +157,7 @@ exits non-zero, printing no result, without them. In order it:
    in flight and 64 small admissions queued, starvation off, then with a
    20 ms starvation rule that the small admissions pass: the dispatches'
    order and each queue's age at release;
-11. with ``--parent DIR`` (another checkout, for example the parent commit
+12. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
    its own input layout (the verify kernel of a checkout before its
@@ -157,7 +171,7 @@ exits non-zero, printing no result, without them. In order it:
    stages as the parent composes them (its packed hash kernel and the
    torch ops around it) and as this checkout does, in turns parent, new,
    new, parent;
-12. times each kernel at 32, 4,224 and 10,240 lanes of
+13. times each kernel at 32, 4,224 and 10,240 lanes of
    its timed block (one warp, one warp a SM, the block); splits the host
    time of a packed keccak call and of a 4-lane challenge call (with
    ``--parent``, beside the parent's wrappers); and, with
@@ -172,7 +186,7 @@ exits non-zero, printing no result, without them. In order it:
    or both, warm and cold, one lane or a round lane and a schedule lane a
    message), the challenge's lane and pair and its reduction mod L, each
    beside the bound's count of instructions a block;
-13. prints every figure beside the card's name and power limit, one JSON
+14. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line; the
    DevicePlane is drained first, so no request of any phase is left
    unanswered.
@@ -265,6 +279,61 @@ SM3_COMPRESS_OPS = 64 * SM3_ROUND_OPS + 52 * 7 + 8
 # LOP3 each; two 3-input adds). The chaining value's 8 adds.
 SHA256_ROUND_OPS = 4 + 1 + 2 + 4 + 1 + 1 + 1
 SHA256_COMPRESS_OPS = 64 * SHA256_ROUND_OPS + 48 * 10 + 8
+
+# BLS12-381's pairing check (csrc/bls12_381.cu), a lane. The bound counts
+# the least work of the check, fixed here and not taken from the kernel: the
+# operations of the aggregate check's chain (BLS_CHAIN: the double Miller
+# loop over |x| = 0xd201000000010000, 64 bits with 6 set, so 63 doubling
+# iterations and 5 addition ones, each for both pairs, the squarings shared;
+# the easy part; the hard part as the oracle's chain, five powers by |x|),
+# each at the fewest Fp products known for it (BLS_LEAST_FP):
+# - an Fp12 product 18 Fp2 products (Karatsuba, 3 Fp products each); a
+#   squaring outside the cyclotomic subgroup 2 Fp6 products; one inside it
+#   (every squaring after the easy part) 9 Fp2 squarings (Granger-Scott,
+#   eprint 2009/565), an Fp2 squaring 2 Fp products;
+# - the doubling step with its line 3 Fp2 products, 6 Fp2 squarings and 4
+#   Fp products by the G1 point's coordinates; the mixed addition step 11,
+#   2 and 4; the product by a line (3 Fp2 coefficients) 13 Fp2 products
+#   (Aranha et al., eprint 2010/526, sections 4-5);
+# - the p-Frobenius 5 Fp2 products (its first constant is 1), the
+#   p^2-Frobenius 5 Fp2-by-Fp products (its constants lie in Fp), the
+#   p^6-Frobenius a conjugation: none;
+# - the inversion: two Fp6 squarings (Chung-Hasan, 2 Fp2 products and 3
+#   squarings each), the Fp6 inverse (3 Fp2 squarings, 9 products), the
+#   Fp2 inverse (2 Fp squarings, 2 products), two Fp6 products, and one Fp
+#   inversion, counted by safegcd (Bernstein-Yang: 1,101 divsteps for 381
+#   bits, 37 rounds of 30) as verify's inversion is, over 13 limbs of 30
+#   bits.
+# Every iteration of the Miller loop counts whole, the first too (its
+# squaring of 1 and first line, 75 products, under 0.4%). An Fp product
+# counts at its full Montgomery cost: its 144 word products and REDC's 12
+# rows of 12 by m, each counted as two (low and high half), and the 12 m =
+# t0·(-p^-1) (low half only); a squaring's 78 word products in place of
+# 144. Lazy reduction inside the tower's sums is not counted, as no kernel
+# here counts it.
+BLS_CHAIN = {
+    "fp12_sqr": 63, "dbl": 2 * 63, "add": 2 * 5, "line": 2 * (63 + 5),  # the Miller loop
+    "fp12_inv": 1, "fp12_mul": 2 + 5 * 5 + 7, "frob_p2": 2, "frob_p": 1, "conj": 4,  # the rest of the
+    "cyclo_sqr": 5 * 63 + 2,  # final exponentiation: easy part, then the hard part's chain
+}
+BLS_LEAST_FP = {
+    "fp12_sqr": 2 * 18, "dbl": 3 * 3 + 6 * 2 + 4, "add": 11 * 3 + 2 * 2 + 4, "line": 13 * 3,
+    "fp12_inv": 2 * (2 * 3 + 3 * 2) + (3 * 2 + 9 * 3) + 4 + 2 * 18, "fp12_mul": 18 * 3,
+    "frob_p2": 5 * 2, "frob_p": 5 * 3, "conj": 0, "cyclo_sqr": 9 * 2,
+}
+BLS_LEAST_PRODUCTS = sum(n * BLS_LEAST_FP[op] for op, n in BLS_CHAIN.items())
+BLS_LEAST_SQUARINGS = 2  # the Fp2 inverse's; every other product has two operands
+BLS_FP_INV_MULS = 37 * (2 * (4 * 13 + 2 * 13) + 2 + 2 * 4 * 13)
+MULS_BLS_REDC = 2 * 12 * 12 + 12
+MULS_BLS_MUL = 2 * 144 + MULS_BLS_REDC
+MULS_BLS_SQR = 2 * 78 + MULS_BLS_REDC
+BLS_PAIRING_MULS = ((BLS_LEAST_PRODUCTS - BLS_LEAST_SQUARINGS) * MULS_BLS_MUL
+                    + BLS_LEAST_SQUARINGS * MULS_BLS_SQR + BLS_FP_INV_MULS)
+# The Fp products the kernel's own method makes a lane, of which squarings
+# (its host build counts them; tests/test_torch_bls12_381.py pins the count
+# and the chain above against it): a figure of the work done, not the bound.
+BLS_FP_PRODUCTS = 27_183
+BLS_FP_SQUARINGS = 394
 
 # Each path's counted run, launches a kernel (a hash kernel's forms are
 # kernels of their own; every kernel not named must make none): keccak256 2
@@ -695,7 +764,7 @@ def plain_versions_forbidden():
     """While open, every plain hash of the port, every plain form of a hash
     kernel and every plain EC version raises: a counted path run inside it
     shows that no plain version runs on a CUDA path."""
-    from fisco_bcos_tpu_torch.ops import address, ed25519, keccak, poseidon, secp256k1, sha256, sm2, sm3
+    from fisco_bcos_tpu_torch.ops import address, bls12_381, ed25519, keccak, poseidon, secp256k1, sha256, sm2, sm3
 
     def refuse(*_args, **_kwargs):
         raise AssertionError("a plain version ran on a CUDA path")
@@ -707,7 +776,9 @@ def plain_versions_forbidden():
              (sm2, "e_plain"), (secp256k1, "recover_plain"), (secp256k1, "verify_plain"),
              (sm2, "verify_plain"), (ed25519, "verify_plain"), (ed25519, "verify_core"),
              (ed25519, "challenge_plain"), (ed25519, "sha512_words"), (ed25519, "challenges"),
-             (poseidon, "poseidon_packed_plain"), (poseidon, "poseidon_blocks"), (poseidon, "permute_lanes"))
+             (poseidon, "poseidon_packed_plain"), (poseidon, "poseidon_blocks"), (poseidon, "permute_lanes"),
+             (bls12_381, "pairing_check_plain"), (bls12_381, "pairing_gt_plain"),
+             (bls12_381, "host_pairing_check_batch"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -2989,6 +3060,187 @@ def run_poseidon_phase(card: str, device) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# BLS12-381: the aggregate-QC pairing check
+# ---------------------------------------------------------------------------
+
+BLS_LANES = (1, 4, 64, 1024)  # QC checks a call: one certificate up to a burst of them
+BLS_REPLACES = "fisco_bcos_tpu/ops/bls12_381.py:591"
+BLS_LAUNCHES = {"bls12_381_pairing": 1}
+
+
+def make_bls_checks(seed: int) -> list[tuple[str, tuple]]:
+    """(kind, (pubs, msg, agg_sig)) of every lane kind of the aggregate
+    check, from a seeded 8-member committee: a quorum of 6, a single signer
+    and the whole committee on a second message, which pass; an apk with one
+    extra signer or one missing, a signature over the wrong message, another
+    quorum's signature, a malformed key and an empty signer set (no apk), a
+    malformed signature and one outside the subgroup (no σ), which fail."""
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
+
+    rng = random.Random(seed)
+    keys = [ref.keygen(rng.getrandbits(256)) for _ in range(8)]
+    pubs = [pk for _, pk in keys]
+    msg, other = rng.randbytes(32), rng.randbytes(32)
+
+    def agg(ids, m):
+        return ref.aggregate_signatures([ref.sign(keys[i][0], m) for i in ids])
+
+    quorum = agg(range(6), msg)
+    # a twist point outside the r-torsion, compressed: decompression rejects it
+    x = next((k, 0) for k in range(1, 100)
+             if ref.f2_sqrt(ref.f2_add(ref.f2_mul(ref.f2_sqr((k, 0)), (k, 0)), ref.XI_B)) is not None)
+    off_group = bytes([0x80 | x[1].to_bytes(48, "big")[0]]) + x[1].to_bytes(48, "big")[1:] + x[0].to_bytes(48, "big")
+    return [
+        ("a quorum of 6", (tuple(pubs[:6]), msg, quorum)),
+        ("a single signer", ((pubs[7],), msg, agg([7], msg))),
+        ("the whole committee", (tuple(pubs), other, agg(range(8), other))),
+        ("an apk with one extra signer", (tuple(pubs[:7]), msg, quorum)),
+        ("an apk missing a signer", (tuple(pubs[:5]), msg, quorum)),
+        ("a signature on the wrong message", (tuple(pubs[:6]), msg, agg(range(6), other))),
+        ("another quorum's signature", (tuple(pubs[2:8]), msg, quorum)),
+        ("a malformed key", ((pubs[0], b"\x00" * 48), msg, quorum)),
+        ("an empty signer set", ((), msg, quorum)),
+        ("a malformed signature", (tuple(pubs[:6]), msg, b"\x00" * 96)),
+        ("a signature outside the subgroup", (tuple(pubs[:6]), msg, off_group)),
+    ]
+
+
+def bls_triples(checks) -> list[tuple]:
+    """Each check's decoded (apk, σ, H(m)), as BLSCrypto decodes it (None
+    where a point does not decode)."""
+    from fisco_bcos_tpu_torch.crypto import bls
+    from fisco_bcos_tpu_torch.ops import bls12_381
+
+    out = []
+    for pubs, msg, agg in checks:
+        apk = bls._apk_point(tuple(pubs)) if pubs else None
+        sig = bls._g2_point(agg)
+        out.append((apk, sig, bls12_381.hash_to_g2(msg) if apk is not None and sig is not None else None))
+    return out
+
+
+def bls_oracle(triples) -> tuple[list[bool], list[tuple], float]:
+    """The oracle's verdict and GT element a lane (on the substitutes where
+    a point is None), and its host ms for one check."""
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
+    from fisco_bcos_tpu_torch.ops import bls12_381
+
+    bits = list(bls12_381.host_pairing_check_batch(triples))
+    gts, one_ms = [], None
+    for apk, sig, hm in triples:
+        if apk is None or sig is None or hm is None:
+            apk, sig, hm = bls12_381._SUB_APK, bls12_381._SUB_SIG, bls12_381._SUB_HM
+        t0 = time.perf_counter()
+        gts.append(ref.final_exponentiation(ref.miller_loop([(ref.ec_neg(ref.G1, ref.FP_OPS), sig), (apk, hm)])))
+        one_ms = one_ms or (time.perf_counter() - t0) * 1e3
+    return bits, gts, one_ms
+
+
+def check_bls_block(card: str, device, rows, valid, want, want_gt) -> tuple[int, float]:
+    """The kernel and the plain version on the same rows on the card: equal
+    bits and GT elements on every lane, and the oracle's on every lane
+    (lane i holds case i % cases). Returns (largest limb difference, plain
+    ms)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels, bls12_381
+
+    n, cases = rows.shape[0], len(want)
+    ok, gt = _kernels.bls12_381_pairing_check(rows, bls12_381.kernel_table(device), gt=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt_plain = bls12_381.pairing_gt_plain(rows)
+    ok_plain = bls12_381.f12_eq_one(gt_plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    limbs = bls12_381.words_to_limbs(gt)
+    err = int((limbs - gt_plain).abs().max())
+    if err or not torch.equal(ok, ok_plain):
+        raise AssertionError(f"bls12_381_pairing != its plain version on the BLS mixed block ({err})")
+    lanes = np.arange(n) % cases
+    if list(ok.cpu().numpy() & valid) != [want[i] for i in lanes]:
+        raise AssertionError("bls12_381_pairing's verdicts != the host oracle's on the BLS mixed block")
+    distinct = bls12_381.tower_to_ref(limbs[: min(n, cases)])
+    tiled = torch.equal(limbs, limbs[:cases].repeat((n + cases - 1) // cases, 1, 1)[:n]) if n > cases else True
+    if distinct != want_gt[: len(distinct)] or not tiled:
+        raise AssertionError("bls12_381_pairing's GT elements != the host oracle's on the BLS mixed block")
+    log(f"[{card}] BLS mixed block, {n:,} lanes of {cases} cases ({int((ok.cpu().numpy() & valid).sum())} ok): "
+        f"the pairing kernel == its plain version (verdicts and GT elements, every lane) == the host oracle; "
+        f"plain {plain_ms:.1f} ms")
+    return err, plain_ms
+
+
+def run_bls_phase(card: str, device) -> dict:
+    """BLS12-381 (ROADMAP A7, B4(c)): the pairing kernel against its plain
+    version and the oracle on the mixed block; BLSCrypto.aggregate_verify_batch,
+    the QC check's path, counted; the kernel alone, pairing_check_batch, the
+    QC check (through the plane and direct, in turns) and the plain version
+    at each of BLS_LANES, beside the bound. Returns the kernel's row."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import bls
+    from fisco_bcos_tpu_torch.ops import _kernels, bls12_381
+
+    t0 = time.perf_counter()
+    named = make_bls_checks(SEED + 7)
+    checks = [c for _, c in named]
+    triples = bls_triples(checks)
+    want, want_gt, oracle_ms = bls_oracle(triples)
+    log(f"BLS: {len(checks)} aggregate-check cases ({sum(want)} pass: "
+        f"{', '.join(k for (k, _), w in zip(named, want) if w)}), the oracle's verdicts and GT elements in "
+        f"{time.perf_counter() - t0:.1f} s on the host; one check {oracle_ms:.1f} ms")
+    n = max(BLS_LANES)
+    lanes = np.arange(n) % len(checks)
+    rows_np, valid = bls12_381.device_inputs(triples)
+    rows = torch.from_numpy(rows_np[lanes]).to(device)
+    err, _ = check_bls_block(card, device, rows, valid[lanes], want, want_gt)
+
+    crypto = bls.BLSCrypto(device)
+    tiled = [checks[i] for i in lanes]
+    got, launches = counted_run(lambda: crypto.aggregate_verify_batch(tiled), BLS_LAUNCHES,
+                                f"BLSCrypto.aggregate_verify_batch at {n:,} lanes")
+    if list(got) != [want[i] for i in lanes]:
+        raise AssertionError("BLSCrypto.aggregate_verify_batch != the host oracle")
+    if crypto.aggregate_verify(*checks[0]) is not True:
+        raise AssertionError("BLSCrypto.aggregate_verify rejected a valid quorum")
+    log(f"[{card}] BLSCrypto.aggregate_verify_batch at {n:,} lanes == the host oracle; launches "
+        + show_launches(launches))
+
+    table = bls12_381.kernel_table(device)
+    tiled_triples = [triples[i] for i in lanes]
+    times = {}
+    for m in BLS_LANES:
+        kernel_ms = cuda_ms(lambda: _kernels.bls12_381_pairing_check(rows[:m], table), reps=3, inner=2)
+        batch_ms = host_ms(lambda: bls12_381.pairing_check_batch(tiled_triples[:m], device))
+        qc = plane_and_direct_ms(lambda: crypto.aggregate_verify_batch(tiled[:m]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bls12_381.pairing_check_plain(rows[:m])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        bound = kernel_row("bls12_381_pairing", "", "", kernel_ms, m * BLS_PAIRING_MULS,
+                           io_bytes=m * (4 * _kernels.BLS_ROW_WORDS + 1) + 4 * _kernels.BLS_TABLE_WORDS)["bound_ms"]
+        times[m] = (kernel_ms, plain_ms)
+        log(f"[{card}] bls12_381_pairing @ {m:,} lanes: kernel alone {kernel_ms:.4f} ms (bound {bound:.4f}, "
+            f"{bound / kernel_ms:.2%}), pairing_check_batch {batch_ms:.3f} ms, BLSCrypto.aggregate_verify_batch "
+            f"{show_turns([qc])}, plain {plain_ms:.1f} ms; the host oracle {oracle_ms:.1f} ms a check")
+    qc_one = plane_and_direct_ms(lambda: crypto.aggregate_verify(*checks[0]))
+    log(f"[{card}] BLSCrypto.aggregate_verify, one QC (a quorum of 6): {show_turns([qc_one])} ms")
+    kernel_ms, plain_ms = times[n]
+    row = kernel_row("bls12_381_pairing", "fisco_bcos_tpu_torch/csrc/bls12_381.cu", BLS_REPLACES, kernel_ms,
+                     n * BLS_PAIRING_MULS,
+                     io_bytes=n * (4 * _kernels.BLS_ROW_WORDS + 1) + 4 * _kernels.BLS_TABLE_WORDS)
+    row.update(launches=launches["bls12_381_pairing"], max_abs_err=err, plain_ms=plain_ms, lanes=n)
+    log(f"[{card}] bls phase: {time.perf_counter() - t0:.1f} s; launch geometry at {n:,} lanes "
+        f"{json.dumps(_kernels.geometry('bls12_381', n))}; the bound's least work {BLS_PAIRING_MULS:,} multiplies "
+        f"a check ({BLS_LEAST_PRODUCTS:,} Fp products and an Fp inversion); the kernel makes {BLS_FP_PRODUCTS:,} "
+        f"Fp products a check, {BLS_FP_SQUARINGS} of them squarings")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # The DevicePlane: merged seams, the window, concurrent callers, lanes
 # ---------------------------------------------------------------------------
 
@@ -4026,7 +4278,7 @@ def log_kernel(card: str, row: dict) -> None:
     if "device_ms" in row:
         log(f"[{card}] {row['name']} @ {BLOCK_TXS} lanes: the kernel alone, median over a profiled "
             f"run of 20 calls: {show_device_ms(row['device_ms'])}")
-    log(f"[{card}] {row['name']} @ {BLOCK_TXS} lanes: kernel {row['ms']:.4f} ms, "
+    log(f"[{card}] {row['name']} @ {row.get('lanes', BLOCK_TXS)} lanes: kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.1f} ms, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}, {row['ops']} {row['ops_kind']}), "
         f"{row['launches']} launch(es) on its path")
@@ -4180,6 +4432,10 @@ def main() -> int:
     poseidon_row_, poseidon_blocks = run_poseidon_phase(card, device)
     log_kernel(card, poseidon_row_)
 
+    # -- BLS12-381: the pairing kernel, BLSCrypto's aggregate (QC) check --
+    bls_row = run_bls_phase(card, device)
+    log_kernel(card, bls_row)
+
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
     run_plane_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block, verify_block, sm_block, ed_block)
 
@@ -4194,7 +4450,7 @@ def main() -> int:
     hash_bench(card, bench_libs)
 
     drain_plane()  # every request of every phase answered: a failed one has raised
-    rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_)
+    rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_, bls_row)
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))
     log(json.dumps({
         "ok": True,

@@ -1,0 +1,157 @@
+"""BLSCrypto: the BLS12-381 aggregate-signature scheme of the QC
+certificates (``consensus/qc.py`` ``BLSQCScheme``, ``FISCO_QC_SCHEME=bls``),
+the port of the JAX package's ``crypto/bls.py``.
+
+Single-item sign / verify, aggregation, the independent-message
+``batch_verify`` and the point decoders run on the host through the port's
+oracle (``crypto/ref/bls12_381.py``), as they do in the JAX class on every
+backend; committee keys and quorum signatures decompress once a process
+(the cached decoders below). The aggregate check, one pairing check that
+admits a whole quorum, runs on the class's device: ``aggregate_verify`` and
+``aggregate_verify_batch`` go through the DevicePlane as the op
+``bls_aggregate_verify.<device>``, whose executor merges every queued
+request's checks into one ``ops.bls12_381.pairing_check_batch`` (one kernel
+launch on the card, the plain version on the CPU) and slices the verdicts
+back a request. With ``FISCO_DEVICE_PLANE=0`` the same merged body runs on
+the caller's thread. There is no host cutover: a check reaches the device or
+an exception. A batch in which no check decodes (a key or signature that
+fails to decompress, an empty signer set) is rejected before any pairing.
+
+Key model: BLS keypairs are derived (secret scalar mod r) from the node's
+consensus secret, and the committee's BLS keys are registered in the
+consensus-node table, which is the proof-of-possession boundary that makes
+same-message aggregation rogue-key safe (``consensus/qc.py``).
+"""
+
+from __future__ import annotations
+
+import secrets
+from functools import lru_cache
+
+import numpy as np
+
+from ..device import resolve_device
+from ..ops import bls12_381 as bls_ops
+from .ref import bls12_381 as ref
+from .suite import CryptoSuite, Keccak256, KeyPair, SignatureCrypto, _routed
+
+
+@lru_cache(maxsize=4096)
+def _g1_point(pub48: bytes):
+    """Cached, validated key decompression (None: malformed or outside the
+    subgroup): a quorum's aggregate check pays the pairing, not 2f + 1
+    subgroup checks."""
+    try:
+        return ref.decompress_g1(pub48)
+    except ValueError:
+        return None
+
+
+@lru_cache(maxsize=4096)
+def _g2_point(sig96: bytes):
+    try:
+        return ref.decompress_g2(sig96)
+    except ValueError:
+        return None
+
+
+@lru_cache(maxsize=1024)
+def _apk_point(pubs: tuple[bytes, ...]):
+    """The aggregate key of a signer set (quorum bitmaps repeat across
+    rounds, so the G1 additions amortise too); None if a key is bad."""
+    acc = None
+    for p in pubs:
+        pt = _g1_point(p)
+        if pt is None:
+            return None
+        acc = ref.ec_add(acc, pt, ref.FP_OPS)
+    return acc
+
+
+class BLSCrypto(SignatureCrypto):
+    """Min-pubkey-size BLS: 48-byte G1 keys, 96-byte G2 signatures,
+    same-message aggregation (the QC case)."""
+
+    name = "bls12_381"
+    sig_len = 96
+
+    def generate_keypair(self, secret: int | None = None) -> KeyPair:
+        if secret is None:
+            secret = int.from_bytes(secrets.token_bytes(32), "big")
+        sk, pub = ref.keygen(secret)
+        return KeyPair(sk, pub)
+
+    def sign(self, kp: KeyPair, msg_hash: bytes) -> bytes:
+        return ref.sign(kp.secret, msg_hash)
+
+    def verify(self, pub: bytes, msg_hash: bytes, sig: bytes) -> bool:
+        pk = _g1_point(bytes(pub))
+        s = _g2_point(bytes(sig))
+        if pk is None or s is None:
+            return False
+        return ref.pairing_check(
+            [(ref.ec_neg(ref.G1, ref.FP_OPS), s), (pk, ref.hash_to_g2(bytes(msg_hash)))]
+        )
+
+    def recover(self, msg_hash: bytes, sig: bytes) -> bytes:
+        raise ValueError("BLS signatures carry no recoverable public key")
+
+    def batch_verify(self, msg_hashes, pubs, sigs) -> np.ndarray:
+        """Independent messages: a host loop over the cached points, as in
+        the JAX class (distinct messages share no pairing)."""
+        return np.array(
+            [self.verify(bytes(p), bytes(h), bytes(s)) for h, p, s in zip(msg_hashes, pubs, sigs)],
+            dtype=bool,
+        )
+
+    def batch_recover(self, msg_hashes, sigs):
+        raise ValueError("BLS signatures carry no recoverable public key")
+
+    # -- aggregation (the QC surface) ---------------------------------------
+
+    def aggregate(self, sigs: list[bytes]) -> bytes:
+        """The sum of the G2 signatures, one 96-byte certificate signature."""
+        acc = None
+        for s in sigs:
+            pt = _g2_point(bytes(s))
+            if pt is None:
+                raise ValueError("malformed signature in aggregate")
+            acc = ref.ec_add(acc, pt, ref.FP2_OPS)
+        return ref.compress_g2(acc)
+
+    def aggregate_verify(self, pubs: list[bytes], msg_hash: bytes, agg_sig: bytes) -> bool:
+        """One pairing check for the whole signer set (same message)."""
+        return bool(self.aggregate_verify_batch([(tuple(pubs), msg_hash, agg_sig)])[0])
+
+    def aggregate_verify_batch(self, checks) -> np.ndarray:
+        """checks: [(pubs, msg_hash, agg_sig)] -> bool[B]: the device and the
+        batch resolved on the caller's thread, then ``_aggregate_verify_merged``
+        through the DevicePlane (``bls_aggregate_verify.<device>``), where
+        concurrent callers' checks merge into one pairing batch."""
+        dev = resolve_device(self.device)
+        checks = [(tuple(bytes(p) for p in pubs), bytes(m), bytes(s)) for pubs, m, s in checks]
+        if not checks:
+            return np.zeros(0, dtype=bool)
+        return _routed(f"bls_aggregate_verify.{dev}", (checks,), len(checks),
+                       lambda c: self._aggregate_verify_merged(c, dev))
+
+    def _aggregate_verify_merged(self, checks, dev) -> np.ndarray:
+        """The merged batch's body, both dispatch modes': decompression and
+        hash-to-G2 on the host (cached), then one pairing check a lane on
+        `dev`; no pairing when no lane decodes."""
+        triples = []
+        for pubs, msg, agg in checks:
+            apk = _apk_point(pubs) if pubs else None
+            sig = _g2_point(agg)
+            hm = bls_ops.hash_to_g2(msg) if apk is not None and sig is not None else None
+            triples.append((apk, sig, hm))
+        if all(hm is None for _, _, hm in triples):
+            return np.zeros(len(triples), dtype=bool)
+        return bls_ops.pairing_check_batch(triples, device=dev)
+
+
+def bls_suite(device=None) -> CryptoSuite:
+    """Keccak256 + BLS12-381, the aggregate-QC suite, bound to `device`
+    (None: the CUDA card; raises without one)."""
+    dev = resolve_device(device)
+    return CryptoSuite(Keccak256(dev), BLSCrypto(dev))

@@ -47,6 +47,7 @@ SOURCES = {
     "ed25519_verify": CSRC / "ed25519_verify.cu",
     "ed25519_challenge": CSRC / "ed25519_challenge.cu",
     "poseidon": CSRC / "poseidon.cu",
+    "bls12_381": CSRC / "bls12_381.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -81,6 +82,8 @@ _ENTRIES = {
     "ed25519_challenge": ("ed25519_challenge", "ed25519_challenge_launch", [_P] * 4 + [_I, _LL]),
     # data, starts, lengths, table, out; table words; messages; bytes of data
     "poseidon_packed": ("poseidon", "poseidon_launch", [_P] * 5 + [_I, _I, _LL]),
+    # rows, table, ok, gt (or null) pointers; lanes
+    "bls12_381_pairing": ("bls12_381", "bls12_381_pairing_launch", [_P] * 4 + [_I]),
 }
 KERNELS = {kernel: entry[0] for kernel, entry in _ENTRIES.items()}
 
@@ -503,3 +506,33 @@ def sm3_e(h, qx, qy, za):
             e.data_ptr(), b,
         )
     return e
+
+
+# ---------------------------------------------------------------------------
+# BLS12-381 (csrc/bls12_381.cu)
+# ---------------------------------------------------------------------------
+
+BLS_ROW_WORDS = 120  # ten Fp values of 12 words a lane
+BLS_TABLE_WORDS = 468  # the Montgomery 1, -g1, and γ_k for k = 1, 2, 6
+BLS_GT_WORDS = 144  # an Fp12 element
+
+
+def bls12_381_pairing_check(rows, table, gt: bool = False):
+    """Launch the pairing-check kernel: rows [B, 120] int32 (ten Montgomery
+    Fp values of 12 little-endian words a lane: apk x, y; σ x0, x1, y0, y1;
+    H(m) x0, x1, y0, y1), table [468] int32 (ops/bls12_381.py
+    kernel_table), both on one CUDA device. Returns ok bool[B], e(-g1, σ)·
+    e(apk, H(m)) == 1 a lane; with `gt`, (ok, each lane's GT element before
+    the comparison as [B, 144] int32 words in the tower's order)."""
+    dev = _cuda_device(rows, "bls12_381_pairing_check")
+    b = rows.shape[0]
+    _require(rows, "rows", torch.int32, (b, BLS_ROW_WORDS), dev)
+    _require(table, "table", torch.int32, (BLS_TABLE_WORDS,), dev)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    out = torch.empty((b, BLS_GT_WORDS), dtype=torch.int32, device=dev) if gt else None
+    if b:
+        _launch(
+            "bls12_381_pairing", dev, rows.data_ptr(), table.data_ptr(), ok.data_ptr(),
+            None if out is None else out.data_ptr(), b,
+        )
+    return (ok, out) if gt else ok

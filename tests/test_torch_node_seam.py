@@ -18,9 +18,15 @@ where ``batch_admit`` takes its three-call branch (txpool/validator.py:
 143-149) through the port. The QC certificates of 4- and 7-member
 committees run through ``consensus.qc.Ed25519QCScheme`` with the port's
 ``Ed25519Crypto`` as its implementation, every JAX Ed25519 batch entry made
-to fail, against the same scheme on the JAX suite's host legs."""
+to fail, against the same scheme on the JAX suite's host legs. The BLS
+certificates of a 4-member committee run through ``consensus.qc.BLSQCScheme``
+with the port's ``BLSCrypto`` (plain PyTorch pairing checks on the CPU),
+every case at once through a DevicePlane that merges them into one pairing
+batch, against the scheme on the JAX ``BLSCrypto``; and two threads' aggregate
+checks merged by the plane against their direct calls."""
 
 import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,6 +36,7 @@ import torch
 from fisco_bcos_tpu.codec.abi import ABICodec
 from fisco_bcos_tpu.consensus import BlockValidator
 from fisco_bcos_tpu.consensus import qc
+from fisco_bcos_tpu.crypto import bls as jbls
 from fisco_bcos_tpu.crypto import admission as jadmission
 from fisco_bcos_tpu.crypto import suite as jsuite
 from fisco_bcos_tpu.executor.precompiled import DAG_TRANSFER_ADDRESS
@@ -44,9 +51,13 @@ from fisco_bcos_tpu.protocol.transaction import Transaction, TransactionFactory
 from fisco_bcos_tpu.storage.entry import Entry
 from fisco_bcos_tpu.storage.state_storage import StateStorage
 from fisco_bcos_tpu.txpool.validator import batch_admit
+from fisco_bcos_tpu.ops import bls12_381 as jbls_ops
 from fisco_bcos_tpu.ops import ed25519 as jed
-from fisco_bcos_tpu_torch.crypto import admission, suite
+from fisco_bcos_tpu_torch.crypto import admission, bls, suite
+from fisco_bcos_tpu_torch.device import plane as plane_mod
+from fisco_bcos_tpu_torch.device.plane import DevicePlane
 from fisco_bcos_tpu_torch.ops import _kernels
+from fisco_bcos_tpu_torch.ops import bls12_381 as bls_ops
 
 PORT = suite.ecdsa_suite(device="cpu")
 PORT_SM = suite.sm_suite(device="cpu")
@@ -87,6 +98,8 @@ def port_seam():
             (jsuite.SM2Crypto, ("batch_verify", "batch_recover")),
             (jsuite.Ed25519Crypto, ("batch_verify", "batch_recover")),
             (jed, ("verify_batch",)),
+            (jbls.BLSCrypto, ("aggregate_verify_batch", "multi_pairing_verify")),
+            (jbls_ops, ("pairing_check_batch", "multi_pairing_check")),
             (jsuite.CryptoSuite, ("hash_batch", "hash_batch_async", "merkle_root_async", "merkle_tree")),
         ):
             for name in names:
@@ -278,3 +291,118 @@ def test_qc_certificates_on_the_port_ed25519(members):
         i = next(iter(votes))
         assert scheme.verify_one(kps[i].pub, cases["quorum"][2], votes[i])
     assert not calls
+
+
+def _bls_qc_cases(scheme):
+    """A 4-member committee's BLS keys, one vote preimage, the quorum's
+    certificate (signers 0-2), and what verify_cert must reject: an agg_sig
+    with one bit flipped, a bitmap naming member 3 too, a wrong message."""
+    members = 4
+    kps = [scheme.derive_keypair(secret=0xB100 + 31 * i) for i in range(members)]
+    pubs = [kp.pub for kp in kps]
+    msg32 = qc.vote_preimage(PORT, 3, 7, 42, bytes(range(32)))
+    votes = {i: scheme.sign_vote(kps[i], msg32) for i in range(3)}
+    cert = scheme.build_cert(votes, members)
+    flipped = bytearray(cert.agg_sig)
+    flipped[20] ^= 1
+    extra = qc.QuorumCert(cert.scheme, cert.committee, qc.QuorumCert.make_bitmap([0, 1, 2, 3], members), cert.agg_sig)
+    return {
+        "quorum": (cert, pubs, msg32),
+        "a tampered agg_sig": (qc.QuorumCert(cert.scheme, cert.committee, cert.bitmap, bytes(flipped)), pubs, msg32),
+        "a bitmap naming an extra member": (extra, pubs, msg32),
+        "a wrong message": (cert, pubs, qc.vote_preimage(PORT, 3, 7, 43, bytes(range(32)))),
+    }, votes, kps
+
+
+def _concurrently(calls) -> list:
+    """Each call on a thread of its own, all started together; their
+    results in order (an exception is re-raised here)."""
+    out = [None] * len(calls)
+
+    def run(i, fn):
+        try:
+            out[i] = ("ok", fn())
+        except Exception as e:  # noqa: BLE001 — handed back to the test's thread
+            out[i] = ("raised", e)
+
+    threads = [threading.Thread(target=run, args=(i, fn)) for i, fn in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for kind, value in out:
+        if kind == "raised":
+            raise value
+    return [value for _, value in out]
+
+
+@pytest.fixture
+def merging_plane(monkeypatch):
+    """A fresh DevicePlane whose window holds until `items` lanes are
+    queued, so concurrent callers merge into one dispatch."""
+
+    def make(items: int) -> DevicePlane:
+        plane = DevicePlane(window_ms=60_000, high_water=items, starvation_ms=60_000)
+        monkeypatch.setattr(plane_mod, "_PLANE", plane)
+        return plane
+
+    return make
+
+
+def test_qc_certificates_on_the_port_bls(merging_plane, monkeypatch):
+    """BLSQCScheme on the port's BLSCrypto (plain PyTorch on the CPU): it
+    derives the JAX scheme's keys, signs its votes and builds its
+    certificate byte for byte; it accepts the quorum and rejects a tampered
+    agg_sig, a bitmap naming an extra member and a wrong message, as the
+    scheme on the JAX BLSCrypto does, the four checks merged by the plane
+    into one pairing batch; the JAX scheme gives the same verdicts on the
+    port's certificates; no JAX batch entry runs; an agg_sig that fails to
+    decompress is rejected before any pairing."""
+    jax_scheme = qc.BLSQCScheme()
+    jax_cases, jax_votes, jax_kps = _bls_qc_cases(jax_scheme)
+    want = {what: jax_scheme.verify_cert(*args) for what, args in jax_cases.items()}
+    assert want == {"quorum": True, "a tampered agg_sig": False,
+                    "a bitmap naming an extra member": False, "a wrong message": False}
+    scheme = qc.BLSQCScheme()
+    scheme._impl = bls.BLSCrypto(torch.device("cpu"))
+    with port_seam() as calls:
+        cases, votes, kps = _bls_qc_cases(scheme)
+        assert [kp.pub for kp in kps] == [kp.pub for kp in jax_kps]
+        assert votes == jax_votes
+        for what, (cert, _, _) in cases.items():
+            assert cert.encode() == jax_cases[what][0].encode(), what
+        plane = merging_plane(len(cases))
+        got = _concurrently([lambda args=args: scheme.verify_cert(*args) for args in cases.values()])
+        assert dict(zip(cases, got)) == want
+        assert plane.stats()["dispatches"] == 1
+        i = next(iter(votes))
+        assert scheme.verify_one(kps[i].pub, cases["quorum"][2], votes[i])
+        assert bls._g2_point(cases["a tampered agg_sig"][0].agg_sig) is None
+        monkeypatch.setattr(bls_ops, "pairing_check_device", lambda rows: pytest.fail("a pairing ran"))
+        monkeypatch.setenv("FISCO_DEVICE_PLANE", "0")  # alone, it need not wait for the window
+        assert not scheme.verify_cert(*cases["a tampered agg_sig"])
+    assert not calls
+    assert {what: jax_scheme.verify_cert(*args) for what, args in cases.items()} == want
+
+
+def test_bls_aggregate_checks_merge_on_the_plane(merging_plane, monkeypatch):
+    """Two threads' aggregate_verify_batch calls released together through
+    the port's plane make one dispatch, and each gets the bits of its own
+    direct call (FISCO_DEVICE_PLANE=0): one caller's checks a quorum and a
+    wrong message, the other's an agg_sig and a signer set that do not
+    decode (its direct call needs no pairing; in the merged batch they are
+    lanes on the substitutes)."""
+    crypto = bls.BLSCrypto(torch.device("cpu"))
+    cases, _, kps = _bls_qc_cases(qc.BLSQCScheme())
+    checks = {what: ([pubs[i] for i in cert.signers()], msg32, cert.agg_sig)
+              for what, (cert, pubs, msg32) in cases.items()}
+    a = [checks["quorum"], checks["a wrong message"]]
+    b = [checks["a tampered agg_sig"], ([kps[0].pub, b"\x00" * 48], *checks["quorum"][1:])]
+    monkeypatch.setenv("FISCO_DEVICE_PLANE", "0")
+    direct = [crypto.aggregate_verify_batch(a), crypto.aggregate_verify_batch(b)]
+    assert [list(d) for d in direct] == [[True, False], [False, False]]
+    monkeypatch.delenv("FISCO_DEVICE_PLANE")
+    plane = merging_plane(len(a) + len(b))
+    merged = _concurrently([lambda: crypto.aggregate_verify_batch(a), lambda: crypto.aggregate_verify_batch(b)])
+    assert [m.tolist() for m in merged] == [d.tolist() for d in direct]
+    assert plane.stats()["dispatches"] == 1 and plane.stats()["requests"] == 2
