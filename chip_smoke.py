@@ -135,7 +135,11 @@ exits non-zero, printing no result, without them. In order it:
    plain version and the host pairing made to raise); times the kernel
    alone, ``pairing_check_batch``, the QC check (through the plane and
    direct, in turns) and the plain version at 1, 4, 64 and 1,024 lanes
-   beside the bound and the oracle's host time for one check;
+   beside the bound and the oracle's host time for one check; with
+   ``--parent``, the kernel at those lane counts and one
+   ``BLSCrypto.aggregate_verify`` in turns with the parent's kernel; after
+   the field bench, the one-warp latency floor of a check (its programs'
+   rows at the bench's cycles a row) beside the kernel at one lane;
 11. the DevicePlane (``run_plane_phase``): every routed seam (the four
    hashes and their address forms, secp256k1 and SM2 verify and recover,
    Ed25519 verify, both admissions, each hasher's ``merkle_tree``) with
@@ -185,7 +189,9 @@ exits non-zero, printing no result, without them. In order it:
    passes of 8 or 16 rounds; a 700-byte message's lane through one route
    or both, warm and cold, one lane or a round lane and a schedule lane a
    message), the challenge's lane and pair and its reduction mod L, each
-   beside the bound's count of instructions a block;
+   beside the bound's count of instructions a block, and BLS12-381's Fp
+   ops (the product in each form, sums, a row of 8, 16 or 32 products and
+   of 32 sums over slots, the inversion by Fermat and by divsteps);
 14. prints every figure beside the card's name and power limit, one JSON
    line describing every kernel, and last the JSON result line; the
    DevicePlane is drained first, so no request of any phase is left
@@ -332,8 +338,11 @@ BLS_PAIRING_MULS = ((BLS_LEAST_PRODUCTS - BLS_LEAST_SQUARINGS) * MULS_BLS_MUL
 # The Fp products the kernel's own method makes a lane, of which squarings
 # (its host build counts them; tests/test_torch_bls12_381.py pins the count
 # and the chain above against it): a figure of the work done, not the bound.
-BLS_FP_PRODUCTS = 27_183
-BLS_FP_SQUARINGS = 394
+# The least's but for the tower inverse's two Fp6 squarings, taken as
+# products (12 more), and the one product that brings the divsteps'
+# inverse into the Montgomery domain.
+BLS_FP_PRODUCTS = 18_819
+BLS_FP_SQUARINGS = 16
 
 # Each path's counted run, launches a kernel (a hash kernel's forms are
 # kernels of their own; every kernel not named must make none): keccak256 2
@@ -3171,12 +3180,65 @@ def check_bls_block(card: str, device, rows, valid, want, want_gt) -> tuple[int,
     return err, plain_ms
 
 
-def run_bls_phase(card: str, device) -> dict:
+def bls_against_parent(card: str, parent, rows, table, crypto, qc: tuple) -> None:
+    """In turns parent, new, new, parent: the pairing kernel against the
+    parent checkout's (built from that checkout's sources) at each of
+    BLS_LANES (CUDA events; equal verdicts on every lane), then one
+    BLSCrypto.aggregate_verify with each checkout's kernel patched into
+    _kernels.bls12_381_pairing_check (host clock a call, synchronised)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    new, old = _kernels.bls12_381_pairing_check, parent.bls12_381_pairing_check
+    if not torch.equal(new(rows, table), old(rows, table)):
+        raise AssertionError("bls12_381_pairing != the parent checkout's kernel on the BLS mixed block")
+    for m in BLS_LANES:
+        t = [cuda_ms(lambda f=f: f(rows[:m], table), reps=3, inner=1) for f in (old, new, new, old)]
+        log(f"[{card}] bls12_381_pairing @ {m:,} lanes against the parent checkout (equal on every lane): "
+            f"parent {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, parent {t[3]:.4f} ms "
+            f"(new/parent {(t[1] + t[2]) / (t[0] + t[3]):.4f})")
+
+    def qc_ms(fn) -> float:
+        _kernels.bls12_381_pairing_check = fn
+        try:
+            if crypto.aggregate_verify(*qc) is not True:
+                raise AssertionError("BLSCrypto.aggregate_verify rejected a valid quorum")
+            return host_ms(lambda: crypto.aggregate_verify(*qc), reps=5)
+        finally:
+            _kernels.bls12_381_pairing_check = new
+
+    t = [qc_ms(f) for f in (old, new, new, old)]
+    log(f"[{card}] BLSCrypto.aggregate_verify, one QC, against the parent checkout's kernel: parent "
+        f"{t[0]:.3f}, new {t[1]:.3f}, new {t[2]:.3f}, parent {t[3]:.3f} ms")
+
+
+def bls_latency_floor(card: str, bench: dict, one_lane_ms: float, bound_ms: float) -> None:
+    """The one-warp latency floor of a check: the programs' rows (each on
+    the critical path: a row waits for the one before) at the field bench's
+    cycles a row of 32 products and of 32 sums, and the inversion's, at
+    1,980 MHz; beside the bound and the kernel's time at one lane."""
+    from fisco_bcos_tpu_torch.ops import bls12_381_programs
+
+    rows = bls12_381_programs.critical_rows()
+    cycles = (rows["mul"] * bench[BLS_BENCH_ROW] + rows["addsub"] * bench[BLS_BENCH_SUM_ROW]
+              + rows["inversions"] * bench[BLS_BENCH_INV])
+    floor = cycles / 1980e3
+    log(f"[{card}] bls12_381_pairing one-warp latency floor at one lane: {rows['mul']:,} rows of products x "
+        f"{bench[BLS_BENCH_ROW]:.1f} + {rows['addsub']:,} rows of sums x {bench[BLS_BENCH_SUM_ROW]:.1f} + "
+        f"{rows['inversions']} inversion x {bench[BLS_BENCH_INV]:.1f} cycles = {cycles:,.0f} cycles, {floor:.4f} ms "
+        f"at 1,980 MHz, beside the bound's {bound_ms:.4f} ms; the kernel {one_lane_ms:.4f} ms "
+        f"({floor / one_lane_ms:.1%} of it)")
+
+
+def run_bls_phase(card: str, device, parent=None) -> dict:
     """BLS12-381 (ROADMAP A7, B4(c)): the pairing kernel against its plain
     version and the oracle on the mixed block; BLSCrypto.aggregate_verify_batch,
     the QC check's path, counted; the kernel alone, pairing_check_batch, the
     QC check (through the plane and direct, in turns) and the plain version
-    at each of BLS_LANES, beside the bound. Returns the kernel's row."""
+    at each of BLS_LANES, beside the bound; with `parent`, the kernel and a
+    QC check in turns with the parent checkout's kernel. Returns the
+    kernel's row (with `one_lane_ms`)."""
     import numpy as np
     import torch
 
@@ -3222,17 +3284,20 @@ def run_bls_phase(card: str, device) -> dict:
         plain_ms = (time.perf_counter() - t1) * 1e3
         bound = kernel_row("bls12_381_pairing", "", "", kernel_ms, m * BLS_PAIRING_MULS,
                            io_bytes=m * (4 * _kernels.BLS_ROW_WORDS + 1) + 4 * _kernels.BLS_TABLE_WORDS)["bound_ms"]
-        times[m] = (kernel_ms, plain_ms)
+        times[m] = (kernel_ms, plain_ms, bound)
         log(f"[{card}] bls12_381_pairing @ {m:,} lanes: kernel alone {kernel_ms:.4f} ms (bound {bound:.4f}, "
             f"{bound / kernel_ms:.2%}), pairing_check_batch {batch_ms:.3f} ms, BLSCrypto.aggregate_verify_batch "
             f"{show_turns([qc])}, plain {plain_ms:.1f} ms; the host oracle {oracle_ms:.1f} ms a check")
     qc_one = plane_and_direct_ms(lambda: crypto.aggregate_verify(*checks[0]))
     log(f"[{card}] BLSCrypto.aggregate_verify, one QC (a quorum of 6): {show_turns([qc_one])} ms")
-    kernel_ms, plain_ms = times[n]
+    if parent and hasattr(parent, "bls12_381_pairing_check"):
+        bls_against_parent(card, parent, rows, table, crypto, checks[0])
+    kernel_ms, plain_ms, _ = times[n]
     row = kernel_row("bls12_381_pairing", "fisco_bcos_tpu_torch/csrc/bls12_381.cu", BLS_REPLACES, kernel_ms,
                      n * BLS_PAIRING_MULS,
                      io_bytes=n * (4 * _kernels.BLS_ROW_WORDS + 1) + 4 * _kernels.BLS_TABLE_WORDS)
-    row.update(launches=launches["bls12_381_pairing"], max_abs_err=err, plain_ms=plain_ms, lanes=n)
+    row.update(launches=launches["bls12_381_pairing"], max_abs_err=err, plain_ms=plain_ms, lanes=n,
+               one_lane_ms=times[min(BLS_LANES)][0], one_lane_bound_ms=times[min(BLS_LANES)][2])
     log(f"[{card}] bls phase: {time.perf_counter() - t0:.1f} s; launch geometry at {n:,} lanes "
         f"{json.dumps(_kernels.geometry('bls12_381', n))}; the bound's least work {BLS_PAIRING_MULS:,} multiplies "
         f"a check ({BLS_LEAST_PRODUCTS:,} Fp products and an Fp inversion); the kernel makes {BLS_FP_PRODUCTS:,} "
@@ -4205,6 +4270,45 @@ def hash_bench(card: str, libs: dict) -> None:
         log(f"[{card}] hash bench, one warp, cycles a block: {name} ({count}): " + ", ".join(shown))
 
 
+# The field bench's BLS12-381 ops (csrc/field_bench.cu op codes 45-58):
+# (op code, iterations). A row op's cycles are a row's: the pairing
+# kernel's cost of one row of its programs.
+BLS_BENCH_OPS = ((45, 100), (46, 200), (47, 200), (48, 400), (49, 400), (50, 100), (51, 100), (52, 100),
+                 (53, 400), (54, 2), (55, 200), (56, 8), (57, 200), (58, 400))
+BLS_BENCH_ROW, BLS_BENCH_SUM_ROW, BLS_BENCH_INV = 52, 53, 56
+
+
+def bls_bench(card: str, libs: dict) -> dict:
+    """One warp's cycles (clock64(), the median of its 32 lanes) of each of
+    the field bench's BLS12-381 ops, for each built library ({label:
+    path}). Returns this checkout's {op code: cycles}."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    io0 = torch.randint(0, 2**31, (64 * 8,), generator=gen, dtype=torch.int64).to(torch.int32)
+    cyc = torch.zeros(32, dtype=torch.int64, device="cuda")
+    fns = field_bench_libs(libs)
+    mine = {}
+    for op, iters in BLS_BENCH_OPS:
+        shown = []
+        for label, lib in fns.items():
+            io = io0.cuda()
+            err = lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, 2, None)  # warm
+            err = err or lib.field_bench_run(io.data_ptr(), cyc.data_ptr(), op, iters, None)
+            if err == -1:
+                shown.append(f"{label} not in this checkout")
+                continue
+            if err:
+                raise RuntimeError(f"field_bench BLS op {op} failed: CUDA error {err}")
+            c = statistics.median(cyc.cpu().tolist()) / iters
+            if label == "this":
+                mine[op] = c
+            shown.append(f"{label} {c:.1f}")
+        name = next(iter(fns.values())).field_bench_name(op).decode()
+        log(f"[{card}] BLS bench, one warp, cycles per {name}: " + ", ".join(shown))
+    return mine
+
+
 def build_field_bench(checkout: str | Path) -> Path:
     """nvcc of this checkout's csrc/field_bench.cu against `checkout`'s
     csrc/ into that checkout's build directory; returns the library."""
@@ -4433,7 +4537,7 @@ def main() -> int:
     log_kernel(card, poseidon_row_)
 
     # -- BLS12-381: the pairing kernel, BLSCrypto's aggregate (QC) check --
-    bls_row = run_bls_phase(card, device)
+    bls_row = run_bls_phase(card, device, parent)
     log_kernel(card, bls_row)
 
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
@@ -4448,6 +4552,7 @@ def main() -> int:
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
     field_bench(card, bench_libs, {label: checkout_poseidon_table(c, device) for label, c in checkouts.items()})
     hash_bench(card, bench_libs)
+    bls_latency_floor(card, bls_bench(card, bench_libs), bls_row["one_lane_ms"], bls_row["one_lane_bound_ms"])
 
     drain_plane()  # every request of every phase answered: a failed one has raised
     rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_, bls_row)

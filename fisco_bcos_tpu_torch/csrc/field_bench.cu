@@ -52,6 +52,246 @@
 #include <ed25519_challenge.cu>
 #undef fisco_cuda_error_string
 
+#if __has_include(<bls12_381_field.cuh>)
+#include <bls12_381_field.cuh>
+#define FB_HAS_BLS_FIELD 1
+
+// BLS12-381's field ops in the forms the pairing kernel did not take, timed
+// against its own (bls_mul, bls_addsub, bls_inv_divstep).
+
+// t[0..13) += m·q[0..12) + cin·2^384; returns the carry out of t[12].
+DEV u32 bls_mad_row(u32* t, u32 m, const u32* q, u32 cin) {
+#if FISCO_PTX
+  u32 c;
+  asm("mad.lo.cc.u32 %0, %14, %15, %0;\n\t"
+      "madc.lo.cc.u32 %1, %14, %16, %1;\n\t"
+      "madc.lo.cc.u32 %2, %14, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %14, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %19, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %20, %5;\n\t"
+      "madc.lo.cc.u32 %6, %14, %21, %6;\n\t"
+      "madc.lo.cc.u32 %7, %14, %22, %7;\n\t"
+      "madc.lo.cc.u32 %8, %14, %23, %8;\n\t"
+      "madc.lo.cc.u32 %9, %14, %24, %9;\n\t"
+      "madc.lo.cc.u32 %10, %14, %25, %10;\n\t"
+      "madc.lo.cc.u32 %11, %14, %26, %11;\n\t"
+      "addc.cc.u32 %12, %12, %27;\n\t"
+      "addc.u32 %13, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %14, %15, %1;\n\t"
+      "madc.hi.cc.u32 %2, %14, %16, %2;\n\t"
+      "madc.hi.cc.u32 %3, %14, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %19, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %20, %6;\n\t"
+      "madc.hi.cc.u32 %7, %14, %21, %7;\n\t"
+      "madc.hi.cc.u32 %8, %14, %22, %8;\n\t"
+      "madc.hi.cc.u32 %9, %14, %23, %9;\n\t"
+      "madc.hi.cc.u32 %10, %14, %24, %10;\n\t"
+      "madc.hi.cc.u32 %11, %14, %25, %11;\n\t"
+      "madc.hi.cc.u32 %12, %14, %26, %12;\n\t"
+      "addc.u32 %13, %13, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "=&r"(c)
+      : "r"(m), "r"(q[0]), "r"(q[1]), "r"(q[2]), "r"(q[3]), "r"(q[4]), "r"(q[5]), "r"(q[6]),
+        "r"(q[7]), "r"(q[8]), "r"(q[9]), "r"(q[10]), "r"(q[11]), "r"(cin));
+  return c;
+#else
+  u64 c = 0;
+  for (int j = 0; j < BLS_NW; j++) {
+    c += (u64)m * q[j] + t[j];
+    t[j] = (u32)c;
+    c >>= 32;
+  }
+  c += (u64)t[BLS_NW] + cin;
+  t[BLS_NW] = (u32)c;
+  return (u32)(c >> 32);
+#endif
+}
+
+// t[0..13) += lo[0..12) + hi[0..12)·2^32; returns the carry out of t[12].
+// On the card two chains of PTX carries through adds (IADD3 with its carry
+// in a predicate), no multiply in them.
+DEV u32 bls_add_row(u32* t, const u32* lo, const u32* hi) {
+#if FISCO_PTX
+  u32 c, d;
+  asm("add.cc.u32 %0, %0, %14;\n\t"
+      "addc.cc.u32 %1, %1, %15;\n\t"
+      "addc.cc.u32 %2, %2, %16;\n\t"
+      "addc.cc.u32 %3, %3, %17;\n\t"
+      "addc.cc.u32 %4, %4, %18;\n\t"
+      "addc.cc.u32 %5, %5, %19;\n\t"
+      "addc.cc.u32 %6, %6, %20;\n\t"
+      "addc.cc.u32 %7, %7, %21;\n\t"
+      "addc.cc.u32 %8, %8, %22;\n\t"
+      "addc.cc.u32 %9, %9, %23;\n\t"
+      "addc.cc.u32 %10, %10, %24;\n\t"
+      "addc.cc.u32 %11, %11, %25;\n\t"
+      "addc.cc.u32 %12, %12, 0;\n\t"
+      "addc.u32 %13, 0, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "=&r"(c)
+      : "r"(lo[0]), "r"(lo[1]), "r"(lo[2]), "r"(lo[3]), "r"(lo[4]), "r"(lo[5]), "r"(lo[6]),
+        "r"(lo[7]), "r"(lo[8]), "r"(lo[9]), "r"(lo[10]), "r"(lo[11]));
+  asm("add.cc.u32 %0, %0, %13;\n\t"
+      "addc.cc.u32 %1, %1, %14;\n\t"
+      "addc.cc.u32 %2, %2, %15;\n\t"
+      "addc.cc.u32 %3, %3, %16;\n\t"
+      "addc.cc.u32 %4, %4, %17;\n\t"
+      "addc.cc.u32 %5, %5, %18;\n\t"
+      "addc.cc.u32 %6, %6, %19;\n\t"
+      "addc.cc.u32 %7, %7, %20;\n\t"
+      "addc.cc.u32 %8, %8, %21;\n\t"
+      "addc.cc.u32 %9, %9, %22;\n\t"
+      "addc.cc.u32 %10, %10, %23;\n\t"
+      "addc.cc.u32 %11, %11, %24;\n\t"
+      "addc.u32 %12, 0, 0;"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]),
+        "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "=&r"(d)
+      : "r"(hi[0]), "r"(hi[1]), "r"(hi[2]), "r"(hi[3]), "r"(hi[4]), "r"(hi[5]), "r"(hi[6]),
+        "r"(hi[7]), "r"(hi[8]), "r"(hi[9]), "r"(hi[10]), "r"(hi[11]));
+  return c + d;
+#else
+  u64 c = 0, d = 0;
+  for (int j = 0; j < BLS_NW; j++) {
+    c += (u64)t[j] + lo[j];
+    t[j] = (u32)c;
+    c >>= 32;
+  }
+  c += t[BLS_NW];
+  t[BLS_NW] = (u32)c;
+  c >>= 32;
+  for (int j = 0; j < BLS_NW; j++) {
+    d += (u64)t[j + 1] + hi[j];
+    t[j + 1] = (u32)d;
+    d >>= 32;
+  }
+  return (u32)(c + d);
+#endif
+}
+
+// t[0..13) += m·q[0..12) + cin·2^384 by 12 independent 64-bit word products
+// and bls_add_row; returns the carry out of t[12].
+DEV u32 bls_mul_add_row(u32* t, u32 m, const u32* q, u32 cin) {
+  u32 lo[BLS_NW], hi[BLS_NW];
+#pragma unroll
+  for (int j = 0; j < BLS_NW; j++) {
+    const u64 p = (u64)m * q[j];
+    lo[j] = (u32)p;
+    hi[j] = (u32)(p >> 32);
+  }
+  const u64 top = (u64)t[BLS_NW] + cin;
+  t[BLS_NW] = (u32)top;
+  return bls_add_row(t, lo, hi) + (u32)(top >> 32);
+}
+
+// r = a·b·R^-1 mod p for a·b < p·R (canonical a, b); r may alias a or b.
+// The 768-bit product in rows of PTX mad chains, then REDC likewise.
+DEV void bls_mul_mad(u32* r, const u32* a, const u32* b) {
+  u32 t[2 * BLS_NW + 1];
+#pragma unroll
+  for (int k = 0; k <= BLS_NW; k++) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) t[i + BLS_NW + 1] = bls_mad_row(t + i, b[i], a, 0);
+  // REDC: step i clears word i; its carry out of word i + 12 is owed to
+  // word i + 13, added in the next step; after the last, t[12..24) < 2p
+  u32 owed = 0;
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) owed = bls_mad_row(t + i, t[i] * BLS_N0, BLS_P, owed);
+  bls_cond_sub(r, t + BLS_NW);
+}
+
+// The same product, its rows' word products 64 bits at a time and added
+// by carry chains of adds (bls_mul_add_row).
+DEV void bls_mul_addc(u32* r, const u32* a, const u32* b) {
+  u32 t[2 * BLS_NW + 1];
+#pragma unroll
+  for (int k = 0; k <= BLS_NW; k++) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) t[i + BLS_NW + 1] = bls_mul_add_row(t + i, b[i], a, 0);
+  u32 owed = 0;
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) owed = bls_mul_add_row(t + i, t[i] * BLS_N0, BLS_P, owed);
+  bls_cond_sub(r, t + BLS_NW);
+}
+
+// The same product by CIOS with u64 carries (the one-lane kernel's form).
+DEV void bls_mul_cios(u32* r, const u32* a, const u32* b) {
+  u32 t[BLS_NW + 2];
+#pragma unroll
+  for (int i = 0; i < BLS_NW + 2; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) {
+    u64 c = 0;
+    const u32 bi = b[i];
+#pragma unroll
+    for (int j = 0; j < BLS_NW; j++) {
+      c += (u64)a[j] * bi + t[j];
+      t[j] = (u32)c;
+      c >>= 32;
+    }
+    c += t[BLS_NW];
+    t[BLS_NW] = (u32)c;
+    t[BLS_NW + 1] = (u32)(c >> 32);
+    const u32 m = t[0] * BLS_N0;
+    c = ((u64)m * BLS_P[0] + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < BLS_NW; j++) {
+      c += (u64)m * BLS_P[j] + t[j];
+      t[j - 1] = (u32)c;
+      c >>= 32;
+    }
+    c += t[BLS_NW];
+    t[BLS_NW - 1] = (u32)c;
+    t[BLS_NW] = t[BLS_NW + 1] + (u32)(c >> 32);
+  }
+  bls_cond_sub(r, t);
+}
+
+CONSTMEM u32 BLS_NEG_P[BLS_NW] = {0x00005555u, 0x46010000u, 0x4eac0000u, 0xe1540001u,  // 2^384 - p
+                                  0x094f09dbu, 0x98cf2d5fu, 0x0c7aed40u, 0x9b88b47bu,
+                                  0xbcb45328u, 0xb4e45849u, 0xc6801965u, 0xe5feee15u};
+
+// a ± b mod p in one path for both and two carry chains side by side: s1 = a ± b and s2 = s1 ∓ p (b's words inverted and
+// one carried in for a difference; -p as 2^384 - p for a sum). A sum takes
+// s2 when it carries out (s1 >= p), a difference s1 when it does (a >= b).
+DEV void bls_addsub_par(u32* r, const u32* a, const u32* b, bool sub) {
+  const u32 mask = sub ? 0xFFFFFFFFu : 0u;
+  u32 s1[BLS_NW], s2[BLS_NW];
+  u64 c1 = sub, c2 = sub;
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) {
+    const u32 bx = b[i] ^ mask;
+    const u32 q = sub ? BLS_P[i] : BLS_NEG_P[i];
+    c1 += (u64)a[i] + bx;
+    c2 += (u64)a[i] + bx + q;
+    s1[i] = (u32)c1;
+    s2[i] = (u32)c2;
+    c1 >>= 32;
+    c2 >>= 32;
+  }
+  const bool take2 = sub ? c1 == 0 : (c2 & 1) != 0;
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) r[i] = take2 ? s2[i] : s1[i];
+}
+
+// a^-1 = a^(p - 2) (0 -> 0) in the Montgomery domain, (a·R)^-1·R^2: square
+// and multiply, MSB first, over the bits of p - 2 below the top one (bit
+// 380), by the kernel's product.
+DEV void bls_inv_fermat(u32* r, const u32* a) {
+  u32 acc[BLS_NW], x[BLS_NW];
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) acc[i] = x[i] = a[i];
+#pragma unroll 1
+  for (int i = 379; i >= 0; i--) {
+    bls_mul(acc, acc, acc);
+    const u32 word = BLS_P[i >> 5] - (i >> 5 ? 0u : 2u);
+    if ((word >> (i & 31)) & 1) bls_mul(acc, acc, x);
+  }
+#pragma unroll
+  for (int i = 0; i < BLS_NW; i++) r[i] = acc[i];
+}
+#endif
+
 #ifdef SLOT_WORDS
 #define FB_SQR_MM(r, a) mm_sqr(r, a)
 #define FB_SQR_FN(r, a) fn_sqr(r, a)
@@ -68,7 +308,8 @@ enum {
   FB_XCHG_SLOTS, FB_XCHG_SHFL, FB_SHA256_COMPRESS, FB_SHA256_COMPRESS_PASS8, FB_SHA256_COMPRESS_PASS16,
   FB_SHA256_LANE, FB_SHA256_LANE_ROUTES, FB_SHA256_LANE_COLD, FB_SHA256_PAIR, FB_SHA512_BLOCK,
   FB_SHA512_BLOCK_FULL, FB_SHA512_BLOCK_PASS8, FB_CHALLENGE_LANE, FB_CHALLENGE_PAIR, FB_MOD_L,
-  FB_CHALLENGE_COLD, FB_OPS
+  FB_CHALLENGE_COLD, FB_BLS_MUL_ONE_LANE, FB_BLS_MUL_CIOS, FB_BLS_MUL, FB_BLS_ADD, FB_BLS_SUB,
+  FB_BLS_ROW8, FB_BLS_ROW16, FB_BLS_ROW32, FB_BLS_SUM_ROW32, FB_BLS_INV_FERMAT, FB_BLS_MUL_ADDC, FB_BLS_INV_DIVSTEP, FB_BLS_MUL_COLS, FB_BLS_ADD_PAR, FB_OPS
 };
 
 extern "C" const char* field_bench_name(int op) {
@@ -97,7 +338,19 @@ extern "C" const char* field_bench_name(int op) {
       "Ed25519 challenge lane, a 32-byte staged message (1 block and mod L)",
       "Ed25519 challenge pair, a round lane and a schedule lane a 32-byte message",
       "Ed25519 challenge, the Barrett reduction mod L",
-      "Ed25519 challenge lane, its first message in a fresh launch (cold)"};
+      "Ed25519 challenge lane, its first message in a fresh launch (cold)",
+      "BLS12-381 Fp product, the one-lane kernel's form (CIOS, u64 carries, by reference, not inlined)",
+      "BLS12-381 Fp product, CIOS with u64 carries in registers (bls_mul_cios)",
+      "BLS12-381 Fp product, the 768-bit product and REDC in rows of PTX mad carry chains (bls_mul_mad)",
+      "BLS12-381 Fp sum, three chains one after another (bls_addsub, the kernel's)",
+      "BLS12-381 Fp difference (bls_addsub)",
+      "BLS12-381 row of 8 products over shared-memory slots (op from global, 2 loads, 1 store, __syncwarp)",
+      "BLS12-381 row of 16 products over shared-memory slots", "BLS12-381 row of 32 products over shared-memory slots",
+      "BLS12-381 row of 32 sums over shared-memory slots", "BLS12-381 Fp inversion, Fermat, one lane",
+      "BLS12-381 Fp product, 64-bit word products added by chains of add carries (bls_mul_addc)",
+      "BLS12-381 Fp inversion, safegcd divsteps and one product, one lane (bls_inv_divstep, the kernel's)",
+      "BLS12-381 Fp product by columns with deferred carries (bls_mul, the kernel's)",
+      "BLS12-381 Fp sum, two chains side by side (bls_addsub_par)"};
   return op >= 0 && op < FB_OPS ? names[op] : "";
 }
 
@@ -532,6 +785,136 @@ __global__ void hash_bench(u32* io, long long* cyc, int iters) {
   cyc[lane] = OP == FB_SHA256_LANE_COLD || OP == FB_CHALLENGE_COLD ? first : t1 - t0;
 }
 
+// The one-lane BLS12-381 kernel's product as it was: CIOS with u64
+// carries on 12-word structs passed by reference to a function that does
+// not inline (its operands in local memory).
+struct fb_bls_fp { u32 w[12]; };
+__device__ __noinline__ void fb_bls_fp_mul_one_lane(fb_bls_fp& r, const fb_bls_fp& a, const fb_bls_fp& b) {
+  const u32 P[12] = {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+                     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+  u32 t[14];
+  for (int i = 0; i < 14; i++) t[i] = 0;
+  for (int i = 0; i < 12; i++) {
+    u64 c = 0;
+    const u32 bi = b.w[i];
+    for (int j = 0; j < 12; j++) {
+      c += (u64)a.w[j] * bi + t[j];
+      t[j] = (u32)c;
+      c >>= 32;
+    }
+    c += t[12];
+    t[12] = (u32)c;
+    t[13] = (u32)(c >> 32);
+    const u32 m = t[0] * 0xfffcfffdu;
+    c = ((u64)m * P[0] + t[0]) >> 32;
+    for (int j = 1; j < 12; j++) {
+      c += (u64)m * P[j] + t[j];
+      t[j - 1] = (u32)c;
+      c >>= 32;
+    }
+    c += t[12];
+    t[11] = (u32)c;
+    t[12] = t[13] + (u32)(c >> 32);
+  }
+  u32 d[12];
+  u32 borrow = sub_w<12>(d, t, P);
+  for (int i = 0; i < 12; i++) r.w[i] = borrow ? t[i] : d[i];
+}
+
+// a lane's slots in a row bench: 3 of 12 words, lane-major
+__device__ const u32 FB_BLS_ROW_OPS[32] = {
+    0u, 1u, 2u, 3u, 4u, 5u, 6u, 7u, 8u, 9u, 10u, 11u, 12u, 13u, 14u, 15u,
+    16u, 17u, 18u, 19u, 20u, 21u, 22u, 23u, 24u, 25u, 26u, 27u, 28u, 29u, 30u, 31u};
+
+// One warp: each lane's two 12-word values below 2^380 (so below p) from
+// io; cycles of `iters` dependent ops (a product's output is its next
+// operand).
+template <int OP>
+__global__ void bls_field_bench(u32* io, long long* cyc, int iters) {
+  const int lane = threadIdx.x;
+  u32 x[12], y[12];
+  for (int i = 0; i < 12; i++) {
+    x[i] = io[8 * lane + (i & 7)] ^ (0x9e3779b9u * i);
+    y[i] = io[8 * (lane + 32) + (i & 7)] ^ (0x7f4a7c15u * i);
+  }
+  x[11] &= 0x0FFFFFFFu, y[11] &= 0x0FFFFFFFu;
+  fb_bls_fp fx, fy;
+  for (int i = 0; i < 12; i++) fx.w[i] = x[i], fy.w[i] = y[i];
+  long long t0 = clock64();
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) {
+    if (OP == FB_BLS_MUL_ONE_LANE) fb_bls_fp_mul_one_lane(fx, fx, fy);
+#ifdef FB_HAS_BLS_FIELD
+    else if (OP == FB_BLS_MUL_CIOS) bls_mul_cios(x, x, y);
+    else if (OP == FB_BLS_MUL) bls_mul_mad(x, x, y);
+    else if (OP == FB_BLS_MUL_ADDC) bls_mul_addc(x, x, y);
+    else if (OP == FB_BLS_INV_DIVSTEP) bls_inv_divstep(x, x);
+    else if (OP == FB_BLS_MUL_COLS) bls_mul(x, x, y);
+    else if (OP == FB_BLS_ADD_PAR) bls_addsub_par(x, x, y, false);
+    else if (OP == FB_BLS_ADD || OP == FB_BLS_SUB) bls_addsub(x, x, y, OP == FB_BLS_SUB);
+    else if (OP == FB_BLS_INV_FERMAT) bls_inv_fermat(x, x);
+#endif
+  }
+  long long t1 = clock64();
+  for (int i = 0; i < 8; i++) io[8 * lane + i] = x[i] ^ x[i + 4] ^ fx.w[i];
+  cyc[lane] = t1 - t0;
+}
+
+#ifdef FB_HAS_BLS_FIELD
+// A row of the pairing kernel's programs: lanes below GW each run one op (a
+// product, or a sum where SUMS) over their own slots, the op's word read
+// from global memory as the kernel reads it, then the warp syncs; each
+// lane's result is its next row's operand. Nothing but the slots lives
+// across the loop, as in the kernel's row loop.
+template <int GW, bool SUMS>
+__global__ void bls_row_bench(u32* io, long long* cyc, int iters) {
+  const int lane = threadIdx.x;
+  __shared__ uint4 s_rows[32 * 3 * 3];
+  u32* sl = reinterpret_cast<u32*>(s_rows) + lane * 36;
+  for (int i = 0; i < 12; i++) {
+    sl[i] = io[8 * lane + (i & 7)] ^ (0x9e3779b9u * i);
+    sl[12 + i] = io[8 * (lane + 32) + (i & 7)] ^ (0x7f4a7c15u * i);
+  }
+  sl[11] &= 0x0FFFFFFFu, sl[23] &= 0x0FFFFFFFu;
+  __syncwarp();
+  long long t0 = clock64();
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) {
+    if (lane < GW) {
+      const u32 op = __ldg(&FB_BLS_ROW_OPS[lane]);
+      u32* s = reinterpret_cast<u32*>(s_rows) + op * 36;
+      const uint4* q = reinterpret_cast<const uint4*>(s);
+      u32 a[12], b[12], r[12];
+      for (int h = 0; h < 3; h++) {
+        uint4 u = q[h], v = q[3 + h];
+        a[4 * h] = u.x, a[4 * h + 1] = u.y, a[4 * h + 2] = u.z, a[4 * h + 3] = u.w;
+        b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z, b[4 * h + 3] = v.w;
+      }
+      if (SUMS) bls_addsub(r, a, b, k & 1);
+      else bls_mul(r, a, b);
+      uint4* o = reinterpret_cast<uint4*>(s);
+      for (int h = 0; h < 3; h++) o[h] = make_uint4(r[4 * h], r[4 * h + 1], r[4 * h + 2], r[4 * h + 3]);
+    }
+    __syncwarp();
+  }
+  long long t1 = clock64();
+  for (int i = 0; i < 8; i++) io[8 * lane + i] = sl[i] ^ sl[i + 4];
+  cyc[lane] = t1 - t0;
+}
+
+template <int GW, bool SUMS>
+static int launch_bls_row(u32* io, long long* cyc, int iters) {
+  bls_row_bench<GW, SUMS><<<1, 32>>>(io, cyc, iters);
+  return (int)cudaDeviceSynchronize();
+}
+#endif
+
+template <int OP>
+static int launch_bls(u32* io, long long* cyc, int iters) {
+  bls_field_bench<OP><<<1, 32>>>(io, cyc, iters);
+  return (int)cudaDeviceSynchronize();
+}
+
 template <int OP>
 static int launch_hash(u32* io, long long* cyc, int iters) {
   hash_bench<OP><<<1, 32>>>(io, cyc, iters);
@@ -641,6 +1024,22 @@ extern "C" int field_bench_run(void* io, void* cyc, int op, int iters, const voi
     case FB_SHA512_BLOCK_FULL: return launch_hash<FB_SHA512_BLOCK_FULL>(w, c, iters);
     case FB_SHA512_BLOCK_PASS8: return launch_hash<FB_SHA512_BLOCK_PASS8>(w, c, iters);
     case FB_CHALLENGE_PAIR: return launch_hash<FB_CHALLENGE_PAIR>(w, c, iters);
+#endif
+    case FB_BLS_MUL_ONE_LANE: return launch_bls<FB_BLS_MUL_ONE_LANE>(w, c, iters);
+#ifdef FB_HAS_BLS_FIELD
+    case FB_BLS_MUL_CIOS: return launch_bls<FB_BLS_MUL_CIOS>(w, c, iters);
+    case FB_BLS_MUL: return launch_bls<FB_BLS_MUL>(w, c, iters);
+    case FB_BLS_ADD: return launch_bls<FB_BLS_ADD>(w, c, iters);
+    case FB_BLS_SUB: return launch_bls<FB_BLS_SUB>(w, c, iters);
+    case FB_BLS_ROW8: return launch_bls_row<8, false>(w, c, iters);
+    case FB_BLS_ROW16: return launch_bls_row<16, false>(w, c, iters);
+    case FB_BLS_ROW32: return launch_bls_row<32, false>(w, c, iters);
+    case FB_BLS_SUM_ROW32: return launch_bls_row<32, true>(w, c, iters);
+    case FB_BLS_INV_FERMAT: return launch_bls<FB_BLS_INV_FERMAT>(w, c, iters);
+    case FB_BLS_MUL_ADDC: return launch_bls<FB_BLS_MUL_ADDC>(w, c, iters);
+    case FB_BLS_INV_DIVSTEP: return launch_bls<FB_BLS_INV_DIVSTEP>(w, c, iters);
+    case FB_BLS_MUL_COLS: return launch_bls<FB_BLS_MUL_COLS>(w, c, iters);
+    case FB_BLS_ADD_PAR: return launch_bls<FB_BLS_ADD_PAR>(w, c, iters);
 #endif
     case 101: body_size_bench<1><<<1, 32>>>(w, c, iters); break;
     case 104: body_size_bench<4><<<1, 32>>>(w, c, iters); break;

@@ -6,12 +6,16 @@ tests/test_bls.py's change of basis and the final exponentiation on the
 Miller loop's outputs; the port's BLSCrypto
 on a mixed batch of every lane kind against the JAX BLSCrypto, its rows
 against the JAX device_inputs byte for byte and its GT elements against the
-oracle's; and the CUDA kernel's arithmetic (csrc/bls12_381.cu) built as
-host C++: its Fp product against Python integers, its whole pairing check
-against the oracle. Every tolerance is exact. No JAX BLS program is
-traced (the JAX fields run eagerly, as tests/test_bls.py runs them); a
-plain pairing check costs seconds on the CPU whatever its lanes, so this
-file makes one. The kernel itself runs only on the card, through
+oracle's; the kernel's programs (ops/bls12_381_programs.py: the committed
+header is the generator's output, no row has a hazard between its lanes,
+the script over Python integers gives the oracle's GT elements); and the
+CUDA kernel's arithmetic (csrc/bls12_381.cu) built as host C++: its Fp
+products and inversions against Python integers, its cyclotomic squaring
+against the generic one, its whole pairing check against the oracle at 1,
+3, 5 and 7 lanes. Every tolerance is exact. No JAX BLS program is traced
+(the JAX fields run eagerly, as tests/test_bls.py runs them); a plain
+pairing check costs seconds on the CPU whatever its lanes, so this file
+makes one. The kernel itself runs only on the card, through
 chip_smoke.py."""
 
 import ctypes
@@ -33,6 +37,7 @@ from fisco_bcos_tpu_torch.crypto import bls as pbls
 from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as R
 from fisco_bcos_tpu_torch.ops import _kernels
 from fisco_bcos_tpu_torch.ops import bls12_381 as K
+from fisco_bcos_tpu_torch.ops import bls12_381_programs as BP
 from test_bls import _tower_host
 
 P = R.P
@@ -386,20 +391,25 @@ def test_host_calls_match_the_jax_class():
 SHIM = r"""
 #include "{src}"
 
-// lane i: r = a·b/R mod p (op 0), or a·a/R (op 1); alias: the output starts
-// as a copy of a and the product reads its operands from it
+// lane i: r = a·b/R mod p (op 0) or a·a/R (op 1) by bls_mul; a^-1 mod p
+// (op 2) and, for a Montgomery a·R, (a·R)^-1·R^2 (op 3) by the divsteps;
+// a + b (op 4) and a - b (op 5) mod p; alias: the output starts as a copy of
+// a and the op reads its operands from it
 extern "C" int host_fp_op(int op, const u32* a, const u32* b, u32* r, int n, int alias) {{
   for (int i = 0; i < n; i++) {{
-    fp x, y, o;
-    fp_load(x, a + BLS_NW * i);
-    fp_load(y, b + BLS_NW * i);
-    o = x;
-    if (op == 0 && alias) fp_mul(o, o, y);
-    else if (op == 0) fp_mul(o, x, y);
-    else if (op == 1 && alias) fp_mul(o, o, o);
-    else if (op == 1) fp_mul(o, x, x);
-    else return -1;
-    for (int k = 0; k < BLS_NW; k++) r[BLS_NW * i + k] = o.w[k];
+    u32 x[BLS_NW], y[BLS_NW], o[BLS_NW];
+    for (int k = 0; k < BLS_NW; k++) x[k] = a[BLS_NW * i + k], y[k] = b[BLS_NW * i + k], o[k] = x[k];
+    const u32* u = alias ? o : x;
+    switch (op) {{
+      case 0: bls_mul(o, u, y); break;
+      case 1: bls_mul(o, u, u); break;
+      case 2: bls_inv_divstep_plain(o, u); break;
+      case 3: bls_inv_divstep(o, u); break;
+      case 4: bls_addsub(o, u, y, false); break;
+      case 5: bls_addsub(o, u, y, true); break;
+      default: return -1;
+    }}
+    for (int k = 0; k < BLS_NW; k++) r[BLS_NW * i + k] = o[k];
   }}
   return 0;
 }}
@@ -408,48 +418,23 @@ extern "C" int host_fp_op(int op, const u32* a, const u32* b, u32* r, int n, int
 // products (all, then squarings) the lanes made together
 extern "C" void host_pairing(const u32* rows, const u32* table, uint8_t* ok, u32* gt, int n,
                              unsigned long long* counts) {{
+  static u32 sl[BLS_SLOT_WORDS];
   bls_count_mul = bls_count_sqr = 0;
-  for (int i = 0; i < n; i++) {{
-    fp12 e;
-    ok[i] = bls_pairing_lane(rows + (long)i * BLS_ROW_WORDS, table, e);
-    const u32* w = e.c0.c0.c0.w;
-    for (int k = 0; k < 12 * BLS_NW; k++) gt[(long)i * 12 * BLS_NW + k] = w[k];
-  }}
+  for (int i = 0; i < n; i++)
+    bls_pairing_check(rows + (long)i * BLS_ROW_WORDS, table, sl, ok + i, gt + (long)i * 12 * BLS_NW);
   counts[0] = bls_count_mul + bls_count_sqr;
   counts[1] = bls_count_sqr;
 }}
 
-// the Fp products one step of a check makes: 0 an Fp12 squaring, 1 a
-// doubling step, 2 an addition step, 3 a product by a line, 4 an Fp12
-// inverse, 5 an Fp12 product, 6-8 the p^2-, p- and p^6-Frobenius
-extern "C" unsigned long long host_step_products(int op, const u32* table) {{
-  fp12 f, g;
-  fp* c = &f.c0.c0.c0;
-  for (int i = 0; i < 12; i++) {{
-    fp_zero(c[i]);
-    c[i].w[0] = 3 + i;
-  }}
-  const fp12 h = f;
-  g2j t;
-  t.x = f.c0.c0;
-  t.y = f.c0.c1;
-  t.z = f.c0.c2;
-  fp2 c0, c2, c3;
+// program `prog` over a check's slots (BLS_SLOT_WORDS words); returns the Fp
+// products it made
+extern "C" unsigned long long host_program(int prog, u32* slots) {{
   bls_count_mul = bls_count_sqr = 0;
-  switch (op) {{
-    case 0: fp12_sqr(g, f); break;
-    case 1: dbl_step(t, c[0], c[1], c0, c2, c3); break;
-    case 2: add_step(t, f.c1.c0, f.c1.c1, c[0], c[1], c0, c2, c3); break;
-    case 3: fp12_mul_line(g, f, f.c1.c0, f.c1.c1, f.c1.c2); break;
-    case 4: fp12_inv(g, f); break;
-    case 5: fp12_mul(g, f, h); break;
-    case 6: fp12_frob(g, f, 1, table); break;
-    case 7: fp12_frob(g, f, 0, table); break;
-    case 8: fp12_frob(g, f, 2, table); break;
-    default: return ~0ull;
-  }}
+  bls_run_program(prog, slots);
   return bls_count_mul + bls_count_sqr;
 }}
+
+extern "C" int host_slot_words() {{ return BLS_SLOT_WORDS; }}
 """
 
 
@@ -471,8 +456,9 @@ def host_kernel(tmp_path_factory):
     lib.host_fp_op.restype = ctypes.c_int
     lib.host_pairing.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     lib.host_pairing.restype = None
-    lib.host_step_products.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.host_step_products.restype = ctypes.c_ulonglong
+    lib.host_program.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.host_program.restype = ctypes.c_ulonglong
+    lib.host_slot_words.restype = ctypes.c_int
     return lib
 
 
@@ -486,9 +472,9 @@ def _ints(words: np.ndarray) -> list[int]:
 
 @pytest.mark.parametrize("alias", [False, True])
 def test_kernel_fp_product_matches_python_ints(host_kernel, alias):
-    """The kernel's CIOS product a·b·2^-384 mod p and its squaring, on edge
-    and seeded operands within their domain (a·b < p·2^384: a up to
-    2^384 - 1 against b < p; a squared below √(p·2^384)), and in place."""
+    """The kernel's product a·b·2^-384 mod p and its squaring, on edge and
+    seeded operands within their domain (a·b < p·2^384: a up to 2^384 - 1
+    against b < p; a squared below √(p·2^384)), and in place."""
     rinv = pow(K.R384, -1, P)
     rng = random.Random(0xF9)
     top = (1 << 384) - 1
@@ -508,43 +494,198 @@ def test_kernel_fp_product_matches_python_ints(host_kernel, alias):
         assert _ints(out) == want, op
 
 
-def test_kernel_pairing_check_matches_the_oracle(host_kernel, mixed, oracle_gt):
-    """The kernel's whole pairing check on the mixed batch's rows: the
-    oracle's bits and GT elements on every lane, and the Fp products a
-    lane makes, the count chip_smoke.py's bound takes."""
-    rows = np.ascontiguousarray(mixed["rows"].numpy())
+@pytest.mark.parametrize("alias", [False, True])
+def test_kernel_fp_inversion_matches_python_ints(host_kernel, alias):
+    """The kernel's Fp inversion by the divsteps, plain (a^-1 mod p) and in
+    the Montgomery domain ((a·R)^-1·R^2): Python's pow on edge and seeded
+    operands below p, 0 -> 0, and in place."""
+    rng = random.Random(0x1D5)
+    a = [0, 1, 2, 3, P - 1, P - 2, (P + 1) // 2, 1 << 380, (1 << 380) - 1, 0xFFFFFFFF, 1 << 352]
+    a += [rng.randrange(P) for _ in range(21)]
+    inv = [pow(v, -1, P) if v else 0 for v in a]
+    mont = [pow(v, -1, P) * K.R384 * K.R384 % P if v else 0 for v in a]
+    for op, want in ((2, inv), (3, mont)):
+        xw = _words(a)
+        out = np.zeros_like(xw)
+        assert host_kernel.host_fp_op(op, xw.ctypes.data, xw.ctypes.data, out.ctypes.data, len(a), int(alias)) == 0
+        assert _ints(out) == want, op
+
+
+@pytest.mark.parametrize("alias", [False, True])
+def test_kernel_fp_sum_and_difference_match_python_ints(host_kernel, alias):
+    """The kernel's sum and difference mod p (bls_addsub, one path for
+    both) on canonical edge and seeded operands, and in place."""
+    rng = random.Random(0xADD)
+    edge = [0, 1, 2, P - 1, P - 2, (P - 1) // 2, (P + 1) // 2, 1 << 380, (1 << 380) - 1, 0xFFFFFFFF]
+    a = [x for x in edge for _ in edge] + [rng.randrange(P) for _ in range(40)]
+    b = [y for _ in edge for y in edge] + [rng.randrange(P) for _ in range(40)]
+    sums, diffs = [(u + v) % P for u, v in zip(a, b)], [(u - v) % P for u, v in zip(a, b)]
+    for op, want in ((4, sums), (5, diffs)):
+        xw, yw = _words(a), _words(b)
+        out = np.zeros_like(xw)
+        assert host_kernel.host_fp_op(op, xw.ctypes.data, yw.ctypes.data, out.ctypes.data, len(a), int(alias)) == 0
+        assert _ints(out) == want, op
+
+
+def _host_check(host_kernel, rows: np.ndarray):
+    rows = np.ascontiguousarray(rows)
     n = rows.shape[0]
     table = np.ascontiguousarray(K.KERNEL_TABLE)
     ok = np.zeros(n, dtype=np.uint8)
     gt = np.zeros((n, 144), dtype=np.uint32)
     counts = (ctypes.c_ulonglong * 2)()
     host_kernel.host_pairing(rows.ctypes.data, table.ctypes.data, ok.ctypes.data, gt.ctypes.data, n, counts)
+    return ok.astype(bool), K.tower_to_ref(K.words_to_limbs(torch.from_numpy(gt.view(np.int32)))), counts
+
+
+def test_kernel_pairing_check_matches_the_oracle(host_kernel, mixed, oracle_gt):
+    """The kernel's whole pairing check on the mixed batch's rows: the
+    oracle's bits and GT elements on every lane, and the Fp products a
+    lane makes, the count chip_smoke.py prints beside the bound."""
+    rows = mixed["rows"].numpy()
+    n = rows.shape[0]
+    ok, gt, counts = _host_check(host_kernel, rows)
     valid = K.device_inputs(_jax_triples(mixed["checks"]))[1]
-    assert list(ok.astype(bool) & valid) == list(mixed["bits"])
-    assert K.tower_to_ref(K.words_to_limbs(torch.from_numpy(gt.view(np.int32)))) == oracle_gt
+    assert list(ok & valid) == list(mixed["bits"])
+    assert gt == oracle_gt
     assert (counts[0] // n, counts[1] // n) == (chip_smoke.BLS_FP_PRODUCTS, chip_smoke.BLS_FP_SQUARINGS)
     assert counts[0] % n == 0 and counts[1] % n == 0
 
 
-# the steps of chip_smoke.BLS_CHAIN in the order of host_step_products' ops
-# (the Fp12 squarings of the hard part are the kernel's generic ones, and a
-# conjugation its p^6-Frobenius)
-_STEP_OPS = {"fp12_sqr": 0, "dbl": 1, "add": 2, "line": 3, "fp12_inv": 4, "fp12_mul": 5,
-             "frob_p2": 6, "frob_p": 7, "conj": 8, "cyclo_sqr": 0}
+@pytest.mark.parametrize("lanes", [1, 3, 5])
+def test_kernel_small_batches_match_the_oracle(host_kernel, mixed, oracle_gt, lanes):
+    """Batches of 1, 3 and 5 checks, each lane its own check: the oracle's
+    bits and GT elements."""
+    rows = mixed["rows"].numpy()[:lanes]
+    ok, gt, _ = _host_check(host_kernel, rows)
+    valid = K.device_inputs(_jax_triples(mixed["checks"][:lanes]))[1]
+    assert list(ok & valid) == list(mixed["bits"][:lanes])
+    assert gt == oracle_gt[:lanes]
+
+
+def test_programs_over_ints_match_the_oracle(mixed, oracle_gt):
+    """The programs' script over Python integers (ops/bls12_381_programs.py
+    run_check) on the mixed batch's rows: the oracle's GT elements, and
+    its product count the kernel's less the inversion's."""
+    table = _ints(np.asarray(K.KERNEL_TABLE).view(np.uint32).reshape(-1, 12))
+    for row, want in zip(mixed["rows"].numpy(), oracle_gt):
+        ok, gt = BP.run_check(_ints(row.view(np.uint32).reshape(-1, 12)), table)
+        words = _words(gt).view(np.int32).reshape(1, 144)
+        assert K.tower_to_ref(K.words_to_limbs(torch.from_numpy(words))) == [want]
+        assert ok == (want == JR.F12_ONE)
+    assert sum(BP.script_products().values()) + _INV_PRODUCTS == chip_smoke.BLS_FP_PRODUCTS
+
+
+def test_programs_header_is_the_generators_output():
+    """csrc/bls12_381_programs.cuh is what ops/bls12_381_programs.py
+    writes (python -m fisco_bcos_tpu_torch.ops.bls12_381_programs)."""
+    assert BP.HEADER.read_text() == BP.header_text()
+
+
+def _header_array(name: str) -> list[int]:
+    text = BP.HEADER.read_text()
+    body = text[text.index(f"{name}) = {{") :]
+    body = body[body.index("{") + 1 : body.index("};")]
+    return [int(v.strip().rstrip("u"), 16) for v in body.replace("\n", " ").split(",") if v.strip()]
+
+
+def test_program_rows_have_no_hazard():
+    """Every row of every program in the committed header: at most BLS_G
+    ops, of one kind, over slots below BLS_SLOTS, and no op writes a slot
+    that another op of its row reads or writes (the lanes of a row run at
+    once; the host build runs them in turn)."""
+    rows, ops = _header_array("BLS_ROWS"), _header_array("BLS_OPS")
+    slots = BP.compiled()["slots"]
+    assert len(rows) == sum(len(p.rows) for p in BP.compiled()["programs"])
+    for r, row in enumerate(rows):
+        n, off = (row >> 1) & 127, row >> 8
+        assert 1 <= n <= BP.G, r
+        row_ops = [(o & 1023, (o >> 10) & 1023, (o >> 20) & 1023) for o in ops[off : off + n]]
+        assert all(max(op) < slots for op in row_ops), r
+        dsts = [d for d, _, _ in row_ops]
+        assert len(set(dsts)) == len(dsts), r
+        for j, (d, _, _) in enumerate(row_ops):
+            assert all(d not in (a, b) for k, (_, a, b) in enumerate(row_ops) if k != j), (r, j)
+    assert max(p.temps for p in BP.compiled()["programs"]) + BP.N_PINNED == slots
+
+
+def _tower_words(elems) -> list[int]:
+    """Oracle w-basis elements -> the tower's flat coefficients as
+    Montgomery ints (the kernel's slots)."""
+    out = []
+    for flat in elems:
+        for beta in range(2):
+            for alpha in range(3):
+                b = flat[2 * alpha + beta + 6]
+                out += [(flat[2 * alpha + beta] + b) % P * K.R384 % P, b * K.R384 % P]
+    return out
+
+
+def _cyclo_program(host_kernel, elem) -> tuple:
+    """The kernel's cyclotomic squaring program (register A <- A²) on one
+    oracle element, through the g++ build: (the result, its products)."""
+    progs = BP.compiled()["programs"]
+    index = next(i for i, p in enumerate(progs) if p.key == ("cyclo", "A", "A"))
+    slots = np.zeros(host_kernel.host_slot_words(), dtype=np.uint32)
+    vals = _ints(np.asarray(K.KERNEL_TABLE).view(np.uint32).reshape(-1, 12))
+    for slot, src, i in BP.LOADS:
+        if src == "table":
+            slots[12 * slot : 12 * slot + 12] = _words([vals[i]])[0]
+    a0 = BP.PINNED["A_0"]
+    slots[12 * a0 : 12 * a0 + 144] = _words(_tower_words([elem])).reshape(-1)
+    made = host_kernel.host_program(index, slots.ctypes.data)
+    words = slots[12 * a0 : 12 * a0 + 144].view(np.int32).reshape(1, 144)
+    return K.tower_to_ref(K.words_to_limbs(torch.from_numpy(words.copy())))[0], made
+
+
+def test_kernel_cyclotomic_squaring_matches_the_generic_squaring(host_kernel):
+    """The kernel's Granger-Scott squaring, built with g++, on seeded
+    elements of the cyclotomic subgroup (a random element after the easy
+    part, f^((p⁶ - 1)(p² + 1))): the generic squaring's result, the
+    plain version's f12_sqr and the oracle's product alike, in 18 Fp
+    products. On an element outside the subgroup it differs."""
+    rng = random.Random(0xC1C)
+    for _ in range(3):
+        a = tuple(rng.randrange(P) for _ in range(12))
+        u = R.f12_mul(R.f12_frob(a, 6), R.f12_inv(a))
+        m = R.f12_mul(R.f12_frob(u, 2), u)
+        got, made = _cyclo_program(host_kernel, m)
+        assert got == R.f12_mul(m, m) == K.tower_to_ref(K.f12_sqr(K.tower_from_ref([m], CPU)))[0]
+        assert made == 18
+    assert _cyclo_program(host_kernel, a)[0] != R.f12_mul(a, a)
+
+
+# The Fp inversion's one product (the divsteps' result into the Montgomery
+# domain) and the chain's steps as the kernel's programs make them:
+# each step's products by the generator's tags, the programs' own counts
+# checked against the g++ build's.
+_INV_PRODUCTS = 1
+_STEP_PROGRAMS = {"fp12_sqr": (("miller", False), 1), "dbl": (("miller", False), 2),
+                  "line": (("miller", False), 2), "add": (("miller", True), 2),
+                  "fp12_mul": (("mul", "A", "A", "F"), 1), "frob_p2": (("frob_p2", "A", "B"), 1),
+                  "frob_p": (("frob_p", "C", "B"), 1), "conj": (("conj", "A", "A"), 1)}
 
 
 def test_bound_chain_prices_the_kernels_steps(host_kernel):
     """chip_smoke.py's chain of a check (BLS_CHAIN), each step priced at
-    the Fp products the kernel's host build makes for it, gives the
-    products the whole check makes; priced at the least work
-    (BLS_LEAST_FP), no step costs more than the kernel's, and the
-    cyclotomic squarings half its generic ones."""
-    table = np.ascontiguousarray(K.KERNEL_TABLE)
-    made = {op: host_kernel.host_step_products(code, table.ctypes.data) for op, code in _STEP_OPS.items()}
+    the Fp products the kernel's programs make for it (the cyclotomic
+    squaring by its g++ build), gives the products the whole check makes;
+    priced at the least work (BLS_LEAST_FP), no step costs more than the
+    kernel's, and the cyclotomic squaring is the least's 18."""
+    progs = BP.compiled()["programs"]
+    slots = np.zeros(host_kernel.host_slot_words(), dtype=np.uint32)
+    by_key = {}
+    for i, p in enumerate(progs):  # each program's g++ count is its tags' sum
+        assert host_kernel.host_program(i, slots.ctypes.data) == sum(p.products.values()), p.key
+        by_key[p.key] = p
+    made = {op: by_key[key].products.get(op, 0) // n for op, (key, n) in _STEP_PROGRAMS.items()}
+    made["fp12_inv"] = (by_key[("inv_a",)].products["fp12_inv"] + by_key[("inv_b",)].products["fp12_inv"]
+                        + _INV_PRODUCTS)
+    made["cyclo_sqr"] = _cyclo_program(host_kernel, R.F12_ONE)[1]
     chain = chip_smoke.BLS_CHAIN
     assert sum(n * made[op] for op, n in chain.items()) == chip_smoke.BLS_FP_PRODUCTS
     least = chip_smoke.BLS_LEAST_FP
     assert set(least) == set(chain) == set(made)
     assert all(least[op] <= made[op] for op in chain)
-    assert least["cyclo_sqr"] * 2 == made["cyclo_sqr"] == 36
+    assert least["cyclo_sqr"] == made["cyclo_sqr"] == 18
     assert chip_smoke.BLS_LEAST_PRODUCTS == sum(n * least[op] for op, n in chain.items()) == 18_806
