@@ -140,6 +140,22 @@ exits non-zero, printing no result, without them. In order it:
    ``BLSCrypto.aggregate_verify`` in turns with the parent's kernel; after
    the field bench, the one-warp latency floor of a check (its programs'
    rows at the bench's cycles a row) beside the kernel at one lane;
+10b. BLS12-381's multi-pairing, header sync's one aggregate check
+   (``run_multi_pairing_phase``): the multi-pairing kernel against its
+   plain version on the card and the host oracle (verdicts and GT
+   elements) on lists of 1, 2, 3, 65 and 129 pairs (one pair; a check's
+   two, passing and failing; folds of two checks, accepted, rejected and
+   with None pairs among them; a 64-header chunk, accepted and with one
+   header's signature swapped; 128 headers), ``multi_pairing_check``'s
+   verdicts the same; ``BLSCrypto.multi_pairing_verify`` of 64 headers of
+   a seeded 8-member committee's quorum of 6, counted (one launch, every
+   plain version and the host pairing made to raise), accepted, and
+   rejected with one signature swapped; a list of only None pairs True with
+   no launch; the kernel alone and ``multi_pairing_check`` at 2, 9, 65, 129
+   and 257 pairs beside the bound; the chunk's stages (decode, hash_to_g2
+   uncached and cached, the scalar multiplications, rows, upload, kernel)
+   and the whole call in turns with ``aggregate_verify_batch`` of the same
+   checks; after the field bench, its one-warp latency floor at each count;
 11. the DevicePlane (``run_plane_phase``): every routed seam (the four
    hashes and their address forms, secp256k1 and SM2 verify and recover,
    Ed25519 verify, both admissions, each hasher's ``merkle_tree``) with
@@ -343,6 +359,25 @@ BLS_PAIRING_MULS = ((BLS_LEAST_PRODUCTS - BLS_LEAST_SQUARINGS) * MULS_BLS_MUL
 # inverse into the Montgomery domain.
 BLS_FP_PRODUCTS = 18_819
 BLS_FP_SQUARINGS = 16
+BLS_FP_INV_PRODUCTS = 1  # the product that brings the divsteps' inverse into the Montgomery domain
+
+
+def bls_multi_chain(k: int) -> dict[str, int]:
+    """The least chain of a K-pair multi-pairing: BLS_CHAIN with its two
+    pairs' steps and lines replaced by K pairs' (one squaring of a shared f
+    a bit, each pair's 63 doubling steps, 5 addition steps and 68 lines),
+    the same one final exponentiation; no product of separate f values."""
+    return {**BLS_CHAIN, "dbl": 63 * k, "add": 5 * k, "line": 68 * k}
+
+
+def bls_multi_least_products(k: int) -> int:
+    return sum(n * BLS_LEAST_FP[op] for op, n in bls_multi_chain(k).items())
+
+
+def bls_multi_muls(k: int) -> int:
+    """The bound's multiplies for K pairs, priced as BLS_PAIRING_MULS."""
+    return ((bls_multi_least_products(k) - BLS_LEAST_SQUARINGS) * MULS_BLS_MUL
+            + BLS_LEAST_SQUARINGS * MULS_BLS_SQR + BLS_FP_INV_MULS)
 
 # Each path's counted run, launches a kernel (a hash kernel's forms are
 # kernels of their own; every kernel not named must make none): keccak256 2
@@ -787,7 +822,8 @@ def plain_versions_forbidden():
              (ed25519, "challenge_plain"), (ed25519, "sha512_words"), (ed25519, "challenges"),
              (poseidon, "poseidon_packed_plain"), (poseidon, "poseidon_blocks"), (poseidon, "permute_lanes"),
              (bls12_381, "pairing_check_plain"), (bls12_381, "pairing_gt_plain"),
-             (bls12_381, "host_pairing_check_batch"))
+             (bls12_381, "host_pairing_check_batch"), (bls12_381, "multi_pairing_plain"),
+             (bls12_381, "multi_pairing_gt_plain"), (bls12_381, "host_multi_pairing_check"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -3306,6 +3342,236 @@ def run_bls_phase(card: str, device, parent=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# BLS12-381: the multi-pairing, header sync's one aggregate check
+# ---------------------------------------------------------------------------
+
+MULTI_PAIRS = (2, 9, 65, 129, 257)  # timed: one check's pairs up to a 256-header fold
+HEADER_CHUNK = 64  # FISCO_SYNC_HEADER_BATCH's default: a chunk of 64 headers folds into 65 pairs
+MULTI_REPLACES = "fisco_bcos_tpu/ops/bls12_381.py:599"
+MULTI_LAUNCHES = {"bls12_381_multi_pairing": 1}
+
+
+def make_header_checks(n: int, seed: int) -> tuple[list[tuple], float]:
+    """n header checks as a light client's sync folds them: a seeded
+    8-member committee's quorum of 6 signs n distinct 32-byte header hashes
+    (pubs, msg, agg_sig), the aggregate signature made as (Σ sk)·H(m).
+    Returns them and the host ms of hash_to_g2 a header, uncached (the
+    first hash of each new header)."""
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
+
+    rng = random.Random(seed)
+    keys = [ref.keygen(rng.getrandbits(256)) for _ in range(8)]
+    pubs = tuple(pk for _, pk in keys[:6])
+    sk = sum(s for s, _ in keys[:6]) % ref.R_ORDER
+    checks, hash_s = [], 0.0
+    for _ in range(n):
+        msg = rng.randbytes(32)
+        t0 = time.perf_counter()
+        hm = ref.hash_to_g2(msg)
+        hash_s += time.perf_counter() - t0
+        checks.append((pubs, msg, ref.compress_g2(ref.ec_mul(hm, sk, ref.FP2_OPS))))
+    return checks, hash_s * 1e3 / n
+
+
+def oracle_multi_gt(pairs) -> tuple:
+    """The oracle's GT element of a multi-pairing: final_exponentiation of
+    the Miller product of the live pairs (a pool worker's task)."""
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
+
+    live = [(p, q) for p, q in pairs if p is not None and q is not None]
+    return ref.final_exponentiation(ref.miller_loop(live))
+
+
+def multi_cases(named, headers) -> list[tuple[str, list]]:
+    """(what, pairs) of the multi-pairing's correctness lists, from the BLS
+    phase's checks and the header chunk: one pair; one check's two pairs,
+    accepted and rejected; folds of two checks (3 pairs), accepted,
+    rejected, and accepted with None pairs among them; the 64-header chunk
+    (65 pairs), accepted and with one header's signature swapped for the
+    next header's; 128 headers (129 pairs)."""
+    from fisco_bcos_tpu_torch.crypto import bls
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
+
+    c = dict(named)
+    pairs = bls.multi_pairing_pairs
+    one_check = pairs([c["a quorum of 6"]])
+    good3 = pairs([c["a quorum of 6"], c["a single signer"]])
+    i = len(headers) // 4
+    swapped = headers[:i] + [(headers[i][0], headers[i][1], headers[i + 1][2])] + headers[i + 1:]
+    return [
+        ("one pair", one_check[:1]),
+        ("a quorum's check", one_check),
+        ("an apk with one extra signer", pairs([c["an apk with one extra signer"]])),
+        ("a fold of two checks", good3),
+        ("a fold with the wrong message", pairs([c["a quorum of 6"], c["a signature on the wrong message"]])),
+        ("the fold with None pairs", [(None, ref.G2)] + good3[:2] + [(ref.G1, None)] + good3[2:]),
+        (f"{HEADER_CHUNK} headers", pairs(headers)),
+        (f"{HEADER_CHUNK} headers, one signature swapped", pairs(swapped)),
+        (f"{2 * HEADER_CHUNK} headers", pairs(headers + headers)),
+    ]
+
+
+def check_multi_pairings(card: str, device, cases, pool) -> tuple[int, dict]:
+    """Each list: the kernel's verdict and GT element against the plain
+    version's on the card (the first list of each pair count) and the
+    oracle's, and multi_pairing_check's verdict. Returns (the largest limb
+    difference, the plain version's ms by pair count)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels, bls12_381
+
+    table = bls12_381.kernel_table(device)
+    want = list(pool.map(oracle_multi_gt, [pairs for _, pairs in cases]))
+    err, plain_ms = 0, {}
+    for (what, pairs), want_gt in zip(cases, want):
+        rows = torch.from_numpy(bls12_381.multi_pairing_rows(pairs)).to(device)
+        k = rows.shape[0]
+        ok, gt = _kernels.bls12_381_multi_pairing(rows, table, gt=True)
+        limbs = bls12_381.words_to_limbs(gt)
+        against_plain = k not in plain_ms
+        if against_plain:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gt_plain = bls12_381.multi_pairing_gt_plain(rows)
+            torch.cuda.synchronize()
+            plain_ms[k] = (time.perf_counter() - t0) * 1e3
+            err = max(err, int((limbs - gt_plain).abs().max()))
+            if err or bool(ok[0]) != bool(bls12_381.f12_eq_one(gt_plain)[0]):
+                raise AssertionError(f"bls12_381_multi_pairing != its plain version on {what} ({err})")
+        verdict = want_gt == (1,) + (0,) * 11
+        if bls12_381.tower_to_ref(limbs) != [want_gt] or bool(ok[0]) != verdict:
+            raise AssertionError(f"bls12_381_multi_pairing != the host oracle on {what}")
+        if bls12_381.multi_pairing_check(pairs, device) != verdict:
+            raise AssertionError(f"multi_pairing_check != the host oracle on {what}")
+        log(f"[{card}] multi-pairing, {what}: {k} pairs, {'accepted' if verdict else 'rejected'}; the kernel == "
+            + ("its plain version (verdict and GT element) == " if against_plain else "")
+            + "the host oracle (verdict and GT element); multi_pairing_check's verdict the same")
+    return err, plain_ms
+
+
+def multi_verify_stages(card: str, device, crypto, checks, hash_ms: float) -> None:
+    """BLSCrypto.multi_pairing_verify of a header chunk by stages (host
+    clock, median of 3, each synchronised; decode and the scalar
+    multiplications, ~a second of host work, one call each): decode
+    (signatures uncached, the committee's keys cached), hash_to_g2
+    (uncached: timed as the headers were made; cached), the scalar
+    multiplications and the fold, rows, upload, the kernel with its
+    download; then the whole call in turns with aggregate_verify_batch of
+    the same checks (the plane's default path)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import bls
+    from fisco_bcos_tpu_torch.ops import _kernels, bls12_381
+
+    triples = [(bls._apk_point(p), bls._g2_point(s), bls12_381.hash_to_g2(m)) for p, m, s in checks]
+    pairs = bls.rlc_pairs(checks, triples)
+    rows_np = bls12_381.multi_pairing_rows(pairs)
+    rows = torch.from_numpy(rows_np).to(device)
+    table = bls12_381.kernel_table(device)
+    def once_ms(fn) -> float:  # a host stage of ~a second: one call
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    stages = {
+        "decode": once_ms(lambda: [(bls._apk_point(p), bls._g2_point.__wrapped__(s)) for p, _, s in checks]),
+        "hash_to_g2 uncached": hash_ms * len(checks),
+        "hash_to_g2 cached": host_ms(lambda: [bls12_381.hash_to_g2(m) for _, m, _ in checks]),
+        "scalar multiplications": once_ms(lambda: bls.rlc_pairs(checks, triples)),
+        "rows": host_ms(lambda: bls12_381.multi_pairing_rows(pairs)),
+        "upload": host_ms(lambda: torch.from_numpy(rows_np).to(device)),
+        "kernel and download": host_ms(lambda: _kernels.bls12_381_multi_pairing(rows, table).cpu()),
+    }
+    log(f"[{card}] BLSCrypto.multi_pairing_verify, {len(checks)} headers ({rows.shape[0]} pairs), stages (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    multi = lambda: crypto.multi_pairing_verify(checks)  # noqa: E731
+    batch = lambda: crypto.aggregate_verify_batch(checks)  # noqa: E731
+    t = [host_ms(f) for f in (multi, batch, batch, multi)]
+    log(f"[{card}] {len(checks)} headers, in turns: multi_pairing_verify {t[0]:.3f} / {t[3]:.3f} ms, "
+        f"aggregate_verify_batch {t[1]:.3f} / {t[2]:.3f} ms (the same checks, hash_to_g2 and decode cached)")
+
+
+def run_multi_pairing_phase(card: str, device) -> dict:
+    """BLS12-381's multi-pairing (ROADMAP A7b): the kernel against its plain
+    version and the oracle on every list of multi_cases; a list of only None
+    pairs (no launch); BLSCrypto.multi_pairing_verify of a 64-header chunk,
+    the header sync's path, counted, accepted, and rejected with one
+    signature swapped; the kernel alone and multi_pairing_check at each of
+    MULTI_PAIRS beside the bound; the chunk's stages, and the call in turns
+    with aggregate_verify_batch. Returns the kernel's row (with `times`)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import bls
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
+    from fisco_bcos_tpu_torch.ops import _kernels, bls12_381
+
+    t0 = time.perf_counter()
+    named = make_bls_checks(SEED + 7)
+    headers, hash_ms = make_header_checks(HEADER_CHUNK, SEED + 11)
+    cases = multi_cases(named, headers)
+    log(f"multi-pairing: {len(cases)} lists and {HEADER_CHUNK} header checks built on the host in "
+        f"{time.perf_counter() - t0:.1f} s (hash_to_g2 {hash_ms:.1f} ms a new header)")
+    with oracle_pool() as pool:
+        err, plain_ms = check_multi_pairings(card, device, cases, pool)
+    crypto = bls.BLSCrypto(device)
+    ok, launches = counted_run(lambda: crypto.multi_pairing_verify(headers), MULTI_LAUNCHES,
+                               f"BLSCrypto.multi_pairing_verify of {HEADER_CHUNK} headers")
+    swapped = headers[:1] + [(headers[1][0], headers[1][1], headers[2][2])] + headers[2:]
+    bad, _ = counted_run(lambda: crypto.multi_pairing_verify(swapped), MULTI_LAUNCHES,
+                         f"BLSCrypto.multi_pairing_verify of {HEADER_CHUNK} headers, one signature swapped")
+    none, _ = counted_run(lambda: bls12_381.multi_pairing_check([(None, ref.G2), (ref.G1, None)], device), {},
+                          "multi_pairing_check of only None pairs")
+    if ok is not True or bad is not False or none is not True:
+        raise AssertionError(f"multi_pairing_verify / multi_pairing_check: {ok}, {bad}, {none}")
+    log(f"[{card}] BLSCrypto.multi_pairing_verify of {HEADER_CHUNK} headers accepted, with one signature swapped "
+        f"rejected; launches {show_launches(launches)}; only None pairs: True, no launch")
+
+    pairs = bls.multi_pairing_pairs(headers * 4)  # 257 pairs, the timed lists' prefixes
+    rows = torch.from_numpy(bls12_381.multi_pairing_rows(pairs)).to(device)
+    table = bls12_381.kernel_table(device)
+    times = {}
+    for k in MULTI_PAIRS:
+        kernel_ms = cuda_ms(lambda: _kernels.bls12_381_multi_pairing(rows[:k], table), reps=3, inner=2)
+        check_ms = host_ms(lambda: bls12_381.multi_pairing_check(pairs[:k], device))
+        row = kernel_row("bls12_381_multi_pairing", "", "", kernel_ms, bls_multi_muls(k),
+                         io_bytes=k * 4 * _kernels.BLS_PAIR_WORDS + 1 + 4 * _kernels.BLS_TABLE_WORDS)
+        times[k] = (kernel_ms, row["bound_ms"])
+        log(f"[{card}] bls12_381_multi_pairing @ {k} pairs: kernel alone {kernel_ms:.4f} ms (bound "
+            f"{row['bound_ms']:.4f}, {row['bound_ms'] / kernel_ms:.2%}; {bls_multi_least_products(k):,} Fp "
+            f"products of the least work), multi_pairing_check {check_ms:.3f} ms")
+    multi_verify_stages(card, device, crypto, headers, hash_ms)
+    k = HEADER_CHUNK + 1
+    row = kernel_row("bls12_381_multi_pairing", "fisco_bcos_tpu_torch/csrc/bls12_381.cu", MULTI_REPLACES,
+                     times[k][0], bls_multi_muls(k),
+                     io_bytes=k * 4 * _kernels.BLS_PAIR_WORDS + 1 + 4 * _kernels.BLS_TABLE_WORDS)
+    row.update(launches=launches["bls12_381_multi_pairing"], max_abs_err=err, plain_ms=plain_ms[k], lanes=k,
+               times=times)
+    log(f"[{card}] multi-pairing phase: {time.perf_counter() - t0:.1f} s; the plain version "
+        + ", ".join(f"{n} pairs {ms:.1f} ms" for n, ms in sorted(plain_ms.items()))
+        + f"; geometry at {k} pairs: one launch of {(k + 1) // 2} blocks of 32 threads (a group of two pairs "
+        f"each; the last to finish runs the product phase), 12,768 B dynamic shared each")
+    return row
+
+
+def bls_multi_latency_floor(card: str, bench: dict, times: dict) -> None:
+    """The one-warp latency floor of a K-pair multi-pairing: the rows on
+    its critical path (one group's Miller loop, the chain of products, the
+    final exponentiation) at the field bench's cycles a row, at 1,980 MHz,
+    beside the kernel and the bound at each of MULTI_PAIRS."""
+    from fisco_bcos_tpu_torch.ops import bls12_381_programs
+
+    for k, (kernel_ms, bound_ms) in times.items():
+        rows = bls12_381_programs.multi_critical_rows(k)
+        cycles = (rows["mul"] * bench[BLS_BENCH_ROW] + rows["addsub"] * bench[BLS_BENCH_SUM_ROW]
+                  + rows["inversions"] * bench[BLS_BENCH_INV])
+        floor = cycles / 1980e3
+        log(f"[{card}] bls12_381_multi_pairing one-warp latency floor @ {k} pairs: {rows['mul']:,} rows of "
+            f"products, {rows['addsub']:,} of sums, {rows['inversions']} inversion: {cycles:,.0f} cycles, "
+            f"{floor:.4f} ms at 1,980 MHz, beside the bound's {bound_ms:.4f} ms; the kernel {kernel_ms:.4f} ms "
+            f"({floor / kernel_ms:.1%} of it)")
+
+
+# ---------------------------------------------------------------------------
 # The DevicePlane: merged seams, the window, concurrent callers, lanes
 # ---------------------------------------------------------------------------
 
@@ -4540,6 +4806,10 @@ def main() -> int:
     bls_row = run_bls_phase(card, device, parent)
     log_kernel(card, bls_row)
 
+    # -- BLS12-381: the multi-pairing kernel, header sync's multi_pairing_verify --
+    multi_row = run_multi_pairing_phase(card, device)
+    log_kernel(card, multi_row)
+
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
     run_plane_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block, verify_block, sm_block, ed_block)
 
@@ -4552,10 +4822,12 @@ def main() -> int:
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
     field_bench(card, bench_libs, {label: checkout_poseidon_table(c, device) for label, c in checkouts.items()})
     hash_bench(card, bench_libs)
-    bls_latency_floor(card, bls_bench(card, bench_libs), bls_row["one_lane_ms"], bls_row["one_lane_bound_ms"])
+    bench = bls_bench(card, bench_libs)
+    bls_latency_floor(card, bench, bls_row["one_lane_ms"], bls_row["one_lane_bound_ms"])
+    bls_multi_latency_floor(card, bench, multi_row["times"])
 
     drain_plane()  # every request of every phase answered: a failed one has raised
-    rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_, bls_row)
+    rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_, bls_row, multi_row)
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))
     log(json.dumps({
         "ok": True,

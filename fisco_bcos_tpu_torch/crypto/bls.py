@@ -17,6 +17,14 @@ the caller's thread. There is no host cutover: a check reaches the device or
 an exception. A batch in which no check decodes (a key or signature that
 fails to decompress, an empty signer set) is rejected before any pairing.
 
+Header sync's one aggregate check, ``multi_pairing_verify``, folds K
+aggregate checks into one (K + 1)-pair product by the JAX class's
+Fiat-Shamir random linear combination, byte for byte (the transcript, the
+scalars, the pairs' order), and runs it as one
+``ops.bls12_381.multi_pairing_check`` on the class's device, directly (the
+JAX class does not route it through the plane either); the scalar
+multiplications and hash-to-G2 stay on the host, as in the JAX class.
+
 Key model: BLS keypairs are derived (secret scalar mod r) from the node's
 consensus secret, and the committee's BLS keys are registered in the
 consensus-node table, which is the proof-of-possession boundary that makes
@@ -25,6 +33,7 @@ same-message aggregation rogue-key safe (``consensus/qc.py``).
 
 from __future__ import annotations
 
+import hashlib
 import secrets
 from functools import lru_cache
 
@@ -66,6 +75,41 @@ def _apk_point(pubs: tuple[bytes, ...]):
             return None
         acc = ref.ec_add(acc, pt, ref.FP_OPS)
     return acc
+
+
+def rlc_pairs(checks, triples) -> list[tuple]:
+    """The folded product's pairs from normalised checks [(pubs, msg,
+    agg_sig)] and their decoded (apk, σ, H(m)): (-g1, Σ r_k·σ_k) first, then
+    (r_k·apk_k, H(m_k)) a check. The scalars are the JAX class's: a SHA-256
+    transcript over every (msg, σ), bound before any scalar is drawn, then
+    r_k = max(1, the first 16 bytes of SHA-256(seed ‖ u64be(k)))."""
+    tr = hashlib.sha256()
+    for _, msg, agg in checks:
+        tr.update(len(msg).to_bytes(4, "big"))
+        tr.update(msg)
+        tr.update(agg)
+    seed = tr.digest()
+    scalars = [max(1, int.from_bytes(hashlib.sha256(seed + k.to_bytes(8, "big")).digest()[:16], "big"))
+               for k in range(len(checks))]
+    sig_acc = None
+    pairs = []
+    for r, (apk, sig, hm) in zip(scalars, triples):
+        sig_acc = ref.ec_add(sig_acc, ref.ec_mul(sig, r, ref.FP2_OPS), ref.FP2_OPS)
+        pairs.append((ref.ec_mul(apk, r, ref.FP_OPS), hm))
+    return [(ref.ec_neg(ref.G1, ref.FP_OPS), sig_acc)] + pairs
+
+
+def multi_pairing_pairs(checks) -> list[tuple] | None:
+    """Normalised checks -> the folded product's pairs, or None when a key
+    or signature does not decode (an empty signer set included)."""
+    triples = []
+    for pubs, msg, agg in checks:
+        apk = _apk_point(pubs) if pubs else None
+        sig = _g2_point(agg)
+        if apk is None or sig is None:
+            return None
+        triples.append((apk, sig, bls_ops.hash_to_g2(msg)))
+    return rlc_pairs(checks, triples)
 
 
 class BLSCrypto(SignatureCrypto):
@@ -148,6 +192,23 @@ class BLSCrypto(SignatureCrypto):
         if all(hm is None for _, _, hm in triples):
             return np.zeros(len(triples), dtype=bool)
         return bls_ops.pairing_check_batch(triples, device=dev)
+
+    # -- header sync (the multi-pairing) -------------------------------------
+
+    def multi_pairing_verify(self, checks) -> bool:
+        """One accept or reject for a set of aggregate checks [(pubs,
+        msg_hash, agg_sig)]: e(-g1, Σ r_k·σ_k)·∏ e(r_k·apk_k, H(m_k)) == 1
+        for scalars r_k drawn from a transcript of every (msg, σ) (soundness
+        error ~2^-128), which holds iff every check does. False at once when
+        a key or signature does not decode; an empty set is True; neither
+        runs a pairing. Callers that need the failing check fall back to
+        :meth:`aggregate_verify_batch`."""
+        dev = resolve_device(self.device)
+        checks = [(tuple(bytes(p) for p in pubs), bytes(m), bytes(s)) for pubs, m, s in checks]
+        if not checks:
+            return True
+        pairs = multi_pairing_pairs(checks)
+        return pairs is not None and bls_ops.multi_pairing_check(pairs, device=dev)
 
 
 def bls_suite(device=None) -> CryptoSuite:

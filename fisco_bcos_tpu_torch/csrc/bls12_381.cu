@@ -76,6 +76,41 @@
 // tier-1 tests build it with g++ and run whole checks against the oracle.
 // The Miller loop (bls_miller) and the final exponentiation
 // (bls_final_exp) are separate functions over a check's slots.
+//
+// The multi-pairing (bls12_381_multi_pairing_launch) replaces the JAX
+// program `_multi_pairing_xla` (fisco_bcos_tpu/ops/bls12_381.py:599; no
+// Pallas kernel): ok = ∏ e(P_i, Q_i) == 1 over K pairs, one row of six Fp
+// values a pair (P x, y; Q x0, x1, y0, y1, the JAX program's argument
+// order); the plain PyTorch version is ops/bls12_381.py multi_pairing_plain.
+// The JAX program runs B (a power of two) one-pair Miller loops side by
+// side, makes its invalid and pad lanes the Fp12 identity, multiplies the
+// lanes by a halving tree and runs one final exponentiation. Here the
+// caller sends only live pairs (no pad lane), and on this card one pairing
+// is one warp's latency, so the work splits as the check's does, in one
+// launch:
+//   - the Miller phase: a block (one warp) a group of two consecutive pairs
+//     runs the check's Miller loop with both G1 points from its rows
+//     (BLS_MP_LOADS; a lone last pair of an odd K the one-pair loop of the
+//     same programs), conjugated, and writes its f to the scratch `fs` (the
+//     product's conjugate is the conjugate of the product); 65 pairs are 33
+//     warps, all resident;
+//   - the product phase: the last group to finish (a fence, then an atomic
+//     count of the groups done, set to 0 on the stream before the launch;
+//     no group waits for another) multiplies the other groups' f values,
+//     read through L2, into its own in a chain (BLS_SCRIPT_FMUL, 2 rows of
+//     products and 12 of sums each), runs the check's final exponentiation
+//     (bls_final_exp) and writes ok and, where asked, the GT element, which
+//     is the JAX program's: an Fp12 product is exact, so its order is free,
+//     and the lines' Fp2 factors die in the final exponentiation as in the
+//     check.
+// The forms this replaced, timed in turns (PERF.md §6): a second launch for
+// the product phase (stream order in place of the counter), and the product
+// phase reloading every f and running the chain and the final
+// exponentiation through one call of the script runner, each took ~0.27 ms
+// more at 2 to 257 pairs, though they ran the same rows.
+// The time is one Miller loop, the chain and one final exponentiation, each
+// one warp's latency; the bound's least work (one shared squaring of f, K
+// pairs' steps and lines, one final exponentiation) is some 0.4% of it.
 
 #include "bls12_381_field.cuh"
 
@@ -87,6 +122,9 @@
 #include "bls12_381_programs.cuh"
 
 #define BLS_ROW_WORDS (10 * BLS_NW)  // a check's row
+#define BLS_PAIR_WORDS (6 * BLS_NW)  // a multi-pairing pair's row
+#define BLS_GT_WORDS (12 * BLS_NW)  // an Fp12 element: the GT element, a group's f
+#define BLS_MP_GROUPS(n) (((n) + 1) / 2)  // groups of a K-pair multi-pairing: two pairs a group
 #define BLS_TABLE_WORDS (3 * BLS_NW + 3 * 6 * 2 * BLS_NW)
 #define BLS_THREADS 32  // one warp a block
 #define BLS_CHECKS (BLS_THREADS / BLS_G)  // checks a block
@@ -216,14 +254,17 @@ DEV void bls_run_script(int from, int to, u32* sl) {
 // A check
 // ---------------------------------------------------------------------------
 
-// The check's inputs into its slots: the row's ten values, the table's
+// A group's inputs into its slots, by a load list (BLS_LOADS for a check,
+// BLS_MP_LOADS for a multi-pairing group): the row's values below
+// `row_vals` (a load of a value past them is skipped), the table's
 // constants, zero.
-DEV void bls_load(const u32* row, const u32* table, u32* sl) {
+DEV void bls_load(const u32* loads, int n_loads, const u32* row, int row_vals, const u32* table, u32* sl) {
   BLS_GROUP_FOR(j) {
 #pragma unroll 1
-    for (int i = j; i < BLS_N_LOADS; i += BLS_G) {
-      const u32 e = bls_ld(&BLS_LOADS[i]);
+    for (int i = j; i < n_loads; i += BLS_G) {
+      const u32 e = bls_ld(&loads[i]);
       const u32 src = (e >> 10) & 3, idx = e >> 12;
+      if (src == 1 && (int)idx >= row_vals) continue;
       u32 v[BLS_NW];
       for (int k = 0; k < BLS_NW; k++)
         v[k] = src == 0 ? 0u : bls_ld((src == 1 ? row : table) + BLS_NW * idx + k);
@@ -233,6 +274,34 @@ DEV void bls_load(const u32* row, const u32* table, u32* sl) {
   bls_sync();
 }
 
+// An Fp12 register's 12 slots from `src`'s 144 words (lanes 0-11), then a
+// sync; bls_store_f12 writes them to `dst`. The loads go through L2 (other
+// blocks of the kernel wrote `src`; the read-only path may hold stale lines).
+DEV void bls_load_f12(const u32* src, int slot, u32* sl) {
+  BLS_GROUP_FOR(j) {
+    if (j < 12) {
+      u32 v[BLS_NW];
+#if FISCO_PTX
+      for (int k = 0; k < BLS_NW; k++) v[k] = __ldcg(src + BLS_NW * j + k);
+#else
+      for (int k = 0; k < BLS_NW; k++) v[k] = src[BLS_NW * j + k];
+#endif
+      bls_put(sl, slot + j, v);
+    }
+  }
+  bls_sync();
+}
+
+DEV void bls_store_f12(u32* dst, int slot, const u32* sl) {
+  BLS_GROUP_FOR(j) {
+    if (j < 12) {
+      u32 v[BLS_NW];
+      bls_get(v, sl, slot + j);
+      for (int k = 0; k < BLS_NW; k++) dst[BLS_NW * j + k] = v[k];
+    }
+  }
+}
+
 // f_{|x|}(P1, Q1)·f_{|x|}(P2, Q2), conjugated, into the register F, from the
 // loaded slots.
 DEV void bls_miller(u32* sl) { bls_run_script(0, BLS_SCRIPT_FINAL, sl); }
@@ -240,19 +309,11 @@ DEV void bls_miller(u32* sl) { bls_run_script(0, BLS_SCRIPT_FINAL, sl); }
 // F^((p¹² - 1)/r · 3) into the register BLS_S_GT (F is clobbered).
 DEV void bls_final_exp(u32* sl) { bls_run_script(BLS_SCRIPT_FINAL, BLS_SCRIPT_LEN, sl); }
 
-// One check on its group's lanes (all of them on the host): `sl` its
-// BLS_SLOT_WORDS words of slots. Writes the verdict to *ok and the GT
-// element's 144 words to gt, each unless null.
-DEV void bls_pairing_check(const u32* row, const u32* table, u32* sl, uint8_t* ok, u32* gt) {
-  bls_load(row, table, sl);
-  bls_miller(sl);
-  bls_final_exp(sl);
+// The verdict (the GT element == 1) to *ok and the GT element's 144 words
+// to gt, each unless null.
+DEV void bls_result(const u32* sl, uint8_t* ok, u32* gt) {
+  if (gt) bls_store_f12(gt, BLS_S_GT, sl);
   BLS_GROUP_FOR(j) {
-    if (j < 12 && gt) {
-      u32 v[BLS_NW];
-      bls_get(v, sl, BLS_S_GT + j);
-      for (int k = 0; k < BLS_NW; k++) gt[BLS_NW * j + k] = v[k];
-    }
     if (j == 0 && ok) {
       u32 one[BLS_NW], v[BLS_NW], acc = 0;
       bls_get(one, sl, BLS_S_ONE);
@@ -263,6 +324,45 @@ DEV void bls_pairing_check(const u32* row, const u32* table, u32* sl, uint8_t* o
       *ok = acc == 0;
     }
   }
+}
+
+// One check on its group's lanes (all of them on the host): `sl` its
+// BLS_SLOT_WORDS words of slots. Writes the verdict to *ok and the GT
+// element's 144 words to gt, each unless null.
+DEV void bls_pairing_check(const u32* row, const u32* table, u32* sl, uint8_t* ok, u32* gt) {
+  bls_load(BLS_LOADS, BLS_N_LOADS, row, 10, table, sl);
+  bls_miller(sl);
+  bls_final_exp(sl);
+  bls_result(sl, ok, gt);
+}
+
+// ---------------------------------------------------------------------------
+// A multi-pairing
+// ---------------------------------------------------------------------------
+
+// The Miller phase of one group: `pairs` (2, or 1 for the last of an odd K)
+// consecutive pairs' rows from `rows`; f_{|x|} of each pair multiplied
+// together with one shared squaring, conjugated, into f's 144 words.
+// Both loops go through one call of the script runner (a call each, two
+// inlined copies of the row loop, ran 1.02-1.03x slower: PERF.md §6).
+DEV void bls_mp_miller(const u32* rows, int pairs, const u32* table, u32* sl, u32* f) {
+  bls_load(BLS_MP_LOADS, BLS_N_MP_LOADS, rows, 6 * pairs, table, sl);
+  bls_run_script(pairs == 2 ? 0 : BLS_SCRIPT_MILLER1, pairs == 2 ? BLS_SCRIPT_FINAL : BLS_SCRIPT_MILLER1_END, sl);
+  bls_store_f12(f, BLS_S_F, sl);
+}
+
+// The product phase, on the slots of group `own` after its Miller phase:
+// the other groups' f values of fs multiplied into its F in a chain (F <-
+// F·A), the final exponentiation, the verdict and the GT element.
+DEV void bls_mp_finish(const u32* fs, int groups, int own, u32* sl, uint8_t* ok, u32* gt) {
+#pragma unroll 1
+  for (int g = 0; g < groups; g++) {
+    if (g == own) continue;
+    bls_load_f12(fs + g * BLS_GT_WORDS, BLS_S_A, sl);
+    bls_run_script(BLS_SCRIPT_FMUL, BLS_SCRIPT_FMUL + 1, sl);
+  }
+  bls_final_exp(sl);
+  bls_result(sl, ok, gt);
 }
 
 #ifdef __CUDACC__
@@ -278,6 +378,26 @@ bls12_381_pairing_kernel(const u32* __restrict__ rows, const u32* __restrict__ t
                     reinterpret_cast<u32*>(s_slots) + (size_t)c * BLS_SLOT_WORDS,
                     check < n ? ok + check : nullptr,
                     gt && check < n ? gt + (size_t)check * 12 * BLS_NW : nullptr);
+}
+
+// A block a group: its Miller phase, then, in the last group to finish,
+// the product phase. `done` counts the groups finished (0 at the launch).
+static_assert(BLS_CHECKS == 1, "a multi-pairing block is one group");
+__global__ void __launch_bounds__(BLS_THREADS)
+bls12_381_multi_pairing_kernel(const u32* __restrict__ rows, const u32* __restrict__ table, u32* fs,
+                               unsigned* done, uint8_t* __restrict__ ok, u32* __restrict__ gt, int n) {
+  extern __shared__ uint4 s_slots[];
+  u32* sl = reinterpret_cast<u32*>(s_slots);
+  const int groups = BLS_MP_GROUPS(n), group = (int)blockIdx.x, first = 2 * group;
+  bls_mp_miller(rows + (size_t)first * BLS_PAIR_WORDS, n - first < 2 ? 1 : 2, table, sl,
+                fs + (size_t)group * BLS_GT_WORDS);
+  __threadfence();  // each lane's f words reach every block before the group is counted
+  __syncwarp();
+  unsigned last = 0;
+  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == (unsigned)groups - 1;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();
+  bls_mp_finish(fs, groups, group, sl, ok, gt);
 }
 
 extern "C" void bls12_381_geometry(int n, int* out) {
@@ -301,6 +421,26 @@ extern "C" int bls12_381_pairing_launch(const void* rows, const void* table, voi
   bls12_381_geometry(n, geo);
   bls12_381_pairing_kernel<<<geo[1], geo[0], geo[2], (cudaStream_t)stream>>>(
       (const u32*)rows, (const u32*)table, (uint8_t*)ok, (u32*)gt, n);
+  return (int)cudaGetLastError();
+}
+
+// C entry point of the multi-pairing: rows [n, 72] words (n >= 1 pairs),
+// the table, `fs` the caller's scratch of ⌈n/2⌉ f values (144 words each)
+// and one word more (the groups' counter), ok one byte, gt null or 144
+// words. The counter's reset and one launch on `stream` of `device`, no
+// sync; returns the first CUDA error (0 on success).
+extern "C" int bls12_381_multi_pairing_launch(const void* rows, const void* table, void* fs, void* ok, void* gt,
+                                              int n, int device, void* stream) {
+  static_assert(BLS_SMEM_BYTES <= 48 * 1024, "a group's slots fit the default dynamic shared memory");
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return 0;
+  const int groups = BLS_MP_GROUPS(n);
+  unsigned* done = reinterpret_cast<unsigned*>((u32*)fs + (size_t)groups * BLS_GT_WORDS);
+  err = cudaMemsetAsync(done, 0, sizeof(unsigned), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  bls12_381_multi_pairing_kernel<<<groups, BLS_THREADS, BLS_SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const u32*)rows, (const u32*)table, (u32*)fs, done, (uint8_t*)ok, (u32*)gt, n);
   return (int)cudaGetLastError();
 }
 

@@ -84,6 +84,8 @@ _ENTRIES = {
     "poseidon_packed": ("poseidon", "poseidon_launch", [_P] * 5 + [_I, _I, _LL]),
     # rows, table, ok, gt (or null) pointers; lanes
     "bls12_381_pairing": ("bls12_381", "bls12_381_pairing_launch", [_P] * 4 + [_I]),
+    # rows, table, fs (scratch: the groups' f values and their counter), ok, gt (or null) pointers; pairs
+    "bls12_381_multi_pairing": ("bls12_381", "bls12_381_multi_pairing_launch", [_P] * 5 + [_I]),
 }
 KERNELS = {kernel: entry[0] for kernel, entry in _ENTRIES.items()}
 
@@ -513,6 +515,7 @@ def sm3_e(h, qx, qy, za):
 # ---------------------------------------------------------------------------
 
 BLS_ROW_WORDS = 120  # ten Fp values of 12 words a lane
+BLS_PAIR_WORDS = 72  # a multi-pairing pair: six Fp values of 12 words
 BLS_TABLE_WORDS = 468  # the Montgomery 1, -g1, and γ_k for k = 1, 2, 6
 BLS_GT_WORDS = 144  # an Fp12 element
 
@@ -535,4 +538,30 @@ def bls12_381_pairing_check(rows, table, gt: bool = False):
             "bls12_381_pairing", dev, rows.data_ptr(), table.data_ptr(), ok.data_ptr(),
             None if out is None else out.data_ptr(), b,
         )
+    return (ok, out) if gt else ok
+
+
+def bls12_381_multi_pairing(rows, table, gt: bool = False):
+    """Launch the multi-pairing kernel: rows [K, 72] int32 (K >= 1 pairs,
+    six Montgomery Fp values of 12 little-endian words each: P x, y; Q x0,
+    x1, y0, y1), table [468] int32 (ops/bls12_381.py kernel_table), both on
+    one CUDA device. Returns ok bool[1], ∏ e(P, Q) == 1; with `gt`, (ok, the
+    product's GT element before the comparison as [1, 144] int32 words in
+    the tower's order). One launch: a warp a group of two pairs runs its
+    Miller loop, the last group to finish multiplies the groups' f values
+    and runs the final exponentiation; the f values and the groups' counter
+    go through a scratch tensor allocated here."""
+    dev = _cuda_device(rows, "bls12_381_multi_pairing")
+    k = rows.shape[0]
+    _require(rows, "rows", torch.int32, (k, BLS_PAIR_WORDS), dev)
+    _require(table, "table", torch.int32, (BLS_TABLE_WORDS,), dev)
+    if not k:
+        raise ValueError("bls12_381_multi_pairing needs at least one pair (the empty product is 1)")
+    fs = torch.empty(((k + 1) // 2) * BLS_GT_WORDS + 1, dtype=torch.int32, device=dev)
+    ok = torch.empty((1,), dtype=torch.bool, device=dev)
+    out = torch.empty((1, BLS_GT_WORDS), dtype=torch.int32, device=dev) if gt else None
+    _launch(
+        "bls12_381_multi_pairing", dev, rows.data_ptr(), table.data_ptr(), fs.data_ptr(), ok.data_ptr(),
+        None if out is None else out.data_ptr(), k,
+    )
     return (ok, out) if gt else ok

@@ -1,6 +1,7 @@
-"""BLS12-381 aggregate-QC pairing check: the hand-written CUDA kernel and its
-plain PyTorch version (the port of the JAX package's ``ops/bls12_381.py``
-program ``_pairing_check_xla`` and its host halves).
+"""BLS12-381 aggregate-QC pairing check and multi-pairing: the hand-written
+CUDA kernels and their plain PyTorch versions (the port of the JAX
+package's ``ops/bls12_381.py`` programs ``_pairing_check_xla`` and
+``_multi_pairing_xla`` and their host halves).
 
 One lane is one quorum certificate: ok = e(-g1, σ) · e(apk, H(m)) == 1, the
 optimal-ate pairing of BLS12-381 with the G2 points on the twist
@@ -16,6 +17,14 @@ y0, y1; H(m) x0, x1, y0, y1. The JAX package gives the same values as ten
 ``[B, 24]`` arrays of 16-bit limbs; :func:`rows_from_jax` joins those into
 these rows. A CUDA tensor goes to ``csrc/bls12_381.cu``, a CPU tensor to
 :func:`pairing_check_plain`.
+
+The multi-pairing (header sync's one aggregate check) is True iff
+∏ e(P_k, Q_k) == 1 over a list of (G1, G2) pairs, a pair with a None member
+the identity: :func:`multi_pairing_rows` gives one ``[K, 72]`` int32 row a
+live pair (P x, y; Q x0, x1, y0, y1), with no pad lane, and
+:func:`multi_pairing_device` sends a CUDA tensor to the kernel's second
+entry point, a CPU tensor to :func:`multi_pairing_plain`. A list with no
+live pair is True and launches nothing.
 
 The plain version computes what ``pairing_check_core`` computes: the same
 tower Fp2 = Fp[u]/(u² + 1), Fp6 = Fp2[v]/(v³ − ξ), Fp12 = Fp6[w]/(w² − v),
@@ -599,25 +608,39 @@ def _scale(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def miller2(ps, qs):
-    """f_{|x|}(P1, Q1)·f_{|x|}(P2, Q2), conjugated for x < 0: ps [B, 2, 2,
-    24] the two G1 points (x, y), qs [B, 2, 2, 2, 24] the two twist points
-    (x, y), both pairs' steps stacked on axis 1; one shared squaring a bit.
-    The bits of |x| are static, so a bit of 0 runs no addition step (the
-    JAX scan runs it and selects)."""
+def f12_prod(xs):
+    """The product of [B, n, 12, 24] Fp12 elements over axis 1 (n >= 1), a
+    halving tree: one batched product a level."""
+    while xs.shape[1] > 1:
+        half = xs.shape[1] // 2
+        xs = torch.cat((f12_mul(xs[:, :half], xs[:, half : 2 * half]), xs[:, 2 * half :]), 1)
+    return xs[:, 0]
+
+
+def miller_loop(ps, qs):
+    """∏_k f_{|x|}(P_k, Q_k), conjugated for x < 0: ps [B, K, 2, 24] the G1
+    points (x, y), qs [B, K, 2, 2, 24] the twist points (x, y), the K pairs'
+    steps stacked on axis 1; one shared squaring of f a bit, multiplied with
+    the K lines in one tree (f·l_1 and f·l_2 first). The bits of |x| are
+    static, so a bit of 0 runs no addition step (the JAX scan runs it and
+    selects)."""
     one = fp_from_int([1], ps.device).expand(qs.shape[:-3] + (2, NL)) * torch.tensor([1, 0], device=ps.device)[:, None]
     t = torch.cat((qs, one[..., None, :, :]), -3)  # (X, Y, Z = 1)
-    f = f12_one(ps[:, 0])
+    f = f12_one(ps[:, 0])[:, None]
     pc = dbl_consts(ps)
     for bit in X_ABS_BITS:
         t, lines = dbl_step(t, pc)
-        # f² and l1·l2 in one product, then their product
-        sq_ll = f12_mul(torch.stack((f, lines[:, 0])), torch.stack((f, lines[:, 1])))
-        f = f12_mul(sq_ll[0], sq_ll[1])
+        f = f12_prod(torch.cat((f, f, lines), 1))[:, None]
         if bit:
             t, lines = add_step(t, qs, ps)
-            f = f12_mul(f, f12_mul(lines[:, 0], lines[:, 1]))
-    return f12_frob(f, 6)
+            f = f12_prod(torch.cat((f, lines), 1))[:, None]
+    return f12_frob(f[:, 0], 6)
+
+
+def miller2(ps, qs):
+    """f_{|x|}(P1, Q1)·f_{|x|}(P2, Q2), conjugated for x < 0: ps [B, 2, 2,
+    24], qs [B, 2, 2, 2, 24] (the check's two pairs, :func:`miller_loop`)."""
+    return miller_loop(ps, qs)
 
 
 def _cyclo_pow_abs_x(a):
@@ -676,6 +699,23 @@ def pairing_check_plain(rows: torch.Tensor) -> torch.Tensor:
     return f12_eq_one(pairing_gt_plain(rows))
 
 
+@torch.inference_mode()
+def multi_pairing_gt_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The multi-pairing's GT element before the comparison:
+    final_exp(∏_k f_{|x|}(P_k, Q_k)) over rows [K, 72] int32 (K >= 1,
+    :func:`multi_pairing_rows`), [1, 12, 24] canonical Montgomery limbs in
+    the flat tower order."""
+    v = words_to_limbs(rows)[None]  # [1, K, 6, 24]
+    return final_exp(miller_loop(v[:, :, 0:2], v[:, :, 2:6].unflatten(-2, (2, 2))))
+
+
+def multi_pairing_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the multi-pairing kernel: rows [K, 72]
+    int32 (K >= 1) -> ok bool[1], ∏ e(P_k, Q_k) == 1 (the JAX program's
+    ok[1]), on the rows' device."""
+    return f12_eq_one(multi_pairing_gt_plain(rows))
+
+
 # ---------------------------------------------------------------------------
 # Device entry point
 # ---------------------------------------------------------------------------
@@ -711,6 +751,17 @@ def pairing_check_device(rows: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return pairing_check_plain(rows)
     raise ValueError(f"pairing_check_device: unsupported device {rows.device}")
+
+
+def multi_pairing_device(rows: torch.Tensor) -> torch.Tensor:
+    """Multi-pairing: rows [K, 72] int32 (:func:`multi_pairing_rows`, K >=
+    1) -> ok bool[1]. CUDA tensors go to the CUDA kernel (or an exception);
+    CPU tensors to the plain version."""
+    if rows.device.type == "cuda":
+        return _kernels.bls12_381_multi_pairing(rows, kernel_table(rows.device))
+    if rows.device.type == "cpu":
+        return multi_pairing_plain(rows)
+    raise ValueError(f"multi_pairing_device: unsupported device {rows.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -750,10 +801,11 @@ def device_inputs(checks) -> tuple[np.ndarray, np.ndarray]:
 
 def rows_from_jax(arrays) -> np.ndarray:
     """The JAX package's ``device_inputs`` arrays (ten [B, 24] arrays of
-    16-bit limbs) -> the port's [B, 120] int32 rows, the same values."""
+    16-bit limbs; or any number, six for the multi-pairing) -> the port's
+    [B, 120] int32 rows (12 words a value), the same values."""
     limbs = np.stack([np.asarray(a, dtype=np.uint32) for a in arrays], 1)  # [B, 10, 24]
     words = limbs[..., 0::2] | (limbs[..., 1::2] << 16)
-    return np.ascontiguousarray(words.reshape(limbs.shape[0], ROW_WORDS)).view(np.int32)
+    return np.ascontiguousarray(words.reshape(limbs.shape[0], -1)).view(np.int32)
 
 
 def pairing_check_batch(checks, device=None) -> np.ndarray:
@@ -777,6 +829,47 @@ def host_pairing_check_batch(checks) -> np.ndarray:
             continue
         out[i] = ref.pairing_check([(ref.ec_neg(ref.G1, ref.FP_OPS), sig), (apk, hm)])
     return out
+
+
+PAIR_WORDS = 6 * NW  # a multi-pairing pair's row: P x, y; Q x0, x1, y0, y1
+
+
+def multi_pairing_rows(pairs) -> np.ndarray:
+    """(G1, G2) affine oracle point pairs -> [K, 72] int32 rows of the live
+    pairs, in order: a pair with a None member contributes the identity
+    (the JAX convention, ``ref.pairing_check``), so it is dropped; the JAX
+    program's valid lanes, with no pad lane."""
+    live = [(p, q) for p, q in pairs if p is not None and q is not None]
+    rows = np.zeros((len(live), PAIR_WORDS), dtype=np.uint32)
+    for i, (p, q) in enumerate(live):
+        rows[i] = [w for v in (p[0], p[1], q[0][0], q[0][1], q[1][0], q[1][1]) for w in _words(v)]
+    return rows.view(np.int32)
+
+
+def multi_pairing_rows_from_jax(arrays, valid) -> np.ndarray:
+    """The JAX ``multi_pairing_check``'s arguments to ``_multi_pairing_xla``
+    (six [B, 24] arrays of 16-bit limbs, valid bool[B]) -> the port's [K,
+    72] int32 rows of its valid lanes, the same values."""
+    return rows_from_jax(arrays)[np.asarray(valid, dtype=bool)]
+
+
+def multi_pairing_check(pairs, device=None) -> bool:
+    """True iff ∏ e(P_k, Q_k) == 1 over (G1, G2) affine oracle point pairs,
+    a pair with a None member the identity. Runs on the CUDA card unless
+    ``device`` names another: one upload of the live pairs' rows, one
+    kernel call, one download; a list with no live pair is True (the empty
+    product) and launches nothing."""
+    dev = resolve_device(device)
+    rows = multi_pairing_rows(pairs)
+    if not rows.shape[0]:
+        return True
+    return bool(multi_pairing_device(torch.from_numpy(rows).to(dev)).cpu()[0])
+
+
+def host_multi_pairing_check(pairs) -> bool:
+    """The same contract on the port's oracle: one Miller product, one
+    final exponentiation."""
+    return ref.pairing_check(list(pairs))
 
 
 def hash_to_g2(msg: bytes):

@@ -24,10 +24,18 @@ then a sync. This module writes those programs:
   around one Fp inversion (:data:`INV`, run by one lane), and the hard
   part's chain with its five powers by |x|.
 
+The multi-pairing (``bls12_381_multi_pairing_launch``) reuses them: a group
+of two pairs runs the check's Miller loop with both G1 points from its rows
+(:data:`MP_LOADS`), a lone last pair a one-pair Miller loop
+(:data:`MILLER1_KEYS`), and the last group to finish multiplies the other
+groups' f values into its own (:data:`FMUL_KEY`) and runs the check's final
+exponentiation.
+
 ``python -m fisco_bcos_tpu_torch.ops.bls12_381_programs`` writes the header;
 tests/test_torch_bls12_381.py checks that the committed header is this
 module's output, and runs the script over Python integers
-(:func:`run_check`) against the oracle. Pure Python: no torch.
+(:func:`run_check`, :func:`run_multi`) against the oracle. Pure Python: no
+torch.
 """
 
 from __future__ import annotations
@@ -86,6 +94,18 @@ LOADS = (
      (PINNED["YP1"], "table", 2), (PINNED["XP2"], "row", 0), (PINNED["YP2"], "row", 1)]
     + [(PINNED[f"{n}1_{i}"], "row", 2 + 2 * j + i) for j, n in enumerate(("QX", "QY")) for i in range(2)]
     + [(PINNED[f"{n}2_{i}"], "row", 6 + 2 * j + i) for j, n in enumerate(("QX", "QY")) for i in range(2)]
+    + [(PINNED[f"G1_{i}"], "table", 3 + i) for i in range(2, 12)]
+    + [(PINNED[f"G2_{i}"], "table", 3 + 12 + 2 * i) for i in range(1, 6)]
+)
+# A multi-pairing group's loads: two consecutive rows of six values (P x,
+# y; Q x0, x1, y0, y1, the JAX program's argument order) as pairs 1 and 2,
+# the Montgomery 1 and the Frobenius constants (the final exponentiation
+# runs on the last group's slots). The kernel skips the row values past its
+# group's pairs (a lone last pair).
+MP_LOADS = (
+    [(PINNED["ZERO"], "zero", 0), (PINNED["ONE"], "table", 0)]
+    + [(PINNED[name], "row", 6 * (k - 1) + j) for k in (1, 2) for j, name in enumerate(
+        (f"XP{k}", f"YP{k}", f"QX{k}_0", f"QX{k}_1", f"QY{k}_0", f"QY{k}_1"))]
     + [(PINNED[f"G1_{i}"], "table", 3 + i) for i in range(2, 12)]
     + [(PINNED[f"G2_{i}"], "table", 3 + 12 + 2 * i) for i in range(1, 6)]
 )
@@ -329,9 +349,9 @@ def _twist_out(b: Builder, k: int, t) -> None:
         b.out(f"T{k}_{2 * i + 1}", c[1])
 
 
-def prog_setup(b: Builder) -> None:
+def prog_setup(b: Builder, pairs: tuple = (1, 2)) -> None:
     """-x_P, -3x_P a pair; T = (x_Q : y_Q : 1); f = 1."""
-    for k in (1, 2):
+    for k in pairs:
         nxp = b.sub(b.pin("ZERO"), b.pin(f"XP{k}"))
         b.out(f"NXP{k}", nxp)
         b.out(f"N3XP{k}", b.add(b.add(nxp, nxp), nxp))
@@ -341,27 +361,28 @@ def prog_setup(b: Builder) -> None:
     b.f12_out("F", (((one, zero), (zero, zero), (zero, zero)), ((zero, zero),) * 3))
 
 
-def prog_miller(b: Builder, with_add: bool) -> None:
-    """One iteration of the double Miller loop: f <- f²·l_T1·l_T2 with
-    T <- 2T for both pairs, then, at a set bit, f·l·l with T <- T + Q."""
+def prog_miller(b: Builder, with_add: bool, pairs: tuple = (1, 2)) -> None:
+    """One iteration of the Miller loop over `pairs` (the check's: both):
+    f <- f²·l_T1·l_T2 with T <- 2T for each pair, one squaring of f for all,
+    then, at a set bit, f·l·l with T <- T + Q."""
     b.tag = "fp12_sqr"
     f = b.f12_sqr(b.f12("F"))
     ts = {}
-    for k in (1, 2):
+    for k in pairs:
         t, _ = _twist(b, k)
         b.tag = "dbl"
         ts[k], line = b.dbl_step(t, b.pin(f"N3XP{k}"), b.pin(f"YP{k}"))
         b.tag = "line"
         f = b.f12_mul_line(f, *line)
     if with_add:
-        for k in (1, 2):
+        for k in pairs:
             _, q = _twist(b, k)
             b.tag = "add"
             ts[k], line = b.add_step(ts[k], q, b.pin(f"NXP{k}"), b.pin(f"YP{k}"))
             b.tag = "line"
             f = b.f12_mul_line(f, *line)
     b.f12_out("F", f)
-    for k in (1, 2):
+    for k in pairs:
         _twist_out(b, k, ts[k])
 
 
@@ -465,12 +486,18 @@ def _pow_abs_x(dst: str, src: str) -> list[tuple]:
     return out
 
 
+def _miller_keys(pairs: tuple | None = None) -> list[tuple]:
+    """The Miller loop as program keys: the set-up, an iteration a bit of
+    |x|, f conjugated; over `pairs` (None: the check's keys, both pairs)."""
+    extra = () if pairs is None else (pairs,)
+    return [("setup", *extra)] + [("miller", bool(bit), *extra) for bit in X_BITS] + [("conj_f",)]
+
+
 def _script_keys() -> list:
     """The whole check as program keys (and INV), in order: the register
     F is the Miller loop's f, then the easy part's m."""
-    keys: list = [("setup",)]
-    keys += [("miller", bool(bit)) for bit in X_BITS]
-    keys += [("conj_f",), ("inv_a",), INV, ("inv_b",)]
+    keys: list = _miller_keys()
+    keys += [("inv_a",), INV, ("inv_b",)]
     # the oracle's chain for 3(p⁴ - p² + 1)/r with m in F:
     keys += _pow_abs_x("A", "F")  # a = m^|x|
     keys += _pow_abs_x("B", "A")  # b = m^(x²)
@@ -485,6 +512,11 @@ def _script_keys() -> list:
 
 
 GT_REG = "C"  # the register that holds the GT element at the end
+MILLER_LEN = len(_miller_keys())  # the check's script opens with its Miller loop
+# the multi-pairing's own programs: the Miller loop of a lone last pair, and
+# F <- F·A, the product of two groups' f values
+MILLER1_KEYS = _miller_keys((1,))
+FMUL_KEY = ("mul", "F", "F", "A")
 
 
 # ---------------------------------------------------------------------------
@@ -640,17 +672,20 @@ def program(key: tuple) -> Program:
 
 @lru_cache(maxsize=None)
 def compiled() -> dict:
-    """The script and its programs, in the order of their first use:
-    {"programs": [Program], "script": [program index or INV], "slots"}."""
+    """The check's script and its programs, in the order of their first
+    use, then the multi-pairing's: {"programs": [Program], "script": [program
+    index or INV] (the check), "script1": [program index] (a lone pair's
+    Miller loop), "fmul": the index of F <- F·A, "slots"}."""
     keys = _script_keys()
     order: list = []
-    for k in keys:
+    for k in keys + MILLER1_KEYS + [FMUL_KEY]:
         if k != INV and k not in order:
             order.append(k)
     progs = [program(k) for k in order]
     index = {k: i for i, k in enumerate(order)}
-    script = [INV if k == INV else index[k] for k in keys]
-    return {"programs": progs, "script": script, "slots": N_PINNED + max(p.temps for p in progs)}
+    return {"programs": progs, "script": [INV if k == INV else index[k] for k in keys],
+            "script1": [index[k] for k in MILLER1_KEYS], "fmul": index[FMUL_KEY],
+            "slots": N_PINNED + max(p.temps for p in progs)}
 
 
 # ---------------------------------------------------------------------------
@@ -670,46 +705,126 @@ def run_program(prog: Program, slots: list[int]) -> None:
             slots[d] = v
 
 
-def run_check(row_vals: list[int], table_vals: list[int]) -> tuple[bool, list[int]]:
-    """The kernel's check over Python ints: the row's ten and the table's
-    Fp values (Montgomery residues) -> (ok, the GT element's 12 Fp values,
-    Montgomery, in the tower's flat order)."""
+def _load(loads, row_vals: list[int], table_vals: list[int]) -> list[int]:
+    """A group's slots after the kernel's loads: the row values it has (a
+    load past them is skipped, as in the kernel), the table's, zero."""
+    slots = [0] * compiled()["slots"]
+    for slot, src, i in loads:
+        if src == "zero":
+            slots[slot] = 0
+        elif src == "table":
+            slots[slot] = table_vals[i]
+        elif i < len(row_vals):
+            slots[slot] = row_vals[i]
+    return slots
+
+
+def _run_script(entries, slots: list[int]) -> None:
     c = compiled()
-    slots = [0] * c["slots"]
-    for slot, src, i in LOADS:
-        slots[slot] = 0 if src == "zero" else (row_vals if src == "row" else table_vals)[i]
-    for entry in c["script"]:
+    for entry in entries:
         if entry == INV:
             n = slots[PINNED["N"]]
             slots[PINNED["N"]] = pow(n * RINV, P - 2, P) * R384 % P  # (a·R)^-1 -> a^-1·R
         else:
             run_program(c["programs"][entry], slots)
-    gt = [slots[PINNED[f"{GT_REG}_{i}"]] for i in range(12)]
-    one = table_vals[0]
-    return gt == [one] + [0] * 11, gt
 
 
-def script_products() -> dict[str, int]:
-    """Fp products of a whole check by tag (the inversion not included)."""
+def _register(slots: list[int], reg: str) -> list[int]:
+    return [slots[PINNED[f"{reg}_{i}"]] for i in range(12)]
+
+
+def _gt_result(slots: list[int], table_vals: list[int]) -> tuple[bool, list[int]]:
+    gt = _register(slots, GT_REG)
+    return gt == [table_vals[0]] + [0] * 11, gt
+
+
+def run_check(row_vals: list[int], table_vals: list[int]) -> tuple[bool, list[int]]:
+    """The kernel's check over Python ints: the row's ten and the table's
+    Fp values (Montgomery residues) -> (ok, the GT element's 12 Fp values,
+    Montgomery, in the tower's flat order)."""
+    slots = _load(LOADS, row_vals, table_vals)
+    _run_script(compiled()["script"], slots)
+    return _gt_result(slots, table_vals)
+
+
+def multi_groups(k: int) -> list[int]:
+    """The pairs of each group of a K-pair multi-pairing: two a group, the
+    last alone when K is odd."""
+    return [min(2, k - i) for i in range(0, k, 2)]
+
+
+def run_multi(pair_vals: list[list[int]], table_vals: list[int]) -> tuple[bool, list[int]]:
+    """The multi-pairing kernel over Python ints: K pairs' six Fp values
+    each (Montgomery) -> (∏ e(P, Q) == 1, the GT element). Each group of two
+    pairs runs the check's Miller loop, a lone last pair the one-pair loop;
+    then the last group multiplies the others' f values into its own in a
+    chain and runs the check's final exponentiation."""
+    c = compiled()
+    fs = []
+    for g, n in enumerate(multi_groups(len(pair_vals))):
+        slots = _load(MP_LOADS, [v for pair in pair_vals[2 * g : 2 * g + n] for v in pair], table_vals)
+        _run_script(c["script"][:MILLER_LEN] if n == 2 else c["script1"], slots)
+        fs.append(_register(slots, "F"))
+    for f in fs[:-1]:
+        for i, v in enumerate(f):
+            slots[PINNED[f"A_{i}"]] = v
+        run_program(c["programs"][c["fmul"]], slots)
+    _run_script(c["script"][MILLER_LEN:], slots)
+    return _gt_result(slots, table_vals)
+
+
+def _multi_entries(k: int) -> tuple[list, list]:
+    """A K-pair multi-pairing's program runs: (every group's, the longest
+    group's one after another), each then the chain of K/2 - 1 products and
+    the final exponentiation."""
+    c = compiled()
+    groups = [c["script"][:MILLER_LEN] if n == 2 else c["script1"] for n in multi_groups(k)]
+    rest = [c["fmul"]] * (len(groups) - 1) + c["script"][MILLER_LEN:]
+    return [e for g in groups for e in g] + rest, max(groups, key=len) + rest
+
+
+def _products(entries) -> dict[str, int]:
     c = compiled()
     out: dict[str, int] = {}
-    for entry in c["script"]:
+    for entry in entries:
         if entry != INV:
             for tag, n in c["programs"][entry].products.items():
                 out[tag] = out.get(tag, 0) + n
     return out
 
 
-def critical_rows() -> dict[str, int]:
-    """Rows of each kind a whole check runs, one after another (with the
-    inversion apart)."""
+def _rows(entries) -> dict[str, int]:
     c = compiled()
     out = {MUL: 0, ADDSUB: 0}
-    for entry in c["script"]:
+    for entry in entries:
         if entry != INV:
             for kind, _ in c["programs"][entry].rows:
                 out[kind] += 1
-    return {"mul": out[MUL], "addsub": out[ADDSUB], "inversions": c["script"].count(INV)}
+    return {"mul": out[MUL], "addsub": out[ADDSUB], "inversions": list(entries).count(INV)}
+
+
+def script_products() -> dict[str, int]:
+    """Fp products of a whole check by tag (the inversion not included)."""
+    return _products(compiled()["script"])
+
+
+def critical_rows() -> dict[str, int]:
+    """Rows of each kind a whole check runs, one after another (with the
+    inversion apart)."""
+    return _rows(compiled()["script"])
+
+
+def multi_products(k: int) -> dict[str, int]:
+    """Fp products of a K-pair multi-pairing by tag, every group's (the
+    inversion not included)."""
+    return _products(_multi_entries(k)[0])
+
+
+def multi_critical_rows(k: int) -> dict[str, int]:
+    """Rows of each kind on a K-pair multi-pairing's critical path: one
+    group's Miller loop (the groups run side by side), the chain of
+    products and the final exponentiation."""
+    return _rows(_multi_entries(k)[1])
 
 
 # ---------------------------------------------------------------------------
@@ -740,7 +855,10 @@ def header_text() -> str:
         "// python -m fisco_bcos_tpu_torch.ops.bls12_381_programs writes it again.",
         f"// {len(c['programs'])} programs, {len(rows)} rows, {len(ops)} ops; a check runs",
         f"// {len(c['script'])} programs: {counts['mul']} rows of products, {counts['addsub']} rows of sums,",
-        f"// and {counts['inversions']} Fp inversion.",
+        f"// and {counts['inversions']} Fp inversion. A multi-pairing's groups run the check's Miller",
+        "// loop, entries [0, BLS_SCRIPT_FINAL), or a lone pair's, [BLS_SCRIPT_MILLER1,",
+        "// BLS_SCRIPT_MILLER1_END); its product group the entry BLS_SCRIPT_FMUL a group, then",
+        "// [BLS_SCRIPT_FINAL, BLS_SCRIPT_LEN).",
         "",
         "#ifndef FISCO_BLS12_381_PROGRAMS_CUH",
         "#define FISCO_BLS12_381_PROGRAMS_CUH",
@@ -752,12 +870,18 @@ def header_text() -> str:
         f"#define BLS_N_ROWS {len(rows)}",
         f"#define BLS_N_OPS {len(ops)}",
         f"#define BLS_SCRIPT_LEN {len(c['script'])}",
-        f"#define BLS_SCRIPT_FINAL {_script_keys().index(('inv_a',))}  // the final exponentiation's first entry",
+        f"#define BLS_SCRIPT_FINAL {MILLER_LEN}  // the final exponentiation's first entry",
+        f"#define BLS_SCRIPT_MILLER1 {len(c['script'])}",
+        f"#define BLS_SCRIPT_MILLER1_END {len(c['script']) + len(c['script1'])}",
+        f"#define BLS_SCRIPT_FMUL {len(c['script']) + len(c['script1'])}  // F <- F·A",
         f"#define BLS_N_LOADS {len(LOADS)}",
+        f"#define BLS_N_MP_LOADS {len(MP_LOADS)}",
         f"#define BLS_INV {INV}",
         f"#define BLS_S_N {PINNED['N']}",
         f"#define BLS_S_GT {PINNED[GT_REG + '_0']}",
         f"#define BLS_S_ONE {PINNED['ONE']}",
+        f"#define BLS_S_F {PINNED['F_0']}",
+        f"#define BLS_S_A {PINNED['A_0']}",
         "",
         "// a row: kind (bit 0: 0 products, 1 sums), ops (bits 1-7), first op (bits 8-31);",
         "// an op: d | a << 10 | b << 20 | sub << 30 over slots",
@@ -771,13 +895,18 @@ def header_text() -> str:
         "BLS_PROG_ARRAY(u32, BLS_PROG_AT) = {",
         words(at, 12),
         "};",
-        "// the check: program indices in order, BLS_INV the Fp inversion of slot BLS_S_N",
+        "// the check: program indices in order, BLS_INV the Fp inversion of slot BLS_S_N;",
+        "// then a lone pair's Miller loop, and F <- F·A",
         "BLS_PROG_ARRAY(uint8_t, BLS_SCRIPT) = {",
-        words(c["script"], 16),
+        words(c["script"] + c["script1"] + [c["fmul"]], 16),
         "};",
         "// slot | source << 10 | index << 12 (source 0 zero, 1 the row, 2 the table)",
         "BLS_PROG_ARRAY(u32, BLS_LOADS) = {",
         words([s | load_src[src] << 10 | i << 12 for s, src, i in LOADS]),
+        "};",
+        "// a multi-pairing group's loads, the same form",
+        "BLS_PROG_ARRAY(u32, BLS_MP_LOADS) = {",
+        words([s | load_src[src] << 10 | i << 12 for s, src, i in MP_LOADS]),
         "};",
         "",
         "#endif  // FISCO_BLS12_381_PROGRAMS_CUH",

@@ -22,8 +22,12 @@ to fail, against the same scheme on the JAX suite's host legs. The BLS
 certificates of a 4-member committee run through ``consensus.qc.BLSQCScheme``
 with the port's ``BLSCrypto`` (plain PyTorch pairing checks on the CPU),
 every case at once through a DevicePlane that merges them into one pairing
-batch, against the scheme on the JAX ``BLSCrypto``; and two threads' aggregate
-checks merged by the plane against their direct calls."""
+batch, against the scheme on the JAX ``BLSCrypto``; two threads' aggregate
+checks merged by the plane against their direct calls; and the light
+client's header sync (``succinct.sync.verify_header_batch`` under
+``LightNode.sync_headers``) with the BLS scheme's implementation set to the
+port's ``BLSCrypto``, its one aggregate check the port's multi-pairing
+(plain PyTorch on the CPU), every JAX multi-pairing entry made to fail."""
 
 import contextlib
 import threading
@@ -50,6 +54,7 @@ from fisco_bcos_tpu.protocol.block_header import BlockHeader
 from fisco_bcos_tpu.protocol.transaction import Transaction, TransactionFactory
 from fisco_bcos_tpu.storage.entry import Entry
 from fisco_bcos_tpu.storage.state_storage import StateStorage
+from fisco_bcos_tpu.succinct import sync as jsync
 from fisco_bcos_tpu.txpool.validator import batch_admit
 from fisco_bcos_tpu.ops import bls12_381 as jbls_ops
 from fisco_bcos_tpu.ops import ed25519 as jed
@@ -58,6 +63,7 @@ from fisco_bcos_tpu_torch.device import plane as plane_mod
 from fisco_bcos_tpu_torch.device.plane import DevicePlane
 from fisco_bcos_tpu_torch.ops import _kernels
 from fisco_bcos_tpu_torch.ops import bls12_381 as bls_ops
+from test_succinct import _bls_chain, _stub_light
 
 PORT = suite.ecdsa_suite(device="cpu")
 PORT_SM = suite.sm_suite(device="cpu")
@@ -406,3 +412,45 @@ def test_bls_aggregate_checks_merge_on_the_plane(merging_plane, monkeypatch):
     merged = _concurrently([lambda: crypto.aggregate_verify_batch(a), lambda: crypto.aggregate_verify_batch(b)])
     assert [m.tolist() for m in merged] == [d.tolist() for d in direct]
     assert plane.stats()["dispatches"] == 1 and plane.stats()["requests"] == 2
+
+
+def test_header_sync_on_the_port_bls(monkeypatch):
+    """The JAX light client's header sync with the BLS scheme on the port's
+    BLSCrypto: LightNode.sync_headers adopts a chunk of 3 chain-linked
+    headers through one verify_header_batch that returns True (one
+    multi_pairing_verify of 4 pairs); on a chunk whose last header was
+    tampered after signing, verify_header_batch returns False and the
+    per-header fallback (check_block, the port's aggregate_verify) adopts
+    the first two and names the third; a header with no QC is not
+    aggregatable (None) and runs no pairing. The JAX scheme gives the same
+    verdicts, and no JAX batch or multi-pairing entry runs."""
+    good, committee, _, _ = _bls_chain(3, secret=55_101, tag=b"port-sync")
+    evil, evil_committee, _, _ = _bls_chain(3, secret=55_102, tag=b"port-evil")
+    evil[2].gas_used = 999_999
+    evil[2].clear_hash_cache()
+    validator = BlockValidator(jsuite.ecdsa_suite())
+    want = [jsync.verify_header_batch(good, committee, validator),
+            jsync.verify_header_batch(evil, evil_committee, validator)]
+    assert want == [True, False]
+    bare = BlockHeader(number=1, sealer_list=[committee[0].node_id], consensus_weights=[1])
+    returned = []
+    real = jsync.verify_header_batch
+
+    def recording(*args):
+        returned.append(real(*args))
+        return returned[-1]
+
+    monkeypatch.setattr(qc.get_scheme("bls"), "_impl", bls.BLSCrypto(torch.device("cpu")))
+    monkeypatch.setattr(jsync, "verify_header_batch", recording)
+    with port_seam() as calls:
+        light = _stub_light(good, committee)
+        assert light.sync_headers() == 3 and set(light.headers) == {1, 2, 3}
+        assert returned == [True]
+        light = _stub_light(evil, evil_committee)
+        with pytest.raises(ValueError, match="header 3 fails QC"):
+            light.sync_headers()
+        assert returned == [True, False] == want and light.head == 2
+        monkeypatch.setattr(bls_ops, "multi_pairing_device", lambda rows: pytest.fail("a pairing ran"))
+        assert real([bare], committee, validator) is None
+    assert not calls
+
