@@ -3388,7 +3388,8 @@ def multi_cases(named, headers) -> list[tuple[str, list]]:
     accepted and rejected; folds of two checks (3 pairs), accepted,
     rejected, and accepted with None pairs among them; the 64-header chunk
     (65 pairs), accepted and with one header's signature swapped for the
-    next header's; 128 headers (129 pairs)."""
+    next header's; 8 headers (9 pairs: 5 groups, odd at two levels of the
+    kernel's product tree); 128 headers (129 pairs)."""
     from fisco_bcos_tpu_torch.crypto import bls
     from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
 
@@ -3407,6 +3408,7 @@ def multi_cases(named, headers) -> list[tuple[str, list]]:
         ("the fold with None pairs", [(None, ref.G2)] + good3[:2] + [(ref.G1, None)] + good3[2:]),
         (f"{HEADER_CHUNK} headers", pairs(headers)),
         (f"{HEADER_CHUNK} headers, one signature swapped", pairs(swapped)),
+        ("8 headers", pairs(headers[:8])),
         (f"{2 * HEADER_CHUNK} headers", pairs(headers + headers)),
     ]
 
@@ -3491,19 +3493,56 @@ def multi_verify_stages(card: str, device, crypto, checks, hash_ms: float) -> No
         f"aggregate_verify_batch {t[1]:.3f} / {t[2]:.3f} ms (the same checks, hash_to_g2 and decode cached)")
 
 
-def run_multi_pairing_phase(card: str, device) -> dict:
+def multi_against_parent(card: str, parent, rows, table, crypto, headers) -> None:
+    """In turns parent, new, new, parent: the multi-pairing kernel against
+    the parent checkout's (built from that checkout's sources) at each of
+    MULTI_PAIRS (CUDA events; equal verdicts and GT elements), then
+    BLSCrypto.multi_pairing_verify of the header chunk with each checkout's
+    kernel patched into _kernels.bls12_381_multi_pairing (host clock,
+    synchronised; hash_to_g2 and decode cached)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    new, old = _kernels.bls12_381_multi_pairing, parent.bls12_381_multi_pairing
+    for k in MULTI_PAIRS:
+        got, want = new(rows[:k], table, gt=True), old(rows[:k], table, gt=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"bls12_381_multi_pairing != the parent checkout's kernel at {k} pairs")
+        t = [cuda_ms(lambda f=f: f(rows[:k], table), reps=3, inner=2) for f in (old, new, new, old)]
+        log(f"[{card}] bls12_381_multi_pairing @ {k} pairs against the parent checkout (equal verdict and GT "
+            f"element): parent {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, parent {t[3]:.4f} ms "
+            f"(new/parent {(t[1] + t[2]) / (t[0] + t[3]):.4f})")
+
+    def verify_ms(fn) -> float:
+        _kernels.bls12_381_multi_pairing = fn
+        try:
+            if crypto.multi_pairing_verify(headers) is not True:
+                raise AssertionError("BLSCrypto.multi_pairing_verify rejected the header chunk")
+            return host_ms(lambda: crypto.multi_pairing_verify(headers))
+        finally:
+            _kernels.bls12_381_multi_pairing = new
+
+    t = [verify_ms(f) for f in (old, new, new, old)]
+    log(f"[{card}] BLSCrypto.multi_pairing_verify, {len(headers)} headers, against the parent checkout's kernel: "
+        f"parent {t[0]:.3f}, new {t[1]:.3f}, new {t[2]:.3f}, parent {t[3]:.3f} ms")
+
+
+def run_multi_pairing_phase(card: str, device, parent=None) -> dict:
     """BLS12-381's multi-pairing (ROADMAP A7b): the kernel against its plain
     version and the oracle on every list of multi_cases; a list of only None
     pairs (no launch); BLSCrypto.multi_pairing_verify of a 64-header chunk,
     the header sync's path, counted, accepted, and rejected with one
     signature swapped; the kernel alone and multi_pairing_check at each of
     MULTI_PAIRS beside the bound; the chunk's stages, and the call in turns
-    with aggregate_verify_batch. Returns the kernel's row (with `times`)."""
+    with aggregate_verify_batch; with `parent`, the kernel and the chunk's
+    multi_pairing_verify in turns with the parent checkout's kernel.
+    Returns the kernel's row (with `times`)."""
     import torch
 
     from fisco_bcos_tpu_torch.crypto import bls
     from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref
-    from fisco_bcos_tpu_torch.ops import _kernels, bls12_381
+    from fisco_bcos_tpu_torch.ops import _kernels, bls12_381, bls12_381_programs
 
     t0 = time.perf_counter()
     named = make_bls_checks(SEED + 7)
@@ -3540,6 +3579,8 @@ def run_multi_pairing_phase(card: str, device) -> dict:
             f"{row['bound_ms']:.4f}, {row['bound_ms'] / kernel_ms:.2%}; {bls_multi_least_products(k):,} Fp "
             f"products of the least work), multi_pairing_check {check_ms:.3f} ms")
     multi_verify_stages(card, device, crypto, headers, hash_ms)
+    if parent and hasattr(parent, "bls12_381_multi_pairing"):
+        multi_against_parent(card, parent, rows, table, crypto, headers)
     k = HEADER_CHUNK + 1
     row = kernel_row("bls12_381_multi_pairing", "fisco_bcos_tpu_torch/csrc/bls12_381.cu", MULTI_REPLACES,
                      times[k][0], bls_multi_muls(k),
@@ -3548,27 +3589,32 @@ def run_multi_pairing_phase(card: str, device) -> dict:
                times=times)
     log(f"[{card}] multi-pairing phase: {time.perf_counter() - t0:.1f} s; the plain version "
         + ", ".join(f"{n} pairs {ms:.1f} ms" for n, ms in sorted(plain_ms.items()))
-        + f"; geometry at {k} pairs: one launch of {(k + 1) // 2} blocks of 32 threads (a group of two pairs "
-        f"each; the last to finish runs the product phase), 12,768 B dynamic shared each")
+        + f"; geometry at {k} pairs: one launch of {(k + 1) // 2} blocks of 128 threads (a group of two pairs "
+        f"each, a quad of lanes an Fp product; the groups' f values meet by a tree of products "
+        f"{bls12_381_programs.tree_depth((k + 1) // 2)} deep), 42,080 B dynamic shared each (12,768 B of slots, "
+        f"29,312 B of the programs' tables)")
     return row
 
 
 def bls_multi_latency_floor(card: str, bench: dict, times: dict) -> None:
-    """The one-warp latency floor of a K-pair multi-pairing: the rows on
-    its critical path (one group's Miller loop, the chain of products, the
-    final exponentiation) at the field bench's cycles a row, at 1,980 MHz,
-    beside the kernel and the bound at each of MULTI_PAIRS."""
+    """The latency floor of a K-pair multi-pairing on its groups of four
+    warps: the rows on its critical path (one group's Miller loop, the
+    tree's depth in products, the final exponentiation) at the field
+    bench's cycles a row in the kernel's forms (a row of 32 quad products,
+    a row of 32 quad sums, a block sync each) and the inversion's, at 1,980
+    MHz, beside the kernel and the bound at each of MULTI_PAIRS."""
     from fisco_bcos_tpu_torch.ops import bls12_381_programs
 
     for k, (kernel_ms, bound_ms) in times.items():
         rows = bls12_381_programs.multi_critical_rows(k)
-        cycles = (rows["mul"] * bench[BLS_BENCH_ROW] + rows["addsub"] * bench[BLS_BENCH_SUM_ROW]
-                  + rows["inversions"] * bench[BLS_BENCH_INV])
+        mul, add = rows["mul"] * bench[BLS_BENCH_QUAD_ROW], rows["addsub"] * bench[BLS_BENCH_QUAD_SUM_ROW]
+        cycles = mul + add + rows["inversions"] * bench[BLS_BENCH_INV]
         floor = cycles / 1980e3
-        log(f"[{card}] bls12_381_multi_pairing one-warp latency floor @ {k} pairs: {rows['mul']:,} rows of "
-            f"products, {rows['addsub']:,} of sums, {rows['inversions']} inversion: {cycles:,.0f} cycles, "
-            f"{floor:.4f} ms at 1,980 MHz, beside the bound's {bound_ms:.4f} ms; the kernel {kernel_ms:.4f} ms "
-            f"({floor / kernel_ms:.1%} of it)")
+        log(f"[{card}] bls12_381_multi_pairing latency floor @ {k} pairs: {rows['mul']:,} rows of products x "
+            f"{bench[BLS_BENCH_QUAD_ROW]:.1f} cycles ({mul / 1980e3:.4f} ms), {rows['addsub']:,} of sums x "
+            f"{bench[BLS_BENCH_QUAD_SUM_ROW]:.1f} ({add / 1980e3:.4f} ms), {rows['inversions']} inversion: "
+            f"{cycles:,.0f} cycles, {floor:.4f} ms at 1,980 MHz (sums {add / cycles:.1%} of it), beside the "
+            f"bound's {bound_ms:.4f} ms; the kernel {kernel_ms:.4f} ms ({floor / kernel_ms:.1%} of it)")
 
 
 # ---------------------------------------------------------------------------
@@ -4536,12 +4582,16 @@ def hash_bench(card: str, libs: dict) -> None:
         log(f"[{card}] hash bench, one warp, cycles a block: {name} ({count}): " + ", ".join(shown))
 
 
-# The field bench's BLS12-381 ops (csrc/field_bench.cu op codes 45-58):
+# The field bench's BLS12-381 ops (csrc/field_bench.cu op codes 45-64):
 # (op code, iterations). A row op's cycles are a row's: the pairing
-# kernel's cost of one row of its programs.
+# kernels' cost of one row of their programs (52-53 the check's, one lane
+# an op on one warp; 59-64 on a group of lanes an op, 59 and 62 the
+# multi-pairing's forms, 64 a row of its products and six of its sums).
 BLS_BENCH_OPS = ((45, 100), (46, 200), (47, 200), (48, 400), (49, 400), (50, 100), (51, 100), (52, 100),
-                 (53, 400), (54, 2), (55, 200), (56, 8), (57, 200), (58, 400))
+                 (53, 400), (54, 2), (55, 200), (56, 8), (57, 200), (58, 400), (59, 200), (60, 200), (61, 200),
+                 (62, 400), (63, 400), (64, 100))
 BLS_BENCH_ROW, BLS_BENCH_SUM_ROW, BLS_BENCH_INV = 52, 53, 56
+BLS_BENCH_QUAD_ROW, BLS_BENCH_QUAD_SUM_ROW = 59, 62
 
 
 def bls_bench(card: str, libs: dict) -> dict:
@@ -4807,7 +4857,7 @@ def main() -> int:
     log_kernel(card, bls_row)
 
     # -- BLS12-381: the multi-pairing kernel, header sync's multi_pairing_verify --
-    multi_row = run_multi_pairing_phase(card, device)
+    multi_row = run_multi_pairing_phase(card, device, parent)
     log_kernel(card, multi_row)
 
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --

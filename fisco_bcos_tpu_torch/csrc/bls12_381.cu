@@ -85,34 +85,44 @@
 // The JAX program runs B (a power of two) one-pair Miller loops side by
 // side, makes its invalid and pad lanes the Fp12 identity, multiplies the
 // lanes by a halving tree and runs one final exponentiation. Here the
-// caller sends only live pairs (no pad lane), and on this card one pairing
-// is one warp's latency, so the work splits as the check's does, in one
-// launch:
-//   - the Miller phase: a block (one warp) a group of two consecutive pairs
-//     runs the check's Miller loop with both G1 points from its rows
-//     (BLS_MP_LOADS; a lone last pair of an odd K the one-pair loop of the
-//     same programs), conjugated, and writes its f to the scratch `fs` (the
-//     product's conjugate is the conjugate of the product); 65 pairs are 33
-//     warps, all resident;
-//   - the product phase: the last group to finish (a fence, then an atomic
-//     count of the groups done, set to 0 on the stream before the launch;
-//     no group waits for another) multiplies the other groups' f values,
-//     read through L2, into its own in a chain (BLS_SCRIPT_FMUL, 2 rows of
-//     products and 12 of sums each), runs the check's final exponentiation
-//     (bls_final_exp) and writes ok and, where asked, the GT element, which
-//     is the JAX program's: an Fp12 product is exact, so its order is free,
-//     and the lines' Fp2 factors die in the final exponentiation as in the
-//     check.
-// The forms this replaced, timed in turns (PERF.md §6): a second launch for
-// the product phase (stream order in place of the counter), and the product
-// phase reloading every f and running the chain and the final
-// exponentiation through one call of the script runner, each took ~0.27 ms
-// more at 2 to 257 pairs, though they ran the same rows.
-// The time is one Miller loop, the chain and one final exponentiation, each
-// one warp's latency; the bound's least work (one shared squaring of f, K
-// pairs' steps and lines, one final exponentiation) is some 0.4% of it.
+// caller sends only live pairs (no pad lane). What bounds it on this card:
+// one launch of ⌈K/2⌉ groups, all resident (65 pairs are 33 of the 132
+// SMs), so its time is one group's latency through its rows, and the
+// least work is some 0.5% of it. So a group is a block of four warps, one
+// on each of its SM's schedulers, and runs the check's programs by a
+// runner of its own (bls_run_program_coop): quad j (lanes 4j to 4j + 3)
+// runs op j of a row, a product or a sum split over its four lanes
+// (csrc/bls12_381_coop.cuh), and a row ends at a block sync. The same
+// rows, the slots (BLS_SLOTS) and the load lists stay; a copy of the
+// programs' tables sits after the slots in shared memory, each row's
+// header read two rows ahead and its ops one. In one launch:
+//   - the Miller phase: a group of two consecutive pairs runs the check's
+//     Miller loop with both G1 points from its rows (BLS_MP_LOADS; a lone
+//     last pair of an odd K the one-pair loop of the same programs),
+//     conjugated (the product's conjugate is the conjugate of the product);
+//   - the product phase: a binary tree over the groups (bls_mp_tree): at
+//     each level where its node has a sibling, a group writes its f to the
+//     scratch `fs` and counts itself at the parent's counter (a fence, an
+//     atomic; the counters set to 0 on the stream before the launch); the
+//     first to arrive exits, the second reads its sibling's f through L2
+//     and multiplies it into its own (BLS_SCRIPT_FMUL, 2 rows of products
+//     and 12 of sums) and climbs: ⌈log2 G⌉ products on the critical path,
+//     G - 1 in all. The group at the root runs the check's final
+//     exponentiation and writes ok and, where asked, the GT element, which
+//     is the JAX program's: an Fp12 product is exact, so its order is
+//     free, and the lines' Fp2 factors die in the final exponentiation as
+//     in the check.
+// Timed in turns with the one-warp form this replaced (PERF.md §6):
+// 0.71× at 65 pairs, 0.59× at 257, 0.76× at 2. Forms that lost there: the
+// sums on the first lane of each quad (a row 424 cycles on the field bench
+// against the quad's 263), a pair of lanes a product (2,634 against the
+// quad's 2,336, both with the digits' meet by branches, which lost to the
+// selects' 1,993), the programs' tables read from global memory (1.12× the
+// shared copy), one non-inlined copy of the script runner (1.02×) or of
+// the product (1.01×). Inside the kernel a row still costs some 150-250
+// cycles more than on the bench.
 
-#include "bls12_381_field.cuh"
+#include "bls12_381_coop.cuh"  // and bls12_381_field.cuh
 
 #if FISCO_PTX
 #define BLS_PROG_ARRAY(type, name) __device__ const type name[]
@@ -125,11 +135,16 @@
 #define BLS_PAIR_WORDS (6 * BLS_NW)  // a multi-pairing pair's row
 #define BLS_GT_WORDS (12 * BLS_NW)  // an Fp12 element: the GT element, a group's f
 #define BLS_MP_GROUPS(n) (((n) + 1) / 2)  // groups of a K-pair multi-pairing: two pairs a group
+#define BLS_MP_THREADS (BLS_G * BLS_Q)  // a multi-pairing group: a quad of lanes an op of a row
 #define BLS_TABLE_WORDS (3 * BLS_NW + 3 * 6 * 2 * BLS_NW)
 #define BLS_THREADS 32  // one warp a block
 #define BLS_CHECKS (BLS_THREADS / BLS_G)  // checks a block
 #define BLS_SLOT_WORDS (BLS_SLOTS * BLS_NW)  // a check's slots
 #define BLS_SMEM_BYTES (BLS_CHECKS * BLS_SLOT_WORDS * 4)
+// a multi-pairing group's shared memory: its slots, then a copy of the
+// programs' tables (BLS_PROG_AT, BLS_ROWS, BLS_OPS)
+#define BLS_MP_TABLE_WORDS (BLS_N_PROGS + 1 + BLS_N_ROWS + BLS_N_OPS)
+#define BLS_MP_SMEM_WORDS (BLS_SLOT_WORDS + BLS_MP_TABLE_WORDS)
 
 #ifndef __CUDACC__
 // the host build counts the Fp products a check makes (a squaring where both
@@ -179,15 +194,30 @@ DEV u32 bls_ld(const T* p) {
 
 // BLS_GROUP_FOR(j) { ... } runs its body as group lane j: on the card once,
 // for this lane's j; on the host for every j in turn. A body holds no sync.
+// BLS_THREAD_FOR(T, j) likewise over a group of T threads (32: a check's
+// warp; BLS_MP_THREADS: a multi-pairing group's block), bls_group_sync<T>
+// its sync; BLS_COOP_FOR(j) over the ops of a multi-pairing group's row,
+// op j on quad j (on the host the quad's lanes run inside the op).
 #if FISCO_PTX
 DEV int bls_lane() { return (int)(threadIdx.x % BLS_G); }
 DEV void bls_sync() { __syncwarp(); }
+template <int T>
+DEV void bls_group_sync() {
+  if (T == BLS_G) __syncwarp();
+  else __syncthreads();
+}
 #define BLS_GROUP_FOR(j) for (int j = bls_lane(), j##_end = j + 1; j < j##_end; j++)
+#define BLS_THREAD_FOR(T, j) for (int j = (int)(threadIdx.x % (T)), j##_end = j + 1; j < j##_end; j++)
+#define BLS_COOP_FOR(j) for (int j = (int)(threadIdx.x / BLS_Q), j##_end = j + 1; j < j##_end; j++)
 #define BLS_LV(j) 0  // a lane's own copy of a per-lane variable: a register
 #define BLS_LANE_VARS 1
 #else
 DEV void bls_sync() {}
+template <int T>
+DEV void bls_group_sync() {}
 #define BLS_GROUP_FOR(j) for (int j = 0; j < BLS_G; j++)
+#define BLS_THREAD_FOR(T, j) for (int j = 0; j < (T); j++)
+#define BLS_COOP_FOR(j) for (int j = 0; j < BLS_G; j++)
 #define BLS_LV(j) (j)  // the host runs every lane: an array of them
 #define BLS_LANE_VARS BLS_G
 #endif
@@ -227,14 +257,66 @@ DEV void bls_run_program(int prog, u32* sl) {
   }
 }
 
+// Whether quad j runs a row of n products: on the card where its warp holds
+// one of them (every lane of a warp joins its shuffles), on the host where
+// it holds one.
+DEV bool bls_coop_live(int j, int n) {
+#if FISCO_PTX
+  return (j & ~(32 / BLS_Q - 1)) < n;
+#else
+  return j < n;
+#endif
+}
+
+// Program `prog` over a multi-pairing group's slots, on its BLS_MP_THREADS
+// threads: quad j runs op j of each row, then the block syncs. A row runs
+// on every warp that holds one of its ops, each op over its quad
+// (bls_mul_coop, bls_addsub_coop; a quad past the row's ops runs the row's
+// first op and stores nothing, so that its warp's shuffles have every
+// lane). The rows and ops come from the group's copy of the tables after
+// its slots, a row's header two rows ahead and its ops one row ahead.
+DEV void bls_run_program_coop(int prog, u32* sl) {
+  const u32* at = sl + BLS_SLOT_WORDS;
+  const u32* rows = at + BLS_N_PROGS + 1;
+  const u32* ops_at = rows + BLS_N_ROWS;
+  const int r1 = (int)at[prog + 1];
+  int r = (int)at[prog];
+  u32 row = rows[r], next = r + 1 < r1 ? rows[r + 1] : 0u;
+  u32 ops[BLS_LANE_VARS];
+  BLS_COOP_FOR(j) ops[BLS_LV(j)] = ops_at[(row >> 8) + (j < (int)((row >> 1) & 127) ? j : 0)];
+#pragma unroll 1
+  for (; r < r1; r++) {
+    const u32 after = r + 2 < r1 ? rows[r + 2] : 0u;
+    const int n = (int)((row >> 1) & 127);
+    BLS_COOP_FOR(j) {
+      const u32 op = ops[BLS_LV(j)];
+      ops[BLS_LV(j)] = ops_at[(next >> 8) + (j < (int)((next >> 1) & 127) ? j : 0)];
+      const int sa = (int)(op >> 10) & 1023, sb = (int)(op >> 20) & 1023;
+      u32* d = sl + BLS_NW * (int)(op & 1023);
+      if (!bls_coop_live(j, n)) continue;
+      if (row & 1) {
+        bls_addsub_coop<BLS_Q>(d, sl + BLS_NW * sa, sl + BLS_NW * sb, (op >> 30) & 1, j < n);
+      } else {
+        if (j < n) BLS_COUNT(sa == sb);
+        bls_mul_coop<BLS_Q>(d, sl + BLS_NW * sa, sl + BLS_NW * sb, j < n);
+      }
+    }
+    row = next;
+    next = after;
+    bls_group_sync<BLS_MP_THREADS>();
+  }
+}
+
 // Entries [from, to) of the script: its programs, and the Fp inversion of
-// slot BLS_S_N on lane 0.
+// slot BLS_S_N on lane 0; COOP: on a multi-pairing group's block.
+template <bool COOP = false>
 DEV void bls_run_script(int from, int to, u32* sl) {
+  constexpr int T = COOP ? BLS_MP_THREADS : BLS_G;
 #pragma unroll 1
   for (int k = from; k < to; k++) {
     const int prog = (int)bls_ld(&BLS_SCRIPT[k]);
     if (prog == BLS_INV) {
-      BLS_GROUP_FOR(j) {
+      BLS_THREAD_FOR(T, j) {
         if (j == 0) {
           u32 v[BLS_NW];
           bls_get(v, sl, BLS_S_N);
@@ -243,7 +325,9 @@ DEV void bls_run_script(int from, int to, u32* sl) {
           bls_put(sl, BLS_S_N, v);
         }
       }
-      bls_sync();
+      bls_group_sync<T>();
+    } else if (COOP) {
+      bls_run_program_coop(prog, sl);
     } else {
       bls_run_program(prog, sl);
     }
@@ -258,10 +342,11 @@ DEV void bls_run_script(int from, int to, u32* sl) {
 // BLS_MP_LOADS for a multi-pairing group): the row's values below
 // `row_vals` (a load of a value past them is skipped), the table's
 // constants, zero.
+template <int T = BLS_G>
 DEV void bls_load(const u32* loads, int n_loads, const u32* row, int row_vals, const u32* table, u32* sl) {
-  BLS_GROUP_FOR(j) {
+  BLS_THREAD_FOR(T, j) {
 #pragma unroll 1
-    for (int i = j; i < n_loads; i += BLS_G) {
+    for (int i = j; i < n_loads; i += T) {
       const u32 e = bls_ld(&loads[i]);
       const u32 src = (e >> 10) & 3, idx = e >> 12;
       if (src == 1 && (int)idx >= row_vals) continue;
@@ -271,14 +356,15 @@ DEV void bls_load(const u32* loads, int n_loads, const u32* row, int row_vals, c
       bls_put(sl, (int)(e & 1023), v);
     }
   }
-  bls_sync();
+  bls_group_sync<T>();
 }
 
 // An Fp12 register's 12 slots from `src`'s 144 words (lanes 0-11), then a
 // sync; bls_store_f12 writes them to `dst`. The loads go through L2 (other
 // blocks of the kernel wrote `src`; the read-only path may hold stale lines).
+template <int T = BLS_G>
 DEV void bls_load_f12(const u32* src, int slot, u32* sl) {
-  BLS_GROUP_FOR(j) {
+  BLS_THREAD_FOR(T, j) {
     if (j < 12) {
       u32 v[BLS_NW];
 #if FISCO_PTX
@@ -289,11 +375,12 @@ DEV void bls_load_f12(const u32* src, int slot, u32* sl) {
       bls_put(sl, slot + j, v);
     }
   }
-  bls_sync();
+  bls_group_sync<T>();
 }
 
+template <int T = BLS_G>
 DEV void bls_store_f12(u32* dst, int slot, const u32* sl) {
-  BLS_GROUP_FOR(j) {
+  BLS_THREAD_FOR(T, j) {
     if (j < 12) {
       u32 v[BLS_NW];
       bls_get(v, sl, slot + j);
@@ -311,9 +398,10 @@ DEV void bls_final_exp(u32* sl) { bls_run_script(BLS_SCRIPT_FINAL, BLS_SCRIPT_LE
 
 // The verdict (the GT element == 1) to *ok and the GT element's 144 words
 // to gt, each unless null.
+template <int T = BLS_G>
 DEV void bls_result(const u32* sl, uint8_t* ok, u32* gt) {
-  if (gt) bls_store_f12(gt, BLS_S_GT, sl);
-  BLS_GROUP_FOR(j) {
+  if (gt) bls_store_f12<T>(gt, BLS_S_GT, sl);
+  BLS_THREAD_FOR(T, j) {
     if (j == 0 && ok) {
       u32 one[BLS_NW], v[BLS_NW], acc = 0;
       bls_get(one, sl, BLS_S_ONE);
@@ -340,29 +428,70 @@ DEV void bls_pairing_check(const u32* row, const u32* table, u32* sl, uint8_t* o
 // A multi-pairing
 // ---------------------------------------------------------------------------
 
-// The Miller phase of one group: `pairs` (2, or 1 for the last of an odd K)
-// consecutive pairs' rows from `rows`; f_{|x|} of each pair multiplied
-// together with one shared squaring, conjugated, into f's 144 words.
-// Both loops go through one call of the script runner (a call each, two
-// inlined copies of the row loop, ran 1.02-1.03x slower: PERF.md §6).
-DEV void bls_mp_miller(const u32* rows, int pairs, const u32* table, u32* sl, u32* f) {
-  bls_load(BLS_MP_LOADS, BLS_N_MP_LOADS, rows, 6 * pairs, table, sl);
-  bls_run_script(pairs == 2 ? 0 : BLS_SCRIPT_MILLER1, pairs == 2 ? BLS_SCRIPT_FINAL : BLS_SCRIPT_MILLER1_END, sl);
-  bls_store_f12(f, BLS_S_F, sl);
+// The Miller phase of one group on its block: `pairs` (2, or 1 for the
+// last of an odd K) consecutive pairs' rows from `rows`; f_{|x|} of each pair
+// multiplied together with one shared squaring, conjugated, into its F.
+// `sl`: the group's BLS_MP_SMEM_WORDS words, slots and tables.
+DEV void bls_mp_miller(const u32* rows, int pairs, const u32* table, u32* sl) {
+  u32* tab = sl + BLS_SLOT_WORDS;  // the tables first (bls_load's sync covers them)
+  BLS_THREAD_FOR(BLS_MP_THREADS, j) {
+    for (int i = j; i <= BLS_N_PROGS; i += BLS_MP_THREADS) tab[i] = bls_ld(&BLS_PROG_AT[i]);
+    for (int i = j; i < BLS_N_ROWS; i += BLS_MP_THREADS) tab[BLS_N_PROGS + 1 + i] = bls_ld(&BLS_ROWS[i]);
+    for (int i = j; i < BLS_N_OPS; i += BLS_MP_THREADS) tab[BLS_N_PROGS + 1 + BLS_N_ROWS + i] = bls_ld(&BLS_OPS[i]);
+  }
+  bls_load<BLS_MP_THREADS>(BLS_MP_LOADS, BLS_N_MP_LOADS, rows, 6 * pairs, table, sl);
+  bls_run_script<true>(pairs == 2 ? 0 : BLS_SCRIPT_MILLER1, pairs == 2 ? BLS_SCRIPT_FINAL : BLS_SCRIPT_MILLER1_END,
+                       sl);
 }
 
-// The product phase, on the slots of group `own` after its Miller phase:
-// the other groups' f values of fs multiplied into its F in a chain (F <-
-// F·A), the final exponentiation, the verdict and the GT element.
-DEV void bls_mp_finish(const u32* fs, int groups, int own, u32* sl, uint8_t* ok, u32* gt) {
+// Counts the caller's arrival at a node of the product tree (*c, 0 at the
+// launch): false for the first of its two children to arrive. The second
+// reads the first's f after the fence, through L2.
+DEV bool bls_mp_arrive(unsigned* c) {
+#if FISCO_PTX
+  __shared__ unsigned s_first;
+  __threadfence();  // each thread's f words reach every block before the count
+  __syncthreads();
+  if (threadIdx.x == 0) s_first = atomicAdd(c, 1u) == 0;
+  __syncthreads();
+  if (s_first) return false;
+  __threadfence();
+  return true;
+#else
+  return (*c)++ != 0;
+#endif
+}
+
+// The product phase's tree, in group `group` of `groups` after its Miller
+// phase: a binary tree over the groups, node n of level l the groups [n·2^l,
+// (n + 1)·2^l), its f at fs[n·2^l] (144 words). At each level where its node
+// has a sibling, the group writes its F there and counts itself at the
+// parent's counter (cnt: one a node with two children, level by level);
+// the first to arrive exits, the second multiplies the sibling's f into its
+// F (BLS_SCRIPT_FMUL: F <- F·A) and climbs. Returns true in the group that
+// reaches the root with the product of every group's f: ⌈log2 groups⌉
+// products on its path, groups - 1 in all.
+DEV bool bls_mp_tree(u32* fs, unsigned* cnt, int groups, int group, u32* sl) {
+  int node = group, width = groups, at = 0;
 #pragma unroll 1
-  for (int g = 0; g < groups; g++) {
-    if (g == own) continue;
-    bls_load_f12(fs + g * BLS_GT_WORDS, BLS_S_A, sl);
-    bls_run_script(BLS_SCRIPT_FMUL, BLS_SCRIPT_FMUL + 1, sl);
+  for (int l = 0; width > 1; l++) {
+    if ((node ^ 1) < width) {
+      bls_store_f12<BLS_MP_THREADS>(fs + (long)(node << l) * BLS_GT_WORDS, BLS_S_F, sl);
+      if (!bls_mp_arrive(cnt + at + (node >> 1))) return false;
+      bls_load_f12<BLS_MP_THREADS>(fs + (long)((node ^ 1) << l) * BLS_GT_WORDS, BLS_S_A, sl);
+      bls_run_script<true>(BLS_SCRIPT_FMUL, BLS_SCRIPT_FMUL + 1, sl);
+    }
+    at += width >> 1;
+    node >>= 1;
+    width = (width + 1) >> 1;
   }
-  bls_final_exp(sl);
-  bls_result(sl, ok, gt);
+  return true;
+}
+
+// The root's end: the final exponentiation, the verdict and the GT element.
+DEV void bls_mp_finish(u32* sl, uint8_t* ok, u32* gt) {
+  bls_run_script<true>(BLS_SCRIPT_FINAL, BLS_SCRIPT_LEN, sl);
+  bls_result<BLS_MP_THREADS>(sl, ok, gt);
 }
 
 #ifdef __CUDACC__
@@ -380,24 +509,18 @@ bls12_381_pairing_kernel(const u32* __restrict__ rows, const u32* __restrict__ t
                     gt && check < n ? gt + (size_t)check * 12 * BLS_NW : nullptr);
 }
 
-// A block a group: its Miller phase, then, in the last group to finish,
-// the product phase. `done` counts the groups finished (0 at the launch).
-static_assert(BLS_CHECKS == 1, "a multi-pairing block is one group");
-__global__ void __launch_bounds__(BLS_THREADS)
+// A block a group: its Miller phase, then its climb of the product tree;
+// the group that reaches the root ends the multi-pairing. `cnt` holds the
+// tree's counters (0 at the launch).
+static_assert(BLS_MP_THREADS == 4 * 32, "a multi-pairing group is four warps: a quad of lanes for each of a row's 32 ops");
+__global__ void __launch_bounds__(BLS_MP_THREADS, 1)
 bls12_381_multi_pairing_kernel(const u32* __restrict__ rows, const u32* __restrict__ table, u32* fs,
-                               unsigned* done, uint8_t* __restrict__ ok, u32* __restrict__ gt, int n) {
+                               unsigned* cnt, uint8_t* __restrict__ ok, u32* __restrict__ gt, int n) {
   extern __shared__ uint4 s_slots[];
   u32* sl = reinterpret_cast<u32*>(s_slots);
   const int groups = BLS_MP_GROUPS(n), group = (int)blockIdx.x, first = 2 * group;
-  bls_mp_miller(rows + (size_t)first * BLS_PAIR_WORDS, n - first < 2 ? 1 : 2, table, sl,
-                fs + (size_t)group * BLS_GT_WORDS);
-  __threadfence();  // each lane's f words reach every block before the group is counted
-  __syncwarp();
-  unsigned last = 0;
-  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == (unsigned)groups - 1;
-  if (!__shfl_sync(0xffffffffu, last, 0)) return;
-  __threadfence();
-  bls_mp_finish(fs, groups, group, sl, ok, gt);
+  bls_mp_miller(rows + (size_t)first * BLS_PAIR_WORDS, n - first < 2 ? 1 : 2, table, sl);
+  if (bls_mp_tree(fs, cnt, groups, group, sl)) bls_mp_finish(sl, ok, gt);
 }
 
 extern "C" void bls12_381_geometry(int n, int* out) {
@@ -426,21 +549,24 @@ extern "C" int bls12_381_pairing_launch(const void* rows, const void* table, voi
 
 // C entry point of the multi-pairing: rows [n, 72] words (n >= 1 pairs),
 // the table, `fs` the caller's scratch of ⌈n/2⌉ f values (144 words each)
-// and one word more (the groups' counter), ok one byte, gt null or 144
-// words. The counter's reset and one launch on `stream` of `device`, no
-// sync; returns the first CUDA error (0 on success).
+// and as many words more (the product tree's counters, one a node with two
+// children), ok one byte, gt null or 144 words. The counters' reset and one
+// launch on `stream` of `device`, no sync; returns the first CUDA error (0
+// on success).
 extern "C" int bls12_381_multi_pairing_launch(const void* rows, const void* table, void* fs, void* ok, void* gt,
                                               int n, int device, void* stream) {
-  static_assert(BLS_SMEM_BYTES <= 48 * 1024, "a group's slots fit the default dynamic shared memory");
+  static_assert(BLS_MP_SMEM_WORDS * 4 <= 48 * 1024, "a group's slots and tables fit the default dynamic shared memory");
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
   const int groups = BLS_MP_GROUPS(n);
-  unsigned* done = reinterpret_cast<unsigned*>((u32*)fs + (size_t)groups * BLS_GT_WORDS);
-  err = cudaMemsetAsync(done, 0, sizeof(unsigned), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  bls12_381_multi_pairing_kernel<<<groups, BLS_THREADS, BLS_SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const u32*)rows, (const u32*)table, (u32*)fs, done, (uint8_t*)ok, (u32*)gt, n);
+  unsigned* cnt = reinterpret_cast<unsigned*>((u32*)fs + (size_t)groups * BLS_GT_WORDS);
+  if (groups > 1) {
+    err = cudaMemsetAsync(cnt, 0, (groups - 1) * sizeof(unsigned), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  bls12_381_multi_pairing_kernel<<<groups, BLS_MP_THREADS, BLS_MP_SMEM_WORDS * 4, (cudaStream_t)stream>>>(
+      (const u32*)rows, (const u32*)table, (u32*)fs, cnt, (uint8_t*)ok, (u32*)gt, n);
   return (int)cudaGetLastError();
 }
 

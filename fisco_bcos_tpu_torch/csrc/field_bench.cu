@@ -12,7 +12,9 @@
 // lane's 700-byte message (12 blocks) through the staged route alone and
 // with both routes compiled in, cold and warm, one lane or a round lane and
 // a schedule lane a message, the Ed25519 challenge's lane and pair and its
-// reduction mod L (op codes 31-44). Not a kernel
+// reduction mod L (op codes 31-44). BLS12-381's Fp ops and rows of the
+// pairing kernels' programs (45-64): one lane an op on one warp, and a
+// quad or a pair of lanes an op on a block of warps (59-64). Not a kernel
 // of any path: chip_smoke.py builds it against a checkout's csrc/ (-I that
 // directory; hence the angle brackets) and prints what it measures.
 //
@@ -55,6 +57,10 @@
 #if __has_include(<bls12_381_field.cuh>)
 #include <bls12_381_field.cuh>
 #define FB_HAS_BLS_FIELD 1
+#if __has_include(<bls12_381_coop.cuh>)
+#include <bls12_381_coop.cuh>
+#define FB_HAS_BLS_COOP 1
+#endif
 
 // BLS12-381's field ops in the forms the pairing kernel did not take, timed
 // against its own (bls_mul, bls_addsub, bls_inv_divstep).
@@ -309,7 +315,9 @@ enum {
   FB_SHA256_LANE, FB_SHA256_LANE_ROUTES, FB_SHA256_LANE_COLD, FB_SHA256_PAIR, FB_SHA512_BLOCK,
   FB_SHA512_BLOCK_FULL, FB_SHA512_BLOCK_PASS8, FB_CHALLENGE_LANE, FB_CHALLENGE_PAIR, FB_MOD_L,
   FB_CHALLENGE_COLD, FB_BLS_MUL_ONE_LANE, FB_BLS_MUL_CIOS, FB_BLS_MUL, FB_BLS_ADD, FB_BLS_SUB,
-  FB_BLS_ROW8, FB_BLS_ROW16, FB_BLS_ROW32, FB_BLS_SUM_ROW32, FB_BLS_INV_FERMAT, FB_BLS_MUL_ADDC, FB_BLS_INV_DIVSTEP, FB_BLS_MUL_COLS, FB_BLS_ADD_PAR, FB_OPS
+  FB_BLS_ROW8, FB_BLS_ROW16, FB_BLS_ROW32, FB_BLS_SUM_ROW32, FB_BLS_INV_FERMAT, FB_BLS_MUL_ADDC, FB_BLS_INV_DIVSTEP, FB_BLS_MUL_COLS, FB_BLS_ADD_PAR,
+  FB_BLS_QUAD_ROW32, FB_BLS_QUAD_ROW8, FB_BLS_PAIR_ROW32, FB_BLS_QUAD_SUM_ROW32, FB_BLS_LEAD_SUM_ROW32,
+  FB_BLS_QUAD_MIX, FB_OPS
 };
 
 extern "C" const char* field_bench_name(int op) {
@@ -350,7 +358,13 @@ extern "C" const char* field_bench_name(int op) {
       "BLS12-381 Fp product, 64-bit word products added by chains of add carries (bls_mul_addc)",
       "BLS12-381 Fp inversion, safegcd divsteps and one product, one lane (bls_inv_divstep, the kernel's)",
       "BLS12-381 Fp product by columns with deferred carries (bls_mul, the kernel's)",
-      "BLS12-381 Fp sum, two chains side by side (bls_addsub_par)"};
+      "BLS12-381 Fp sum, two chains side by side (bls_addsub_par)",
+      "BLS12-381 row of 32 products, a quad of lanes each (bls_mul_coop<4>), 4 warps, a block sync",
+      "BLS12-381 row of 8 products, a quad of lanes each, one warp",
+      "BLS12-381 row of 32 products, a pair of lanes each (bls_mul_coop<2>), 2 warps, a block sync",
+      "BLS12-381 row of 32 sums, a quad of lanes each (bls_addsub_coop<4>), 4 warps, a block sync",
+      "BLS12-381 row of 32 sums, the first lane of each quad (bls_addsub), 4 warps, a block sync",
+      "BLS12-381 row of 32 quad products, then 6 rows of 32 quad sums, a block sync each (one loop)"};
   return op >= 0 && op < FB_OPS ? names[op] : "";
 }
 
@@ -909,6 +923,71 @@ static int launch_bls_row(u32* io, long long* cyc, int iters) {
 }
 #endif
 
+#ifdef FB_HAS_BLS_COOP
+// A row of the multi-pairing kernel's programs on a group of L lanes an op
+// (4: a quad, 2: a pair): GW ops, op j on threads [L·j, L·j + L) of the
+// block's GW·L, each over its own slots as in bls_row_bench, then the block
+// syncs. KIND 0: a product on the group (bls_mul_coop), 1: a sum or a
+// difference on the group (bls_addsub_coop), 2: a sum or a difference on
+// the group's first lane (bls_addsub), 3: a row of products and then six
+// of sums, as the kernel's loop meets them. Warp 0's lanes write their
+// cycles.
+template <int L, int GW, int KIND>
+__global__ void bls_coop_row_bench(u32* io, long long* cyc, int iters) {
+  const int t = threadIdx.x, j = t / L;
+  __shared__ uint4 s_rows[32 * 3 * 3];
+  u32* sl = reinterpret_cast<u32*>(s_rows) + j * 36;
+  if (t % L == 0) {
+    for (int i = 0; i < 12; i++) {
+      sl[i] = io[8 * j + (i & 7)] ^ (0x9e3779b9u * i);
+      sl[12 + i] = io[8 * (j + 32) + (i & 7)] ^ (0x7f4a7c15u * i);
+    }
+    sl[11] &= 0x0FFFFFFFu, sl[23] &= 0x0FFFFFFFu;
+  }
+  __syncthreads();
+  long long t0 = clock64();
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) {
+    const u32 op = __ldg(&FB_BLS_ROW_OPS[j]);
+    u32* s = reinterpret_cast<u32*>(s_rows) + op * 36;
+    if (KIND == 0) {
+      bls_mul_coop<L>(s, s, s + 12, true);
+    } else if (KIND == 3) {
+      bls_mul_coop<L>(s, s, s + 12, true);
+#pragma unroll 1
+      for (int m = 0; m < 6; m++) {
+        __syncthreads();
+        bls_addsub_coop<L>(s, s, s + 12, m & 1, true);
+      }
+    } else if (KIND == 1) {
+      bls_addsub_coop<L>(s, s, s + 12, k & 1, true);
+    } else if (t % L == 0) {
+      const uint4* q = reinterpret_cast<const uint4*>(s);
+      u32 a[12], b[12], r[12];
+      for (int h = 0; h < 3; h++) {
+        uint4 u = q[h], v = q[3 + h];
+        a[4 * h] = u.x, a[4 * h + 1] = u.y, a[4 * h + 2] = u.z, a[4 * h + 3] = u.w;
+        b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z, b[4 * h + 3] = v.w;
+      }
+      bls_addsub(r, a, b, k & 1);
+      uint4* o = reinterpret_cast<uint4*>(s);
+      for (int h = 0; h < 3; h++) o[h] = make_uint4(r[4 * h], r[4 * h + 1], r[4 * h + 2], r[4 * h + 3]);
+    }
+    __syncthreads();
+  }
+  long long t1 = clock64();
+  if (t % L == 0)
+    for (int i = 0; i < 8; i++) io[8 * j + i] = sl[i] ^ sl[i + 4];
+  if (t < 32) cyc[t] = t1 - t0;
+}
+
+template <int L, int GW, int KIND>
+static int launch_bls_coop_row(u32* io, long long* cyc, int iters) {
+  bls_coop_row_bench<L, GW, KIND><<<1, GW * L>>>(io, cyc, iters);
+  return (int)cudaDeviceSynchronize();
+}
+#endif
+
 template <int OP>
 static int launch_bls(u32* io, long long* cyc, int iters) {
   bls_field_bench<OP><<<1, 32>>>(io, cyc, iters);
@@ -1040,6 +1119,14 @@ extern "C" int field_bench_run(void* io, void* cyc, int op, int iters, const voi
     case FB_BLS_INV_DIVSTEP: return launch_bls<FB_BLS_INV_DIVSTEP>(w, c, iters);
     case FB_BLS_MUL_COLS: return launch_bls<FB_BLS_MUL_COLS>(w, c, iters);
     case FB_BLS_ADD_PAR: return launch_bls<FB_BLS_ADD_PAR>(w, c, iters);
+#endif
+#ifdef FB_HAS_BLS_COOP
+    case FB_BLS_QUAD_ROW32: return launch_bls_coop_row<4, 32, 0>(w, c, iters);
+    case FB_BLS_QUAD_ROW8: return launch_bls_coop_row<4, 8, 0>(w, c, iters);
+    case FB_BLS_PAIR_ROW32: return launch_bls_coop_row<2, 32, 0>(w, c, iters);
+    case FB_BLS_QUAD_SUM_ROW32: return launch_bls_coop_row<4, 32, 1>(w, c, iters);
+    case FB_BLS_LEAD_SUM_ROW32: return launch_bls_coop_row<4, 32, 2>(w, c, iters);
+    case FB_BLS_QUAD_MIX: return launch_bls_coop_row<4, 32, 3>(w, c, iters);
 #endif
     case 101: body_size_bench<1><<<1, 32>>>(w, c, iters); break;
     case 104: body_size_bench<4><<<1, 32>>>(w, c, iters); break;

@@ -84,7 +84,7 @@ _ENTRIES = {
     "poseidon_packed": ("poseidon", "poseidon_launch", [_P] * 5 + [_I, _I, _LL]),
     # rows, table, ok, gt (or null) pointers; lanes
     "bls12_381_pairing": ("bls12_381", "bls12_381_pairing_launch", [_P] * 4 + [_I]),
-    # rows, table, fs (scratch: the groups' f values and their counter), ok, gt (or null) pointers; pairs
+    # rows, table, fs (scratch: the groups' f values and the tree's counters), ok, gt (or null) pointers; pairs
     "bls12_381_multi_pairing": ("bls12_381", "bls12_381_multi_pairing_launch", [_P] * 5 + [_I]),
 }
 KERNELS = {kernel: entry[0] for kernel, entry in _ENTRIES.items()}
@@ -547,17 +547,18 @@ def bls12_381_multi_pairing(rows, table, gt: bool = False):
     x1, y0, y1), table [468] int32 (ops/bls12_381.py kernel_table), both on
     one CUDA device. Returns ok bool[1], ∏ e(P, Q) == 1; with `gt`, (ok, the
     product's GT element before the comparison as [1, 144] int32 words in
-    the tower's order). One launch: a warp a group of two pairs runs its
-    Miller loop, the last group to finish multiplies the groups' f values
-    and runs the final exponentiation; the f values and the groups' counter
-    go through a scratch tensor allocated here."""
+    the tower's order). One launch: a block of 128 threads (a quad of lanes
+    an Fp product) a group of two pairs runs its Miller loop, the groups'
+    f values meet by a tree of products, and the group at its root runs the
+    final exponentiation; the f values and the tree's counters go through a
+    scratch tensor allocated here."""
     dev = _cuda_device(rows, "bls12_381_multi_pairing")
     k = rows.shape[0]
     _require(rows, "rows", torch.int32, (k, BLS_PAIR_WORDS), dev)
     _require(table, "table", torch.int32, (BLS_TABLE_WORDS,), dev)
     if not k:
         raise ValueError("bls12_381_multi_pairing needs at least one pair (the empty product is 1)")
-    fs = torch.empty(((k + 1) // 2) * BLS_GT_WORDS + 1, dtype=torch.int32, device=dev)
+    fs = torch.empty(((k + 1) // 2) * (BLS_GT_WORDS + 1), dtype=torch.int32, device=dev)  # an f and a counter a group
     ok = torch.empty((1,), dtype=torch.bool, device=dev)
     out = torch.empty((1, BLS_GT_WORDS), dtype=torch.int32, device=dev) if gt else None
     _launch(

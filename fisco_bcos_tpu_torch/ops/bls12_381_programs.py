@@ -27,9 +27,10 @@ then a sync. This module writes those programs:
 The multi-pairing (``bls12_381_multi_pairing_launch``) reuses them: a group
 of two pairs runs the check's Miller loop with both G1 points from its rows
 (:data:`MP_LOADS`), a lone last pair a one-pair Miller loop
-(:data:`MILLER1_KEYS`), and the last group to finish multiplies the other
-groups' f values into its own (:data:`FMUL_KEY`) and runs the check's final
-exponentiation.
+(:data:`MILLER1_KEYS`), the groups' f values meet by a tree of products
+(:data:`FMUL_KEY`; :func:`tree_depth` of them on the critical path), and
+the group at the root runs the check's final exponentiation. Its kernel
+runs the same rows on a quad of lanes an Fp op.
 
 ``python -m fisco_bcos_tpu_torch.ops.bls12_381_programs`` writes the header;
 tests/test_torch_bls12_381.py checks that the committed header is this
@@ -757,30 +758,45 @@ def run_multi(pair_vals: list[list[int]], table_vals: list[int]) -> tuple[bool, 
     """The multi-pairing kernel over Python ints: K pairs' six Fp values
     each (Montgomery) -> (∏ e(P, Q) == 1, the GT element). Each group of two
     pairs runs the check's Miller loop, a lone last pair the one-pair loop;
-    then the last group multiplies the others' f values into its own in a
-    chain and runs the check's final exponentiation."""
+    then the groups' f values meet by the kernel's tree (a level's pairs of
+    nodes multiplied, F <- F·A, a lone last node carried up) and the root
+    runs the check's final exponentiation."""
     c = compiled()
     fs = []
     for g, n in enumerate(multi_groups(len(pair_vals))):
         slots = _load(MP_LOADS, [v for pair in pair_vals[2 * g : 2 * g + n] for v in pair], table_vals)
         _run_script(c["script"][:MILLER_LEN] if n == 2 else c["script1"], slots)
         fs.append(_register(slots, "F"))
-    for f in fs[:-1]:
-        for i, v in enumerate(f):
-            slots[PINNED[f"A_{i}"]] = v
-        run_program(c["programs"][c["fmul"]], slots)
+    while len(fs) > 1:
+        level = []
+        for left, right in zip(fs[::2], fs[1::2]):
+            for i in range(12):
+                slots[PINNED[f"F_{i}"]], slots[PINNED[f"A_{i}"]] = left[i], right[i]
+            run_program(c["programs"][c["fmul"]], slots)
+            level.append(_register(slots, "F"))
+        fs = level + fs[len(level) * 2 :]
+    for i, v in enumerate(fs[0]):
+        slots[PINNED[f"F_{i}"]] = v
     _run_script(c["script"][MILLER_LEN:], slots)
     return _gt_result(slots, table_vals)
 
 
+def tree_depth(groups: int) -> int:
+    """Products on the critical path of the kernel's tree over `groups`
+    groups: ⌈log2 groups⌉."""
+    return (groups - 1).bit_length()
+
+
 def _multi_entries(k: int) -> tuple[list, list]:
-    """A K-pair multi-pairing's program runs: (every group's, the longest
-    group's one after another), each then the chain of K/2 - 1 products and
-    the final exponentiation."""
+    """A K-pair multi-pairing's program runs: (every group's, the tree's
+    ⌈K/2⌉ - 1 products and the final exponentiation; the critical path: the
+    longest group's, the tree's depth in products, the final
+    exponentiation)."""
     c = compiled()
     groups = [c["script"][:MILLER_LEN] if n == 2 else c["script1"] for n in multi_groups(k)]
-    rest = [c["fmul"]] * (len(groups) - 1) + c["script"][MILLER_LEN:]
-    return [e for g in groups for e in g] + rest, max(groups, key=len) + rest
+    final = c["script"][MILLER_LEN:]
+    every = [e for g in groups for e in g] + [c["fmul"]] * (len(groups) - 1) + final
+    return every, max(groups, key=len) + [c["fmul"]] * tree_depth(len(groups)) + final
 
 
 def _products(entries) -> dict[str, int]:
@@ -822,7 +838,7 @@ def multi_products(k: int) -> dict[str, int]:
 
 def multi_critical_rows(k: int) -> dict[str, int]:
     """Rows of each kind on a K-pair multi-pairing's critical path: one
-    group's Miller loop (the groups run side by side), the chain of
+    group's Miller loop (the groups run side by side), the tree's depth in
     products and the final exponentiation."""
     return _rows(_multi_entries(k)[1])
 

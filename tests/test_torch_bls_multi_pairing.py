@@ -8,7 +8,7 @@ against the oracle's ``final_exponentiation(miller_loop(live))`` on an
 accepting and a rejecting fold of two aggregate checks and on the
 accepting fold with a None pair; the kernel's programs over Python
 integers and the CUDA kernel's multi-pairing built as host C++ (one, two
-and three pairs) against the oracle; the bound's least work against the
+and three pairs; its groups through the product tree) against the oracle; the bound's least work against the
 kernel's own. Every tolerance is exact. The kernel itself runs only on the
 card, through chip_smoke.py."""
 
@@ -189,18 +189,22 @@ def test_programs_over_ints_match_the_oracle(folds):
 SHIM = r"""
 #include "{src}"
 
-// a multi-pairing of n pairs, the kernel's groups one after another, the
-// last to run finishing on its slots: ok, the GT element (144 words), and
-// the Fp products (all, then squarings)
+// a multi-pairing of n pairs, the kernel's groups one after another, each
+// through its Miller phase and its climb of the product tree, the one at
+// the root finishing on its slots: ok, the GT element (144 words), and the
+// Fp products (all, then squarings)
 extern "C" void host_multi_pairing(const u32* rows, const u32* table, uint8_t* ok, u32* gt, int n,
                                    unsigned long long* counts) {{
-  static u32 sl[BLS_SLOT_WORDS];
+  static u32 sl[BLS_MP_SMEM_WORDS];
   static u32 fs[64 * BLS_GT_WORDS];
+  static unsigned cnt[64];
   bls_count_mul = bls_count_sqr = 0;
   const int groups = BLS_MP_GROUPS(n);
-  for (int g = 0; g < groups; g++)
-    bls_mp_miller(rows + (long)2 * g * BLS_PAIR_WORDS, n - 2 * g < 2 ? 1 : 2, table, sl, fs + g * BLS_GT_WORDS);
-  bls_mp_finish(fs, groups, groups - 1, sl, ok, gt);
+  for (int g = 0; g < groups; g++) cnt[g] = 0;
+  for (int g = 0; g < groups; g++) {{
+    bls_mp_miller(rows + (long)2 * g * BLS_PAIR_WORDS, n - 2 * g < 2 ? 1 : 2, table, sl);
+    if (bls_mp_tree(fs, cnt, groups, g, sl)) bls_mp_finish(sl, ok, gt);
+  }}
   counts[0] = bls_count_mul + bls_count_sqr;
   counts[1] = bls_count_sqr;
 }}
@@ -257,4 +261,4 @@ def test_bound_counts_the_least_work_for_k_pairs():
     assert chip_smoke.bls_multi_least_products(2) == chip_smoke.BLS_LEAST_PRODUCTS
     assert chip_smoke.bls_multi_least_products(65) == 298_022
     assert BP.multi_critical_rows(2) == BP.critical_rows()
-    assert BP.multi_critical_rows(65)["mul"] == BP.critical_rows()["mul"] + 32 * 2
+    assert BP.multi_critical_rows(65)["mul"] == BP.critical_rows()["mul"] + 6 * 2
