@@ -9,6 +9,25 @@ exits non-zero, printing no result, without them. In order it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every kernel from ``fisco_bcos_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together (timed);
+2b. the device observatory (``run_observatory_phase``), in two fresh
+   interpreters. With the libraries just built: ``install_observatory()``,
+   each host entry point once to load its libraries (the build ledger: one
+   ``cache_hit`` a library with its load ms, no cold build), then once more
+   on a clean ledger and trace: ``admit_batch`` at 10,240 lanes,
+   ``secp256k1.verify_batch``, ``admit_batch_sm``, ``ed25519.verify_batch``,
+   a ``merkle_root`` a hasher, a Poseidon ``hash_batch``, a BLS QC check and
+   a two-header ``multi_pairing_verify``: one ``device.<op>`` span a call
+   under its JAX op, each span's phases adding up to its wall, the
+   ``admission`` span's execute at least the recover kernel's CUDA-event
+   time (printed beside the verify span's and kernel's); 4 callers of a
+   4-lane ``batch_verify`` merged through a plane (the queue phase under the
+   plane op, the dispatch span over the ``device.secp256k1_verify`` span, a
+   wait record a caller); live and peak CUDA bytes, the plane's stats; the
+   overhead of the observatory, registry and tracer (on, off, off, on,
+   median of 5 a turn) on ``admit_batch``, a 4-message ``hash_batch`` and a
+   4-lane ``batch_verify``, and the ledger's bookkeeping µs a span. With an
+   empty build directory: one ``keccak256_batch``, one cold ledger row under
+   ``keccak256`` with nvcc's ms;
 3. secp256k1 admission: on a 10,240-lane block with invalid lanes
    mixed in, holds the recover kernel against its plain PyTorch version on
    the card, bit for bit, one lane of every distinct case against the host
@@ -4688,6 +4707,247 @@ def field_bench(card: str, libs: dict, tables: dict) -> None:
             + ", ".join(f"{lb} {cycles(lb, 100 + k, iters) / k:.1f}{body(lb)}" for lb in labels))
 
 
+# ---------------------------------------------------------------------------
+# The device observatory: spans, the build ledger, the plane's telemetry
+# ---------------------------------------------------------------------------
+
+OBS_HASHERS = ("keccak256", "sm3", "sha256", "poseidon")
+OBS_CALLERS = 4  # 4-lane batch_verify callers merged into one plane dispatch
+OBS_REPS = 5  # calls a turn of the overhead A/B, median
+
+
+def run_observatory_phase(card: str) -> None:
+    """The observatory in fresh interpreters (this process's ledger saw the
+    startup builds): ``observatory_child("warm")`` with the libraries
+    already in the build directory, then ``observatory_child("cold")`` with
+    an empty one. Each prints its own lines; a failed check exits it
+    non-zero, and that fails this script."""
+    t0 = time.perf_counter()
+    for mode in ("warm", "cold"):
+        subprocess.run(
+            [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.observatory_child({mode!r}))"],
+            cwd=Path(__file__).resolve().parent, check=True, timeout=600,
+        )
+    log(f"[{card}] observatory phase: {time.perf_counter() - t0:.1f} s in two fresh interpreters")
+
+
+def observatory_child(mode: str) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the observatory phase needs the CUDA card")
+    card = card_line()
+    (observatory_warm if mode == "warm" else observatory_cold)(card)
+    return 0
+
+
+def observatory_calls(device) -> tuple[list[tuple[str, object]], tuple]:
+    """(JAX op of its span, call) of each host entry point the phase drives
+    once: the main path at 10,240 lanes, the other entry points, a merkle
+    root a hasher, a Poseidon hash batch, a QC check and a header fold; and
+    the secp256k1 block's arrays."""
+    from fisco_bcos_tpu_torch.crypto import bls, suite
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch, admit_batch_sm
+    from fisco_bcos_tpu_torch.ops import ed25519, merkle, secp256k1
+
+    block = make_bench_block(BENCH_SIGNERS)
+    payloads, sigs65, _ = tile(block, BLOCK_TXS)
+    hashes, rs, ss, pubs, _ = verify_arrays(verify_rows_from_block(block), BLOCK_TXS)
+    sm_payloads, sigs128, _ = sm2_tile(make_sm2_bench_block(BENCH_SIGNERS), BLOCK_TXS)
+    (ed_msgs, ed_pubs, ed_sigs), _ = ed25519_tile(make_ed25519_bench_block(BENCH_SIGNERS), BLOCK_TXS)
+    headers, _ = make_header_checks(2, SEED + 20)
+    qc = bls.BLSCrypto(device)
+    poseidon = suite.Poseidon(device)
+    return [
+        ("admission", lambda: admit_batch(payloads, sigs65)),
+        ("secp256k1_verify", lambda: secp256k1.verify_batch(hashes, rs, ss, pubs)),
+        ("sm2_verify", lambda: admit_batch_sm(sm_payloads, sigs128)),
+        ("ed25519_verify", lambda: ed25519.verify_batch(ed_msgs, ed_pubs, ed_sigs)),
+        *[("merkle_root", lambda h=h: merkle.merkle_root(hashes, hasher=h)) for h in OBS_HASHERS],
+        ("poseidon", lambda: poseidon.hash_batch(payloads)),
+        ("bls_aggregate_verify", lambda: qc.aggregate_verify(*headers[0])),
+        ("bls_multi_pairing", lambda: qc.multi_pairing_verify(headers)),
+    ], (payloads, sigs65, hashes, rs, ss, pubs)
+
+
+def obs_check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"observatory: {what}")
+
+
+def observatory_warm(card: str) -> None:
+    """Warm builds: every call once to load its libraries (each a
+    ``cache_hit`` row, no cold build), then each once more on a clean
+    ledger and trace: a ``device.<op>`` span a call, phases adding up to
+    each span's wall, the ``admission`` span's execute at least the recover
+    kernel's CUDA-event time; callers merged through the plane (its queue
+    phase, the dispatch span over the ``device.<op>`` span, a wait record a
+    caller); then the overhead A/B in turns."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import suite
+    from fisco_bcos_tpu_torch.device import plane as plane_mod
+    from fisco_bcos_tpu_torch.device import resolve_device
+    from fisco_bcos_tpu_torch.observability import TRACER
+    from fisco_bcos_tpu_torch.observability import device as dev_obs
+    from fisco_bcos_tpu_torch.ops import _kernels, secp256k1
+
+    obs_check(dev_obs.install_observatory(), "install_observatory() refused")
+    device = resolve_device()
+    t0 = time.perf_counter()
+    calls, (payloads, sigs65, hashes, rs, ss, pubs) = observatory_calls(device)
+    log(f"observatory (warm builds): inputs built on the host in {time.perf_counter() - t0:.1f} s")
+    for _, fn in calls:  # warm-up: every library's first use in this process
+        fn()
+    drain_plane()
+    rows = dev_obs.LEDGER.snapshot()
+    log(f"[{card}] observatory ledger after the warm-up ({len(_kernels._LIBS)} libraries loaded): "
+        + json.dumps([{k: r[k] for k in ("op", "shape", "cold_compiles", "cache_hits", "compile_ms", "retrieval_ms")}
+                      for r in rows]))
+    obs_check(dev_obs.LEDGER.cold_compile_count() == 0, "a cold build with the libraries already built")
+    obs_check(sum(r["cache_hits"] for r in rows) == len(_kernels._LIBS) == len(_kernels.SOURCES),
+              "not one cache_hit a library loaded")
+
+    dev_obs.LEDGER.reset()
+    TRACER.clear()
+    for _, fn in calls:
+        fn()
+    drain_plane()
+    spans = TRACER.spans()
+    got = collections.Counter(s.name for s in spans if s.name.startswith("device.") and s.name.count(".") == 1)
+    want = collections.Counter(f"device.{op}" for op, _ in calls)
+    obs_check(got == want, f"spans {dict(got)} != one a call {dict(want)}")
+    timeline = dev_obs.LEDGER.dispatches(tail=4096)
+    obs_check(len(timeline) == len(calls), f"{len(timeline)} timed spans for {len(calls)} calls")
+    for op, _t0, dur, phases in timeline:
+        obs_check(abs(sum(phases.values()) - dur * 1e3) <= 0.005, f"{op}: phases {phases} != wall {dur * 1e3:.3f} ms")
+    span_ms = {op: phases for op, _t0, _dur, phases in timeline}
+    z, r, s, v = recover_inputs(payloads, sigs65, device)
+    recover_ms = cuda_ms(lambda: secp256k1.recover_device(z, r, s, v))
+    rows_t = verify_row_tensor(hashes, rs, ss, pubs, device)
+    verify_ms = cuda_ms(lambda: secp256k1.verify_device(rows_t))
+    obs_check(span_ms["admission"]["execute"] >= recover_ms,
+              f"admission execute {span_ms['admission']['execute']} ms < the recover kernel's {recover_ms:.4f}")
+    log(f"[{card}] observatory spans, one a call, phases adding up to each span's wall: "
+        + json.dumps({op: {k: round(v, 3) for k, v in ph.items() if v} for op, ph in span_ms.items()}))
+    log(f"[{card}] span execute vs the kernel's CUDA-event time @ {BLOCK_TXS} lanes: admission "
+        f"{span_ms['admission']['execute']:.3f} ms vs secp256k1_recover {recover_ms:.4f} ms; secp256k1_verify "
+        f"{span_ms['secp256k1_verify']['execute']:.3f} (transfer {span_ms['secp256k1_verify'].get('transfer', 0):.3f}) "
+        f"ms vs secp256k1_verify kernel {verify_ms:.4f} ms")
+
+    # callers merged through the plane, each under a trace of its own
+    lanes = 4
+    plane = plane_mod.DevicePlane(window_ms=60_000, high_water=lanes * OBS_CALLERS)
+    saved, plane_mod._PLANE = plane_mod._PLANE, plane
+    crypto = suite.ecdsa_suite(device).signature_impl
+    sigs = np.concatenate([rs[:lanes], ss[:lanes], np.zeros((lanes, 1), np.uint8)], axis=1)
+    TRACER.clear()
+    out = [None] * OBS_CALLERS
+
+    def caller(i):
+        with TRACER.span(f"caller{i}"):
+            out[i] = crypto.batch_verify(hashes[:lanes], pubs[:lanes], sigs)
+
+    try:
+        threads = [threading.Thread(target=caller, args=(i,)) for i in range(OBS_CALLERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        obs_check(not any(t.is_alive() for t in threads) and plane.drain(60), "the plane callers did not return")
+    finally:
+        plane_mod._PLANE = saved
+    obs_check(all(o is not None and o.all() for o in out), "a merged caller's verdicts are not all true")
+    op = f"verify.secp256k1.{device}"
+    spans = TRACER.spans()
+    dispatch = [s_ for s_ in spans if s_.name == "device.plane.dispatch"]
+    inner = [s_ for s_ in spans if s_.name == "device.secp256k1_verify"]
+    waits = [s_ for s_ in spans if s_.name == "device.plane.wait"]
+    obs_check(len(dispatch) == 1 and len(inner) == 1 and inner[0].parent_id == dispatch[0].span_id,
+              "the dispatch span is not over one device.secp256k1_verify span")
+    obs_check(len(waits) == OBS_CALLERS, f"{len(waits)} wait records for {OBS_CALLERS} callers")
+    queue_ms = dev_obs.LEDGER.phase_totals()[op].get("queue", 0.0)
+    obs_check(queue_ms > 0.0, "no queue phase under the plane op")
+    log(f"[{card}] observatory plane: {OBS_CALLERS} callers of {lanes} lanes in {plane.stats()['dispatches']} "
+        f"dispatch, queue {queue_ms:.3f} ms summed, the dispatch span over device.secp256k1_verify "
+        f"({inner[0].dur * 1e3:.3f} ms), {len(waits)} wait records; adjacency {dev_obs.LEDGER.adjacency()}")
+    log(f"[{card}] observatory memory: live {json.dumps(dev_obs.device_memory_bytes())} B, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; plane {json.dumps(dev_obs.device_doc()['plane'])}")
+    observatory_overhead(card, calls[0][1], crypto, (hashes[:lanes], pubs[:lanes], sigs), payloads[:4], device)
+
+
+def observatory_overhead(card: str, admit, crypto, verify_args, msgs, device) -> None:
+    """Median host ms of `OBS_REPS` calls each of admit_batch (10,240 lanes),
+    a 4-message Keccak256 hash_batch and a 4-lane batch_verify with the
+    observatory, registry and tracer on, off, off, on; the µs a call they
+    cost, and the ledger's own bookkeeping wall a span."""
+    from fisco_bcos_tpu_torch.crypto import suite
+    from fisco_bcos_tpu_torch.observability import TRACER, set_enabled
+    from fisco_bcos_tpu_torch.observability import device as dev_obs
+
+    keccak = suite.Keccak256(device)
+    runs = {"admit_batch": admit, "hash_batch": lambda: keccak.hash_batch(msgs),
+            "batch_verify": lambda: crypto.batch_verify(*verify_args)}
+    times: dict[str, dict[str, list[float]]] = {name: {"on": [], "off": []} for name in runs}
+    spans_on = 0
+    overhead_on = 0.0
+    try:
+        for flag in (True, False, False, True):
+            os.environ["FISCO_DEVICE_OBS"] = "1" if flag else "0"
+            set_enabled(flag)
+            before_s, before_n = dev_obs.LEDGER.overhead_seconds(), len(dev_obs.LEDGER.dispatches(tail=4096))
+            for name, fn in runs.items():
+                fn()  # warm
+                for _ in range(OBS_REPS):
+                    t0 = time.perf_counter()
+                    fn()
+                    times[name]["on" if flag else "off"].append((time.perf_counter() - t0) * 1e3)
+            if flag:
+                overhead_on += dev_obs.LEDGER.overhead_seconds() - before_s
+                spans_on += len(dev_obs.LEDGER.dispatches(tail=4096)) - before_n
+    finally:
+        os.environ.pop("FISCO_DEVICE_OBS", None)
+        set_enabled(True)
+    parts = []
+    for name, t in times.items():
+        on, off = statistics.median(t["on"]), statistics.median(t["off"])
+        parts.append(f"{name} on {on:.4f} / off {off:.4f} ms ({(on - off) * 1e3:+.1f} µs a call)")
+    log(f"[{card}] observatory overhead, median of {OBS_REPS} a turn, turns on/off/off/on: " + "; ".join(parts))
+    log(f"[{card}] observatory bookkeeping (LEDGER.overhead_seconds): {overhead_on * 1e6:.1f} µs over "
+        f"{spans_on} spans, {overhead_on * 1e6 / max(spans_on, 1):.2f} µs a span; process total "
+        f"{dev_obs.LEDGER.overhead_seconds() * 1e6:.1f} µs; trace ring holds {len(TRACER.spans())} spans")
+
+
+def observatory_cold(card: str) -> None:
+    """An empty build directory (assigned here, no knob of the package):
+    the first keccak256_batch builds its library with nvcc, and the ledger
+    holds exactly one cold row, under the span's op, with nvcc's ms."""
+    import tempfile
+
+    from fisco_bcos_tpu_torch.observability import device as dev_obs
+    from fisco_bcos_tpu_torch.ops import _kernels, keccak
+
+    with tempfile.TemporaryDirectory(prefix="obs-build-") as empty:
+        _kernels.BUILD_DIR = Path(empty)
+        obs_check(dev_obs.install_observatory(), "install_observatory() refused")
+        t0 = time.perf_counter()
+        out = keccak.keccak256_batch([b"a cold build", b"", b"x" * 300, b"y" * 136])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+
+    obs_check([bytes(d) for d in out] == [keccak256(m) for m in (b"a cold build", b"", b"x" * 300, b"y" * 136)],
+              "digests of the cold call")
+    rows = dev_obs.LEDGER.snapshot()
+    obs_check(len(rows) == 1 and rows[0]["op"] == "keccak256" and rows[0]["cold_compiles"] == 1
+              and rows[0]["cache_hits"] == 0 and rows[0]["compile_ms"] > 0.0, f"not one cold keccak256 row: {rows}")
+    phases = dev_obs.LEDGER.phase_totals()["keccak256"]
+    log(f"[{card}] observatory cold build (empty build directory): ledger {json.dumps(rows)}; "
+        f"keccak256_batch of 4 messages {wall_ms:.1f} ms, phases {json.dumps(phases)}")
+
+
 ROW_KEYS = (
     "name", "route", "source", "replaces", "launches", "max_abs_err",
     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4751,6 +5011,9 @@ def main() -> int:
             + json.dumps(_kernels.geometry(name, BLOCK_TXS)))
         if len(sizes) > 1:
             log(f"  {name}: SASS instructions a kernel {json.dumps(sizes)}")
+
+    # -- the device observatory, in fresh interpreters over the libraries just built --
+    run_observatory_phase(card)
 
     device = resolve_device()
     t0 = time.perf_counter()

@@ -27,7 +27,12 @@ lower a validity bit.
 Both entry points ride the DevicePlane (``admission.<device>``,
 ``admission_sm.<device>``): concurrent callers' transactions merge into one
 run of the body, sliced back a caller; ``FISCO_DEVICE_PLANE=0`` runs the
-same body on the caller's thread.
+same body on the caller's thread. The body, on whichever thread runs it,
+is one device span after its host half: ``admission`` keyed as the JAX
+span is, (bucketed batch, bucketed keccak block count); and for the SM
+suite, whose three JAX calls (``sm3`` tx hashes, ``sm2_verify``, ``sm3``
+senders) run here as one fused body, one ``sm2_verify`` span, the op of
+the signature work.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..device import resolve_device
 from ..ops import keccak, secp256k1, sm2, sm3
 from ..ops.address import sender_address_device, sm3_sender_address_device
 from ..ops.bigint import bytes_be_to_limbs
+from ..observability.device import device_span
 from ..ops.hash_common import bucket_batch, pack_messages, pad_rows
 from .suite import _routed
 
@@ -99,8 +105,13 @@ def admit_batch(
 
 def _admit_direct(payloads, sigs65, dev):
     host = host_inputs(payloads, sigs65)
-    packed = _admission_packed(*(torch.from_numpy(a).to(dev) for a in host))
-    return _unpack(packed, len(payloads))
+    # the JAX span's key, from the shape pad_keccak gives the same payloads:
+    # (bucketed batch, bucketed block count of the longest lane)
+    lengths = host[2]
+    key = (len(lengths), bucket_batch(int(lengths.max()) // keccak.RATE_BYTES + 1))
+    with device_span("admission", len(payloads), shape_key=key):
+        packed = _admission_packed(*(torch.from_numpy(a).to(dev) for a in host))
+        return _unpack(packed, len(payloads))
 
 
 def _packed_payloads(payloads, lanes: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -181,10 +192,12 @@ def admit_batch_sm(
 
 def _admit_sm_direct(payloads, sigs128, dev):
     host = host_inputs_sm(payloads, sigs128)
-    packed = pack_admission_device(
-        *admission_sm_core(*(torch.from_numpy(a).to(dev) for a in host))
-    )
-    return _unpack(packed, len(payloads))
+    n = len(payloads)
+    with device_span("sm2_verify", n, shape_key=bucket_batch(n)) as sp:
+        with sp.phase("transfer"):  # host->card copies of the operands
+            tensors = [torch.from_numpy(a).to(dev) for a in host]
+        packed = pack_admission_device(*admission_sm_core(*tensors))
+        return _unpack(packed, n)
 
 
 def host_inputs_sm(payloads, sigs128) -> tuple[np.ndarray, ...]:

@@ -25,6 +25,11 @@ scalars, the pairs' order), and runs it as one
 JAX class does not route it through the plane either); the scalar
 multiplications and hash-to-G2 stay on the host, as in the JAX class.
 
+Both device calls run under the JAX class's device spans, after the host
+work the JAX class also does before them: ``bls_aggregate_verify`` keyed
+by the checks' batch bucket, ``bls_multi_pairing`` by the pairs' power-of-
+two pad (``multi_pairing_pad``).
+
 Key model: BLS keypairs are derived (secret scalar mod r) from the node's
 consensus secret, and the committee's BLS keys are registered in the
 consensus-node table, which is the proof-of-possession boundary that makes
@@ -40,7 +45,9 @@ from functools import lru_cache
 import numpy as np
 
 from ..device import resolve_device
+from ..observability.device import device_span
 from ..ops import bls12_381 as bls_ops
+from ..ops.hash_common import bucket_batch
 from .ref import bls12_381 as ref
 from .suite import CryptoSuite, Keccak256, KeyPair, SignatureCrypto, _routed
 
@@ -189,9 +196,11 @@ class BLSCrypto(SignatureCrypto):
             sig = _g2_point(agg)
             hm = bls_ops.hash_to_g2(msg) if apk is not None and sig is not None else None
             triples.append((apk, sig, hm))
-        if all(hm is None for _, _, hm in triples):
-            return np.zeros(len(triples), dtype=bool)
-        return bls_ops.pairing_check_batch(triples, device=dev)
+        n = len(triples)
+        with device_span("bls_aggregate_verify", n, shape_key=bucket_batch(max(n, 1))):
+            if all(hm is None for _, _, hm in triples):
+                return np.zeros(n, dtype=bool)
+            return bls_ops.pairing_check_batch(triples, device=dev)
 
     # -- header sync (the multi-pairing) -------------------------------------
 
@@ -208,7 +217,11 @@ class BLSCrypto(SignatureCrypto):
         if not checks:
             return True
         pairs = multi_pairing_pairs(checks)
-        return pairs is not None and bls_ops.multi_pairing_check(pairs, device=dev)
+        if pairs is None:
+            return False
+        n = len(pairs)
+        with device_span("bls_multi_pairing", n, shape_key=bls_ops.multi_pairing_pad(n)):
+            return bls_ops.multi_pairing_check(pairs, device=dev)
 
 
 def bls_suite(device=None) -> CryptoSuite:

@@ -22,6 +22,9 @@ request. ``FISCO_DEVICE_PLANE=0`` calls the same direct body on the
 caller's thread, so the two modes give the same bytes. ``merkle_tree``
 rides the plane a tree a request; ``merkle_root_async`` and Ed25519's
 ``batch_recover`` (which calls ``batch_verify``) stay direct, as in JAX.
+Each direct body runs under the JAX suite's device span (the hash's name
+for a hash or address batch, ``merkle_tree`` a tree; the signature calls
+through the ops entry points' spans), on the thread that launches.
 
 Single-item calls (``hash``, ``generate_keypair``, ``sign``, ``verify``,
 ``recover``, ``calculate_address``) run on the host through the port's
@@ -45,6 +48,7 @@ import torch
 
 from ..device import resolve_device
 from ..device.plane import get_plane, plane_route, plane_wait, plane_wait_deferred
+from ..observability.device import device_span
 from ..ops import ed25519 as ed_ops
 from ..ops import keccak as keccak_ops
 from ..ops import poseidon as poseidon_ops
@@ -55,7 +59,7 @@ from ..ops import sm2 as sm2_ops
 from ..ops import sm3 as sm3_ops
 from ..ops.address import sender_address_device, sm3_sender_address_device
 from ..ops.bigint import limb_tensor
-from ..ops.hash_common import rows_as_packed
+from ..ops.hash_common import bucket_batch, rows_as_packed
 from ..ops.merkle import hasher_fns
 from .ref import ecdsa as ref_ecdsa
 from .ref import ed25519 as ref_ed25519
@@ -111,14 +115,17 @@ def _routed(op: str, payload: tuple, n: int, body):
     return body(*payload)
 
 
-def _hash_plane_exec(batch_async_direct):
+def _hash_plane_exec(name: str, batch_async_direct):
     """The executor of a hash op (JAX ``_hash_plane_exec``): every queued
-    request's messages in one launch, dispatched without a download, and a
-    resolver a request that downloads the merged digests once (whichever
-    caller resolves first) and takes its slice."""
+    request's messages in one launch, dispatched without a download under
+    one `name` span (the dispatch only: the download is the caller's wait),
+    and a resolver a request that downloads the merged digests once
+    (whichever caller resolves first) and takes its slice."""
 
     def run(reqs):
-        resolve = batch_async_direct([m for r in reqs for m in r.payload])
+        msgs = [m for r in reqs for m in r.payload]
+        with device_span(name, len(msgs), shape_key=bucket_batch(max(len(msgs), 1))):
+            resolve = batch_async_direct(msgs)
         memo: list = []
         lock = threading.Lock()
 
@@ -159,8 +166,15 @@ class HashImpl:
         return hasher_fns(self.name)[1](data)
 
     def hash_batch(self, msgs, device=None) -> np.ndarray:
-        """list[bytes] -> [B, 32] uint8 digests, one kernel launch."""
-        return self.hash_batch_async(msgs, device)()
+        """list[bytes] -> [B, 32] uint8 digests, one kernel launch. Direct
+        (plane off, or no messages), one span of the hash's name covers the
+        launch and the download, as the JAX ``_batch_direct`` does."""
+        msgs = list(msgs)
+        dev = self._device(device)
+        if plane_route() and msgs:
+            return self.hash_batch_async(msgs, dev)()
+        with device_span(self.name, len(msgs)):
+            return self._batch_async_direct(msgs, dev)()
 
     def hash_batch_async(self, msgs, device=None):
         """Dispatch the batch, defer the download: () -> [B, 32] uint8.
@@ -170,7 +184,7 @@ class HashImpl:
         if plane_route() and msgs:
             fut = get_plane().submit(
                 f"hash.{self.name}.{dev}", msgs, len(msgs),
-                _hash_plane_exec(lambda m: self._batch_async_direct(m, dev)),
+                _hash_plane_exec(self.name, lambda m: self._batch_async_direct(m, dev)),
             )
             return lambda: plane_wait_deferred(fut)
         return self._batch_async_direct(msgs, dev)
@@ -188,7 +202,13 @@ class HashImpl:
             raise ValueError(f"public keys must be [B, 64] uint8, got {pubs.shape}")
         if not len(pubs):
             return np.zeros((0, 20), dtype=np.uint8)
-        return _routed(f"address.{self.name}.{dev}", (pubs,), len(pubs), lambda p: self._address_direct(p, dev))
+        return _routed(f"address.{self.name}.{dev}", (pubs,), len(pubs), lambda p: self._address_spanned(p, dev))
+
+    def _address_spanned(self, pubs: np.ndarray, dev: torch.device) -> np.ndarray:
+        """:meth:`_address_direct` under the span the JAX suite's address
+        batch gives it: its hash's, over the keys as messages."""
+        with device_span(self.name, len(pubs)):
+            return self._address_direct(pubs, dev)
 
     def _address_direct(self, pubs: np.ndarray, dev: torch.device) -> np.ndarray:
         """One launch of the hash kernel's sender form, which builds each
@@ -578,6 +598,14 @@ class CryptoSuite:
             return plane_wait(get_plane().submit(
                 f"merkle_tree.{hasher}.{dev}", (leaves, ready), len(leaves), _merkle_tree_plane_exec(hasher, dev)
             ))
+        return _merkle_tree_spanned(leaves, hasher, dev)
+
+
+def _merkle_tree_spanned(leaves, hasher: str, dev: torch.device) -> merkle_ops.MerkleTree:
+    """One tree under the JAX suite's ``merkle_tree`` span, keyed by its
+    hasher and leaf bucket."""
+    n = len(leaves)
+    with device_span("merkle_tree", n, shape_key=(hasher, merkle_ops.bucket_leaves(max(n, 1)))):
         return merkle_ops.MerkleTree(leaves, hasher=hasher, device=dev)
 
 
@@ -592,7 +620,7 @@ def _merkle_tree_plane_exec(hasher: str, dev: torch.device):
             leaves, ready = r.payload
             if ready is not None:
                 torch.cuda.current_stream(dev).wait_event(ready)
-            out.append(merkle_ops.MerkleTree(leaves, hasher=hasher, device=dev))
+            out.append(_merkle_tree_spanned(leaves, hasher, dev))
         return out
 
     return run

@@ -39,8 +39,20 @@ merged-batch body as the direct path, so the two give the same bytes. The
 plane adds no fallback: an executor's exception reaches every future of its
 dispatch.
 
-The counters are the plain attributes :meth:`DevicePlane.stats` reads; the
-JAX plane's spans and metrics wait for the device observatory (ROADMAP A8).
+Telemetry, as the JAX plane's: each submit counts
+``fisco_device_plane_requests_total{op,lane}`` and keeps the caller's trace
+context; each dispatch is a ``device.plane.dispatch`` span, parented to the
+first sampled caller and linked to all of them, with the executor's
+``device.<op>`` spans nested under it on the worker, and each sampled
+caller gets a ``device.plane.wait`` record naming the dispatch's span. The
+device observatory's ledger takes the dispatch's ``queue`` phase under the
+plane op, its adjacency edge and its bookkeeping wall; the registry the
+wait, phase, dispatch, coalesced, batch-items and occupancy metrics. The
+process-wide plane registers the ``fisco_device_plane_queue_depth`` gauge.
+The JAX plane's deferred counter counts the group-fair selection, which no
+caller of the port reaches, and its pipeline-stage busy and blocked
+accounting waits for the pipeline observatory, which the port does not
+have.
 """
 
 from __future__ import annotations
@@ -55,6 +67,13 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+
+from ..observability import BATCH_BUCKETS
+from ..observability import tracer as _tracer
+from ..observability.device import DEVICE_PHASE_BUCKETS_MS, LEDGER, device_obs_enabled
+from ..ops.hash_common import bucket_batch
+from ..utils import env_float
+from ..utils import metrics as _metrics
 
 # dispatch priority a lane, lower first: consensus is on the block time's
 # critical path, admission feeds the next proposal, sync is gossip and proof
@@ -73,14 +92,10 @@ CUDA_WINDOW_MS = 0.0
 
 _tls = threading.local()
 
-
-def _env_float(name: str, default: float) -> float:
-    """A float knob from the environment; unset, empty or malformed give
-    `default`."""
-    try:
-        return float(os.environ.get(name, "") or default)
-    except ValueError:
-        return default
+# wait-time buckets: a window is ~0-2 ms, starvation trips at ~50 ms, and
+# anything past a few hundred ms means the plane is the bottleneck
+WAIT_BUCKETS_MS = (1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0)
+OCCUPANCY_BUCKETS = (0.25, 0.5, 0.75, 0.9, 1.0)
 
 
 def plane_enabled() -> bool:
@@ -136,7 +151,8 @@ def device_lane(name: str):
 @dataclass
 class PlaneRequest:
     """One queued batch: op name, op-specific payload, item count, lane,
-    enqueue time, its future and its tenant group."""
+    enqueue time, its future, the submitting caller's trace context (the
+    dispatch span links back to it) and its tenant group."""
 
     op: str
     payload: object
@@ -144,6 +160,7 @@ class PlaneRequest:
     lane: str
     t_enq: float
     future: Future
+    ctx: object = None
     group: str = ""
 
 
@@ -165,19 +182,19 @@ class DevicePlane:
         if window_ms is not None:
             self.window_ms = float(window_ms)
         elif os.environ.get("FISCO_DEVICE_WINDOW_MS"):
-            self.window_ms = _env_float("FISCO_DEVICE_WINDOW_MS", CUDA_WINDOW_MS)
+            self.window_ms = env_float("FISCO_DEVICE_WINDOW_MS", CUDA_WINDOW_MS)
         else:
             self.window_ms = self._default_window_ms()
         self.high_water = (
-            int(_env_float("FISCO_DEVICE_HIGH_WATER", 4096.0)) if high_water is None else int(high_water)
+            int(env_float("FISCO_DEVICE_HIGH_WATER", 4096.0)) if high_water is None else int(high_water)
         )
         self.starvation_ms = (
-            _env_float("FISCO_DEVICE_STARVATION_MS", 50.0) if starvation_ms is None else float(starvation_ms)
+            env_float("FISCO_DEVICE_STARVATION_MS", 50.0) if starvation_ms is None else float(starvation_ms)
         )
         # group-fair selection: items each group earns a DRR round, scaled by
         # its weight (FISCO_DEVICE_GROUP_WEIGHTS="g0=2,g1=1"); deficits persist
         # while a group has backlog and reset when it drains
-        self.group_quantum = max(1, int(_env_float("FISCO_DEVICE_GROUP_QUANTUM", 256.0)))
+        self.group_quantum = max(1, int(env_float("FISCO_DEVICE_GROUP_QUANTUM", 256.0)))
         self.group_weights: dict[str, float] = {}
         for part in os.environ.get("FISCO_DEVICE_GROUP_WEIGHTS", "").split(","):
             name, _, w = part.strip().partition("=")
@@ -213,7 +230,11 @@ class DevicePlane:
     def submit(self, op: str, payload, n: int, exec_fn: Callable) -> Future:
         """Queue one batch under `op`; returns a Future of the executor's
         result for it. The caller's lane and group are taken here."""
-        req = PlaneRequest(op, payload, int(n), current_lane(), time.perf_counter(), Future(), current_group())
+        tracer = _tracer.TRACER
+        req = PlaneRequest(
+            op, payload, int(n), current_lane(), time.perf_counter(), Future(),
+            ctx=tracer.current_context() if tracer.enabled else None, group=current_group(),
+        )
         with self._cv:
             self._exec_fns.setdefault(op, exec_fn)
             self._pending.setdefault(op, []).append(req)
@@ -222,6 +243,11 @@ class DevicePlane:
             if self._autostart:
                 self._ensure_thread_locked()
             self._cv.notify_all()
+        _metrics.REGISTRY.counter_add(
+            f'fisco_device_plane_requests_total{{op="{op}",lane="{req.lane}"}}',
+            1.0,
+            help="batches submitted to the device plane by op and lane",
+        )
         return req.future
 
     # -- scheduler -----------------------------------------------------------
@@ -348,12 +374,26 @@ class DevicePlane:
         # once popped, the requests' futures live only here: every failure
         # must resolve them, or a caller blocked in result() waits forever
         try:
-            self._record_dispatch(reqs)
-            _tls.in_exec = True
-            try:
-                results = self._exec_fns[op](reqs)
-            finally:
-                _tls.in_exec = False
+            # the merged-batch span: parented to the first sampled caller,
+            # linked to every sampled caller it merged; entered on this
+            # thread, it hands its context to the executor, whose
+            # device.<op> spans nest under it
+            ctxs = [r.ctx for r in reqs if r.ctx is not None and r.ctx.sampled]
+            span = _tracer.TRACER.span(
+                "device.plane.dispatch",
+                parent=ctxs[0] if ctxs else None,
+                links=ctxs,
+                op=op,
+                requests=len(reqs),
+                items=sum(r.n for r in reqs),
+            )
+            with span:
+                self._record_dispatch(op, reqs, getattr(span, "ctx", None))
+                _tls.in_exec = True
+                try:
+                    results = self._exec_fns[op](reqs)
+                finally:
+                    _tls.in_exec = False
             if len(results) != len(reqs):
                 raise RuntimeError(f"plane executor for {op} returned {len(results)} results for {len(reqs)} requests")
             for r, res in zip(reqs, results):
@@ -363,16 +403,94 @@ class DevicePlane:
                 if not r.future.done():
                     r.future.set_exception(e)
 
-    def _record_dispatch(self, reqs: list[PlaneRequest]) -> None:
+    def _record_dispatch(self, op: str, reqs: list[PlaneRequest], batch_ctx=None) -> None:
         now = time.perf_counter()
+        total = sum(r.n for r in reqs)
         with self._cv:
             self.dispatches += 1
             if len(reqs) > 1:
                 self.merged_requests += len(reqs)
             for r in reqs:
                 self._wait_ms.append((now - r.t_enq) * 1e3)
+        if batch_ctx is not None:
+            # each sampled caller's trace gets its queue wait, naming the
+            # dispatch's span (the fan-in edge, readable from either end)
+            for r in reqs:
+                if r.ctx is not None and r.ctx.sampled:
+                    _tracer.TRACER.record(
+                        "device.plane.wait",
+                        t0=r.t_enq,
+                        dur=now - r.t_enq,
+                        parent_ctx=r.ctx,
+                        op=op,
+                        lane=r.lane,
+                        batch_span=f"{batch_ctx.span_id:016x}",
+                    )
+        # the ledger rides FISCO_DEVICE_OBS alone (it keeps working with the
+        # registry off): the queue segment under the plane's op, the
+        # dispatch edge, the bookkeeping wall
+        obs = device_obs_enabled()
+        if obs:
+            t_obs = time.perf_counter()
+            LEDGER.note_phases(op, {"queue": sum((now - r.t_enq) * 1e3 for r in reqs)})
+            LEDGER.note_adjacency(op)
+            LEDGER.add_overhead(time.perf_counter() - t_obs)
+        reg = _metrics.REGISTRY
+        if not reg.enabled:
+            return
+        for r in reqs:
+            wait_ms = (now - r.t_enq) * 1e3
+            reg.observe(
+                "fisco_device_plane_wait_ms",
+                wait_ms,
+                buckets=WAIT_BUCKETS_MS,
+                help="queue wait from submit to dispatch, per lane",
+                lane=r.lane,
+            )
+            if obs:
+                reg.observe(
+                    "fisco_device_phase_ms",
+                    wait_ms,
+                    buckets=DEVICE_PHASE_BUCKETS_MS,
+                    help="device-plane time attribution per op: "
+                    "queue / compile / transfer / execute segments",
+                    op=op,
+                    phase="queue",
+                )
+        reg.counter_add(
+            f'fisco_device_plane_dispatch_total{{op="{op}"}}',
+            1.0,
+            help="merged device dispatches by op (requests/dispatches = "
+            "coalesce ratio)",
+        )
+        if len(reqs) > 1:
+            reg.counter_add(
+                f'fisco_device_plane_coalesced_total{{op="{op}"}}',
+                float(len(reqs)),
+                help="requests that shared a merged dispatch with others",
+            )
+        reg.observe(
+            "fisco_device_plane_batch_items",
+            total,
+            buckets=BATCH_BUCKETS,
+            help="merged batch sizes dispatched by the plane",
+            op=op,
+        )
+        bucket = bucket_batch(max(total, 1))
+        reg.observe(
+            "fisco_device_plane_bucket_occupancy",
+            total / bucket if bucket else 0.0,
+            buckets=OCCUPANCY_BUCKETS,
+            help="real rows / bucket-padded rows per dispatch (batch dim"
+            " only; pad waste = 1 - occupancy)",
+            op=op,
+        )
 
     # -- introspection -------------------------------------------------------
+
+    def _depth(self) -> int:
+        with self._cv:
+            return sum(sum(r.n for r in reqs) for reqs in self._pending.values())
 
     def lane_depths(self) -> dict[str, int]:
         """Queued items by priority lane."""
@@ -404,7 +522,7 @@ class DevicePlane:
                 "dispatches": self.dispatches,
                 "merged_requests": self.merged_requests,
                 "items": self.items,
-                "queue_depth": sum(sum(r.n for r in reqs) for reqs in self._pending.values()),
+                "queue_depth": self._depth(),
             }
 
     def drain(self, timeout: float = 60.0) -> bool:
@@ -418,6 +536,17 @@ class DevicePlane:
                     return False
                 self._cv.wait(min(remaining, 0.05))
         return True
+
+    def _register_gauges(self) -> None:
+        """Register the queue-depth gauge. For the process-wide plane only
+        (get_plane): the registry holds the closure and the last
+        registration wins, so a throwaway instance would take the metric
+        over and stay alive."""
+        _metrics.REGISTRY.gauge_fn(
+            "fisco_device_plane_queue_depth",
+            lambda: float(self._depth()),
+            help="items currently queued in the device plane",
+        )
 
 
 def plane_wait(fut: Future):
@@ -443,4 +572,5 @@ def get_plane() -> DevicePlane:
         with _PLANE_LOCK:
             if _PLANE is None:
                 _PLANE = DevicePlane()
+                _PLANE._register_gauges()
     return _PLANE

@@ -146,11 +146,12 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> dict:
     """Compile kernel `name` unless its library is already built. Returns
-    {"seconds", "log"}: nvcc's wall time and output (ptxas -v included),
-    0.0 and "" when there was nothing to build."""
+    {"seconds", "log", "cached"}: nvcc's wall time and output (ptxas -v
+    included), or 0.0, "" and True when the library was already in
+    BUILD_DIR."""
     out = library_path(name)
     if out.exists():
-        return {"seconds": 0.0, "log": ""}
+        return {"seconds": 0.0, "log": "", "cached": True}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # renamed into place when whole; named by process and thread, so two
     # threads building one library never write one file
@@ -164,7 +165,7 @@ def build(name: str) -> dict:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name} (rc={proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
-    return {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+    return {"seconds": time.perf_counter() - t0, "log": proc.stdout, "cached": False}
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -172,17 +173,35 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # caller on the direct path may reach one library's first use together
 _LIBS_LOCK = threading.Lock()
 
+# Callables (name, seconds or None) told of each library's first use in the
+# process, on the thread that uses it, in the order of the JAX package's
+# compile monitoring: the verdict event "cache_miss" (nvcc ran) or
+# "cache_hit" (the library was in BUILD_DIR), then the durations
+# "retrieval" (the load and the binding of its entry points) and
+# "backend_compile" (nvcc's wall, 0.0 on a hit). The device observatory's
+# install_build_hooks appends its listener; nothing here imports it.
+BUILD_LISTENERS: list = []
+
+
+def _tell_listeners(built: dict, load_s: float) -> None:
+    for listener in list(BUILD_LISTENERS):
+        listener("cache_hit" if built.get("cached") else "cache_miss")
+        listener("retrieval", load_s)
+        listener("backend_compile", float(built["seconds"]))
+
 
 def _library(name: str) -> ctypes.CDLL:
     """Library `name`, built and loaded at its first use (once, whichever
-    threads ask), its entry points' argtypes bound."""
+    threads ask), its entry points' argtypes bound; the build listeners are
+    told of it."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     with _LIBS_LOCK:
         if name in _LIBS:
             return _LIBS[name]
-        build(name)
+        built = build(name)
+        t_load = time.perf_counter()
         lib = ctypes.CDLL(str(library_path(name)))
         lib.fisco_cuda_error_string.argtypes = [ctypes.c_int]
         lib.fisco_cuda_error_string.restype = ctypes.c_char_p
@@ -191,6 +210,7 @@ def _library(name: str) -> ctypes.CDLL:
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+        _tell_listeners(built, time.perf_counter() - t_load)
         _LIBS[name] = lib
         return lib
 

@@ -52,13 +52,18 @@ def bytes_be_to_limbs(data: np.ndarray) -> np.ndarray:
     return be16[..., ::-1].copy()
 
 
-def limb_tensor(data: np.ndarray, rows: int, device) -> torch.Tensor:
-    """[B, 32] big-endian byte rows -> [rows, 16] int32 limb tensor on
-    `device`, zero rows padding the batch to its bucket."""
+def limb_rows(data: np.ndarray, rows: int) -> np.ndarray:
+    """[B, 32] big-endian byte rows -> [rows, 16] int32 limbs, zero rows
+    padding the batch to its bucket."""
     limbs = bytes_be_to_limbs(np.asarray(data, dtype=np.uint8).reshape(-1, 32))
     padded = np.zeros((rows, LIMBS), dtype=np.int32)
     padded[: len(limbs)] = limbs
-    return torch.from_numpy(padded).to(device)
+    return padded
+
+
+def limb_tensor(data: np.ndarray, rows: int, device) -> torch.Tensor:
+    """:func:`limb_rows` as a tensor on `device`."""
+    return torch.from_numpy(limb_rows(data, rows)).to(device)
 
 
 def limbs_to_bytes_be(limbs: np.ndarray) -> np.ndarray:

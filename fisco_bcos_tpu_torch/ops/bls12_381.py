@@ -853,6 +853,17 @@ def multi_pairing_rows_from_jax(arrays, valid) -> np.ndarray:
     return rows_from_jax(arrays)[np.asarray(valid, dtype=bool)]
 
 
+def multi_pairing_pad(n: int) -> int:
+    """The lane count the JAX multi-pairing program pads an n-pair product
+    to: the next power of two, at least 1. The port pads nothing; its
+    device span keys the multi-pairing by this number, as the JAX one
+    does."""
+    b = 1
+    while b < max(n, 1):
+        b *= 2
+    return b
+
+
 def multi_pairing_check(pairs, device=None) -> bool:
     """True iff ∏ e(P_k, Q_k) == 1 over (G1, G2) affine oracle point pairs,
     a pair with a None member the identity. Runs on the CUDA card unless

@@ -50,6 +50,7 @@ from .limb import FoldField, const_col, cond_sub, eq, int_to_rows, is_zero, lt, 
 from .. import params
 from ..crypto.ref import ed25519 as ref
 from ..device import resolve_device
+from ..observability.device import device_span
 
 P = ref.P  # 2^255 - 19
 L = ref.L
@@ -503,6 +504,9 @@ def verify_batch(msgs, pubs, sigs, device=None) -> np.ndarray:
     """Host API: per-lane bytes (message, 32-byte key, 64-byte R ‖ S) ->
     bool[B]. Runs on the CUDA card unless ``device`` names another:
     :func:`challenge_rows` (one upload, the challenge kernel), the verify
-    kernel, one download of the verdicts."""
-    ok = verify_device(challenge_rows(msgs, pubs, sigs, device))
-    return ok.cpu().numpy()[: len(msgs)]
+    kernel, one download of the verdicts, under one ``ed25519_verify`` span
+    (the JAX span covers its one device program; the challenges it hashes
+    on the host before the span are here a kernel, inside it)."""
+    with device_span("ed25519_verify", len(msgs)):
+        ok = verify_device(challenge_rows(msgs, pubs, sigs, device))
+        return ok.cpu().numpy()[: len(msgs)]

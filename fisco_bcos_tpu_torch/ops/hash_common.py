@@ -43,6 +43,23 @@ def _bucket(n: int) -> int:
 bucket_batch = _bucket  # shared by the EC host wrappers
 
 
+def bucket_ladder(max_n: int) -> list[int]:
+    """Every bucket :func:`_bucket` can produce for batches up to ``max_n``:
+    the most distinct batch shapes a flood of sizes ≤ max_n can launch per
+    op, which the device observatory's storm bound counts. Honors
+    FISCO_TEST_BUCKET quantization like _bucket itself."""
+    max_n = max(int(max_n), 1)
+    ladder: list[int] = []
+    n = 1
+    while True:
+        b = _bucket(n)
+        if not ladder or b != ladder[-1]:
+            ladder.append(b)
+        if b >= max_n:
+            return ladder
+        n = b + 1
+
+
 def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
     """Zero-pad a batch array along axis 0 to `rows` (bucketed batch sizes)."""
     if a.shape[0] == rows:

@@ -27,8 +27,9 @@ import torch
 
 from . import _kernels
 from ..device import resolve_device
+from ..observability.device import device_span
 from .bigint import bytes_be_to_limbs_device
-from .hash_common import digest_bytes, download_later, gather_padded, upload_packed
+from .hash_common import bucket_batch, digest_bytes, download_later, gather_padded, upload_packed
 
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -164,8 +165,10 @@ def keccak256_tx_hash(data, starts, lengths) -> tuple[torch.Tensor, torch.Tensor
 
 def keccak256_batch(msgs, device=None) -> np.ndarray:
     """Host convenience: list of bytes -> [B, 32] uint8 digests. Runs on the
-    CUDA card unless ``device`` names another."""
-    return keccak256_batch_async(msgs, device)()
+    CUDA card unless ``device`` names another; one ``keccak256`` span."""
+    n = len(msgs)
+    with device_span("keccak256", n, shape_key=bucket_batch(n)):
+        return keccak256_batch_async(msgs, device)()
 
 
 def keccak256_batch_async(msgs, device=None):

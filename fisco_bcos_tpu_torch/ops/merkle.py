@@ -29,6 +29,7 @@ from ..crypto.ref.poseidon import poseidon_hash as ref_poseidon
 from ..crypto.ref.sha2 import sha256 as ref_sha256
 from ..crypto.ref.sm3 import sm3 as ref_sm3
 from ..device import resolve_device
+from ..observability.device import device_span
 from .keccak import keccak256_packed
 from .poseidon import poseidon_packed
 from .sha256 import sha256_packed
@@ -204,9 +205,14 @@ def merkle_root_async(leaves, width: int = 16, hasher: str = "keccak256", device
     """Dispatch every level of the tree, defer the sync: returns a resolver
     () -> root bytes, which copies the 32-byte padded root to the host once.
     `leaves` may already lie on the card (the tx hashes from the hash
-    kernel, say). Runs on the CUDA card unless ``device`` names another."""
-    padded, n = _padded_leaves(leaves, width, device)
-    top = _device_levels(padded, width, hasher)[-1]
+    kernel, say). Runs on the CUDA card unless ``device`` names another.
+    One ``merkle_root`` span covers the dispatch (the JAX span's place,
+    so ``merkle_root`` and the suites' sealing calls are both counted); the
+    resolver's copy is the caller's wait."""
+    n = len(leaves)
+    with device_span("merkle_root", n, shape_key=(hasher, width, bucket_leaves(max(n, 1)))):
+        padded, n = _padded_leaves(leaves, width, device)
+        top = _device_levels(padded, width, hasher)[-1]
     return lambda: bind_root(bytes(top[0].cpu().numpy()), n, hasher)
 
 

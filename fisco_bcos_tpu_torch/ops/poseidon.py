@@ -34,7 +34,8 @@ import torch.nn.functional as F_nn
 from . import _kernels
 from ..crypto.ref import poseidon as ref
 from ..device import resolve_device
-from .hash_common import download_later, gather_padded, upload_packed
+from ..observability.device import device_span
+from .hash_common import bucket_batch, download_later, gather_padded, upload_packed
 from .limb import LIMBS, MontField
 
 FR = ref.FR
@@ -341,8 +342,10 @@ def poseidon_packed(data, starts, lengths) -> torch.Tensor:
 
 def poseidon_batch(msgs, device=None) -> np.ndarray:
     """Host convenience: list of bytes -> [B, 32] uint8 digests. Runs on the
-    CUDA card unless ``device`` names another."""
-    return poseidon_batch_async(msgs, device)()
+    CUDA card unless ``device`` names another; one ``poseidon`` span."""
+    n = len(msgs)
+    with device_span("poseidon", n, shape_key=bucket_batch(n)):
+        return poseidon_batch_async(msgs, device)()
 
 
 def poseidon_batch_async(msgs, device=None):

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .bigint import limb_tensor, limbs_to_bytes_be
+from .bigint import limb_rows, limbs_to_bytes_be
 from .ec import (
     CurveOps,
     glv_decompose,
@@ -43,6 +43,7 @@ from .ec import (
 from .hash_common import bucket_batch, pad_rows
 from .limb import add_widen, eq, is_zero, lt, select
 from ..device import resolve_device
+from ..observability.device import device_span
 from .. import params
 from ..params import default_tables
 
@@ -234,30 +235,38 @@ def verify_batch(
     """Host API: [B,32] hash, [B,32] r, [B,32] s, [B,64] uncompressed pubkey
     (all uint8 big-endian) -> bool[B]. Runs on the CUDA card unless
     ``device`` names another: one upload of the padded rows, one download
-    of the verdicts."""
+    of the verdicts, under one ``secp256k1_verify`` span."""
     dev = resolve_device(device)
     bsz = len(msg_hashes)
-    rows = verify_rows(msg_hashes, rs, ss, pubkeys, bucket_batch(bsz))
-    ok = verify_device(torch.from_numpy(rows).to(dev))
-    return ok.cpu().numpy()[:bsz]
+    bb = bucket_batch(bsz)
+    with device_span("secp256k1_verify", bsz, shape_key=bb) as sp:
+        rows = verify_rows(msg_hashes, rs, ss, pubkeys, bb)
+        with sp.phase("transfer"):  # host->card copy of the operands
+            rows_t = torch.from_numpy(rows).to(dev)
+        ok = verify_device(rows_t)
+        return ok.cpu().numpy()[:bsz]
 
 
 def recover_batch(
     msg_hashes: np.ndarray, sigs65: np.ndarray, device=None
 ) -> tuple[np.ndarray, np.ndarray]:
     """Host API: [B,32] hash + [B,65] r‖s‖v signatures (uint8) ->
-    (pubkeys [B,64] uint8, ok bool[B])."""
+    (pubkeys [B,64] uint8, ok bool[B]), under one ``secp256k1_recover``
+    span."""
     dev = resolve_device(device)
     bsz = len(msg_hashes)
     bb = bucket_batch(bsz)
-    sigs65 = np.asarray(sigs65, dtype=np.uint8).reshape(-1, 65)
-    z = limb_tensor(msg_hashes, bb, dev)
-    r = limb_tensor(sigs65[:, :32], bb, dev)
-    s = limb_tensor(sigs65[:, 32:64], bb, dev)
-    v = torch.from_numpy(pad_rows(sigs65[:, 64].astype(np.int32), bb)).to(dev)
-    qx, qy, ok = recover_device(z, r, s, v)
-    pubs = np.concatenate(
-        [limbs_to_bytes_be(qx.cpu().numpy()), limbs_to_bytes_be(qy.cpu().numpy())],
-        axis=-1,
-    )
-    return pubs[:bsz], ok.cpu().numpy()[:bsz]
+    with device_span("secp256k1_recover", bsz, shape_key=bb) as sp:
+        sigs65 = np.asarray(sigs65, dtype=np.uint8).reshape(-1, 65)
+        host = (
+            limb_rows(msg_hashes, bb), limb_rows(sigs65[:, :32], bb), limb_rows(sigs65[:, 32:64], bb),
+            pad_rows(sigs65[:, 64].astype(np.int32), bb),
+        )
+        with sp.phase("transfer"):  # host->card copies of the operands
+            z, r, s, v = (torch.from_numpy(a).to(dev) for a in host)
+        qx, qy, ok = recover_device(z, r, s, v)
+        pubs = np.concatenate(
+            [limbs_to_bytes_be(qx.cpu().numpy()), limbs_to_bytes_be(qy.cpu().numpy())],
+            axis=-1,
+        )
+        return pubs[:bsz], ok.cpu().numpy()[:bsz]

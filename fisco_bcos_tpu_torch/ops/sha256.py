@@ -22,6 +22,7 @@ import torch
 
 from . import _kernels
 from ..device import resolve_device
+from ..observability.device import device_span
 from .hash_common import digest_bytes, download_later, md64_words, upload_packed
 
 _K = [
@@ -113,8 +114,9 @@ def sha256_packed(data, starts, lengths) -> torch.Tensor:
 
 def sha256_batch(msgs, device=None) -> np.ndarray:
     """Host convenience: list of bytes -> [B, 32] uint8 digests. Runs on the
-    CUDA card unless ``device`` names another."""
-    return sha256_batch_async(msgs, device)()
+    CUDA card unless ``device`` names another; one ``sha256`` span."""
+    with device_span("sha256", len(msgs)):
+        return sha256_batch_async(msgs, device)()
 
 
 def sha256_batch_async(msgs, device=None):

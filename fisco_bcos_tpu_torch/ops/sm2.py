@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .bigint import bytes_be_to_limbs_device, limb_tensor, limbs_to_bytes_device
+from .bigint import bytes_be_to_limbs_device, limb_rows, limb_tensor, limbs_to_bytes_device
 from .ec import (
     CurveOps,
     add_mod_n,
@@ -44,6 +44,7 @@ from ..crypto.ref.ecdsa import SM2_CURVE, SM2_DEFAULT_ID
 from ..crypto.ref.sm3 import _IV as _SM3_IV
 from ..crypto.ref.sm3 import _compress as sm3_compress
 from ..device import resolve_device
+from ..observability.device import device_span
 from ..params import default_sm2_tables
 
 # ---------------------------------------------------------------------------
@@ -220,15 +221,21 @@ def verify_batch(
 ) -> np.ndarray:
     """Host API: [B,32] tx hash, [B,32] r, [B,32] s, [B,64] pubkey -> bool[B].
     Runs on the CUDA card unless ``device`` names another; e stays on it
-    between the SM3 passes and the kernel."""
+    between the SM3 passes and the kernel. One ``sm2_verify`` span, with no
+    ``sm3`` span inside (the JAX wrapper's e derivation has none)."""
     dev = resolve_device(device)
     bsz = len(msg_hashes)
     bb = bucket_batch(bsz)
-    pubkeys = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
-    qx, qy = limb_tensor(pubkeys[:, :32], bb, dev), limb_tensor(pubkeys[:, 32:], bb, dev)
-    e = e_device(_hash_tensor(msg_hashes, bb, dev), qx, qy, user_id)
-    ok = verify_device(e, limb_tensor(rs, bb, dev), limb_tensor(ss, bb, dev), qx, qy)
-    return ok.cpu().numpy()[:bsz]
+    with device_span("sm2_verify", bsz, shape_key=bb) as sp:
+        pubkeys = np.asarray(pubkeys, dtype=np.uint8).reshape(-1, 64)
+        host = (
+            pad_rows(np.asarray(msg_hashes, dtype=np.uint8).reshape(-1, 32), bb),
+            limb_rows(rs, bb), limb_rows(ss, bb), limb_rows(pubkeys[:, :32], bb), limb_rows(pubkeys[:, 32:], bb),
+        )
+        with sp.phase("transfer"):  # host->card copies of the operands
+            h, r, s, qx, qy = (torch.from_numpy(a).to(dev) for a in host)
+        ok = verify_device(e_device(h, qx, qy, user_id), r, s, qx, qy)
+        return ok.cpu().numpy()[:bsz]
 
 
 def recover_batch(

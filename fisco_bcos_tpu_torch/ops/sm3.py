@@ -24,6 +24,7 @@ import torch
 
 from . import _kernels
 from ..device import resolve_device
+from ..observability.device import device_span
 from .hash_common import digest_bytes, download_later, md64_words, upload_packed
 
 _IV = [
@@ -118,8 +119,9 @@ def sm3_packed(data, starts, lengths) -> torch.Tensor:
 
 def sm3_batch(msgs, device=None) -> np.ndarray:
     """Host convenience: list of bytes -> [B, 32] uint8 digests. Runs on the
-    CUDA card unless ``device`` names another."""
-    return sm3_batch_async(msgs, device)()
+    CUDA card unless ``device`` names another; one ``sm3`` span."""
+    with device_span("sm3", len(msgs)):
+        return sm3_batch_async(msgs, device)()
 
 
 def sm3_batch_async(msgs, device=None):

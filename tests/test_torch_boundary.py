@@ -17,9 +17,9 @@ import pytest
 import torch
 
 import fisco_bcos_tpu_torch
-from fisco_bcos_tpu_torch.crypto import admission, suite
+from fisco_bcos_tpu_torch.crypto import admission, bls, suite
 from fisco_bcos_tpu_torch.device import resolve_device
-from fisco_bcos_tpu_torch.ops import _kernels, ed25519, keccak, merkle, poseidon, secp256k1, sha256, sm2, sm3
+from fisco_bcos_tpu_torch.ops import _kernels, bls12_381, ed25519, keccak, merkle, poseidon, secp256k1, sha256, sm2, sm3
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -70,14 +70,17 @@ def test_importing_the_port_loads_no_jax():
     bare = _loaded_modules("")
     port = _loaded_modules(
         "import fisco_bcos_tpu_torch.crypto.admission, fisco_bcos_tpu_torch.crypto.suite, "
-        "fisco_bcos_tpu_torch.ops.merkle, chip_smoke"
+        "fisco_bcos_tpu_torch.ops.merkle, fisco_bcos_tpu_torch.observability.device, "
+        "fisco_bcos_tpu_torch.crypto.bls, chip_smoke"
     )
     assert {
         "fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle",
         "fisco_bcos_tpu_torch.ops.ed25519", "fisco_bcos_tpu_torch.crypto.ref.ed25519",
         "fisco_bcos_tpu_torch.device.plane", "fisco_bcos_tpu_torch.ops.sha256",
         "fisco_bcos_tpu_torch.crypto.ref.sha2", "fisco_bcos_tpu_torch.ops.poseidon",
-        "fisco_bcos_tpu_torch.crypto.ref.poseidon",
+        "fisco_bcos_tpu_torch.crypto.ref.poseidon", "fisco_bcos_tpu_torch.observability.device",
+        "fisco_bcos_tpu_torch.observability.tracer", "fisco_bcos_tpu_torch.utils.metrics",
+        "fisco_bcos_tpu_torch.crypto.bls",
     } <= port
     assert not sorted(m for m in port - bare if _forbidden(m))
 
@@ -137,6 +140,11 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: suite.Ed25519Crypto().batch_verify([b"m"], [bytes(32)], [bytes(64)]),
         lambda: suite.Ed25519Crypto().batch_verify([], [], []),
         lambda: suite.Ed25519Crypto().batch_recover([b"m"], [bytes(96)]),
+        lambda: bls.BLSCrypto().aggregate_verify_batch([((bytes(48),), b"m", bytes(96))]),
+        lambda: bls.BLSCrypto().multi_pairing_verify([((bytes(48),), b"m", bytes(96))]),
+        lambda: bls.bls_suite(),
+        lambda: bls12_381.pairing_check_batch([(None, None, None)]),
+        lambda: bls12_381.multi_pairing_check([(None, None)]),
     ):
         with pytest.raises(RuntimeError):
             call()
