@@ -196,6 +196,27 @@ exits non-zero, printing no result, without them. In order it:
    in flight and 64 small admissions queued, starvation off, then with a
    20 ms starvation rule that the small admissions pass: the dispatches'
    order and each queue's age at release;
+11b. the multi-device fan-out (``run_sharding_phase``,
+   ``parallel/sharding.py``): ``make_mesh()`` gives the cards and
+   ``make_mesh(cards + 1)`` raises; each of the eight sharded programs
+   (both admissions, secp256k1 verify, the QC check with seeded weights,
+   SM2 and Ed25519 verify on the mixed 10,240-lane blocks, the XOR state
+   root of 10,240 seeded digests, the merkle root of D·16^3 seeded leaves)
+   at D = 1 on the real mesh and D = 2 and 4 on logical meshes that name
+   the card 2 and 4 times (a stream a shard), counted (a shard's launches
+   times D, no plain version), equal to its one-device call (the root to
+   the one-device tree's padded root); ``admit_batch`` of the mixed block
+   through the plane with ``FISCO_DEVICE_SHARD_MIN=0`` under the
+   ``admission`` span (one card: no fan-out) and equal to the oracle;
+   ``sharded_admission_packed`` at D = 1, 2, 4 in turns with the one-device
+   body, from the same host arrays, with the allocator's cudaMalloc
+   segments, at D = 2 and 4 also with every upload before the bodies (the
+   order not taken) and with a fresh pool stream a shard a call
+   (the streams not kept), and one profiled
+   call at D = 4 in both orders and at D = 1 (the kernels' summed device
+   time over their union, the recover kernels' start times); the thread's
+   current device the same before and after. These are the fan-out's own
+   costs on one card, not a multi-card speed;
 12. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
@@ -993,6 +1014,15 @@ def device_busy_ms(fn, tries: int = 3) -> tuple[float, float, int, int]:
     kernels and copies (memcpy, memset) count the trace's device events.
     The profiler drops the device events of some traces, so `fn` is
     profiled `tries` times and the trace that holds the most is kept."""
+    events, wall_ms = profiled_events(fn, tries)
+    copies = sum(is_copy(e) for e in events)
+    return union_us(events) / 1e3, wall_ms, len(events) - copies, copies
+
+
+def profiled_events(fn, tries: int = 3) -> tuple[list, float]:
+    """(device events, wall ms) of one warm call of `fn` under
+    torch.profiler: of `tries` traces, the one that holds the most device
+    events (see device_busy_ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1011,14 +1041,21 @@ def device_busy_ms(fn, tries: int = 3) -> tuple[float, float, int, int]:
                   if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"]
         if best is None or len(events) > len(best[0]):
             best = events, wall_ms
-    events, wall_ms = best
+    return best
+
+
+def is_copy(event) -> bool:
+    return event.name.startswith(("Memcpy", "Memset"))
+
+
+def union_us(events) -> float:
+    """µs of the union of the events' device intervals."""
     busy_us, end = 0.0, float("-inf")
     for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in events):
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
-    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in events)
-    return busy_us / 1e3, wall_ms, len(events) - copies, copies
+    return busy_us
 
 
 # ---------------------------------------------------------------------------
@@ -3643,7 +3680,7 @@ def bls_multi_latency_floor(card: str, bench: dict, times: dict) -> None:
 PLANE_RAGGED = (1, 4, 7, 100, 1000)  # callers' sizes, merged into one dispatch
 PLANE_WINDOWS_MS = (0.0, 0.25, 0.5, 1.0, 2.0)
 PLANE_CALLERS = (4, 16, 64)
-PLANE_CONCURRENT_WINDOWS_MS = (0.0, 0.5, 2.0)
+PLANE_CONCURRENT_WINDOWS_MS = (0.0, 2.0)
 PLANE_SMALL_ADMISSIONS = 64  # queued behind a 10,240-tx admit_batch under load
 PLANE_ANATOMY_CALLS = 9  # lone QC checks a window, timed by segment
 STARVED_MS, STARVED_AGE_MS = 20.0, 30.0  # the starvation case: its rule, and the small admissions' extra age
@@ -4105,10 +4142,10 @@ def plane_lanes_under_load(card: str, calls: dict) -> None:
     direct_body = admission._admit_direct
     hold = threading.Event()
 
-    def held(payloads, sigs, dev):
+    def held(payloads, sigs, dev, **kw):
         if len(payloads) == BLOCK_TXS:
             hold.wait()
-        return direct_body(payloads, sigs, dev)
+        return direct_body(payloads, sigs, dev, **kw)
 
     def wait_for(cond, what):
         deadline = time.perf_counter() + 30
@@ -4188,6 +4225,282 @@ def run_plane_phase(card: str, device, cases, verify_cases, sm_cases, ed_cases,
     plane_concurrent_callers(card, calls)
     plane_lanes_under_load(card, calls)
     log(f"plane phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The multi-device fan-out (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4)  # mesh entries: one card, then logical meshes naming it 2 and 4 times
+SHARD_REPS = 9  # timed calls a variant, in turns
+MERKLE_SHARD_LEAVES = 16**3  # leaves a shard: each shard's fold is a node of the one-device tree
+
+
+def verify_host_rows(rows, n: int):
+    """(hash, r, s, (qx, qy)) rows tiled to n lanes as the verify kernel's
+    [n, 160] uint8 rows, on the host."""
+    import numpy as np
+
+    b = lambda v: v.to_bytes(32, "big")  # noqa: E731
+    joined = b"".join(h + b(r) + b(s) + b(q[0]) + b(q[1]) for h, r, s, q in rows)
+    return np.tile(np.frombuffer(joined, dtype=np.uint8).reshape(len(rows), 160), (-(-n // len(rows)), 1))[:n]
+
+
+def sharded_programs(device, cases, verify_cases, sm_cases, ed_cases) -> list[tuple]:
+    """The eight programs on the mixed 10,240-lane blocks: (name, maker,
+    host arguments, the one-device call's outputs on the card as numpy
+    arrays, a checker of one output against them, a shard's launches)."""
+    import numpy as np
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import admission
+    from fisco_bcos_tpu_torch.ops import ed25519, secp256k1, sm2
+    from fisco_bcos_tpu_torch.parallel import sharding
+
+    def up(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+    def oks(want_ok, weights=None):
+        def check(out):
+            ok, count = (t.cpu().numpy() for t in out)
+            total = weights[want_ok].sum() if weights is not None else want_ok.sum()
+            return np.array_equal(ok, want_ok) and int(count) == int(total)
+        return check
+
+    payloads, sigs65, _ = tile(cases, BLOCK_TXS)
+    adm = admission.host_inputs(payloads, sigs65)
+    packed = admission._admission_packed(*up(adm)).cpu().numpy()
+    rows = verify_host_rows(verify_cases, BLOCK_TXS)
+    verify_ok = secp256k1.verify_device(*up([rows])).cpu().numpy()
+    weights = np.random.default_rng(SEED + 21).integers(1, 1000, size=BLOCK_TXS, dtype=np.int32)
+    sm_payloads, sigs128, _ = sm2_tile(sm_cases, BLOCK_TXS)
+    sm_in = sm2_device_inputs(sm_payloads, sigs128, device)
+    sm_ok = sm2.verify_device(*sm_in).cpu().numpy()
+    (msgs, pubs, sigs), _ = ed25519_tile(ed_cases, BLOCK_TXS)
+    ed_rows = ed25519.device_inputs(msgs, pubs, sigs, pad_to=BLOCK_TXS)
+    ed_ok = ed25519.verify_device(*up([ed_rows])).cpu().numpy()
+    digests = np.random.default_rng(SEED + 22).integers(0, 2**32, size=(BLOCK_TXS, 8), dtype=np.uint32)
+
+    def admission_check(out):
+        addr, ok, count = (t.cpu().numpy() for t in out)
+        return (np.array_equal(addr, packed[:, :20]) and np.array_equal(ok, packed[:, 20] != 0)
+                and int(count) == int(ok.sum()))
+
+    return [
+        ("sharded_admission_packed", sharding.sharded_admission_packed, adm,
+         lambda out: np.array_equal(out.cpu().numpy(), packed), ADMIT_LAUNCHES),
+        ("sharded_admission", sharding.sharded_admission, adm, admission_check, ADMIT_LAUNCHES),
+        ("sharded_verify", sharding.sharded_verify, (rows,), oks(verify_ok), {"secp256k1_verify": 1}),
+        ("sharded_qc_check", sharding.sharded_qc_check, (rows, weights), oks(verify_ok, weights),
+         {"secp256k1_verify": 1}),
+        ("sharded_sm2_verify", sharding.sharded_sm2_verify, [t.cpu().numpy() for t in sm_in], oks(sm_ok),
+         {"sm2_verify": 1}),
+        ("sharded_ed25519_verify", sharding.sharded_ed25519_verify, (ed_rows,), oks(ed_ok), {"ed25519_verify": 1}),
+        ("sharded_state_root", sharding.sharded_state_root, (digests,),
+         lambda out: np.array_equal(out.cpu().numpy().view(np.uint32), np.bitwise_xor.reduce(digests, axis=0)), {}),
+    ]
+
+
+def check_sharded_programs(card: str, device, programs, meshes: dict) -> None:
+    """Each program at every mesh size, counted (a shard's launches times
+    the shards, no plain version), its outputs on the mesh's first device
+    and equal to the one-device call's; merkle at D·16^3 leaves against
+    the one-device tree's padded root."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.ops import merkle
+    from fisco_bcos_tpu_torch.parallel import sharding
+
+    shown = []
+    for d, mesh in meshes.items():
+        for name, maker, host, check, per_shard in programs:
+            out, _ = counted_run(lambda: maker(mesh)(*host), {k: v * d for k, v in per_shard.items()},
+                                 f"{name} at D = {d}")
+            first = out if not isinstance(out, tuple) else out[0]
+            if first.device != mesh.devices[0] or not check(out):
+                raise AssertionError(f"{name} at D = {d} != the one-device call on the mixed block")
+        leaves = np.random.default_rng(SEED + 23 + d).integers(0, 256, size=(d * MERKLE_SHARD_LEAVES, 32),
+                                                                dtype=np.uint8)
+        want = merkle.MerkleTree(leaves, device=device).padded_root
+        root, _ = counted_run(lambda: sharding.sharded_merkle_root(mesh)(leaves),
+                              {"keccak256_packed": 3 * d + (d > 1)}, f"sharded_merkle_root at D = {d}")
+        if bytes(root.cpu().numpy()) != want:
+            raise AssertionError(f"sharded_merkle_root at D = {d} != the one-device padded root")
+        shown.append(f"D = {d}: {len(programs) + 1} programs equal")
+    log(f"[{card}] sharded programs on the mixed {BLOCK_TXS:,}-lane blocks against the one-device calls "
+        f"(counted: a shard's launches times D, no plain version; merkle at D·{MERKLE_SHARD_LEAVES} leaves): "
+        + "; ".join(shown))
+
+
+def check_plane_on_one_card(card: str, cases) -> None:
+    """admit_batch of the mixed block through the plane with no fan-out
+    threshold: one card, so the one-device body under ``admission``, its
+    bytes the host oracle's."""
+    from fisco_bcos_tpu_torch.crypto import admission
+
+    payloads, sigs65, picked = tile(cases, BLOCK_TXS)
+    ops: list[str] = []
+    span = admission.device_span
+    saved = os.environ.get("FISCO_DEVICE_SHARD_MIN")
+    admission.device_span = lambda op, *a, **kw: (ops.append(op), span(op, *a, **kw))[1]
+    os.environ["FISCO_DEVICE_SHARD_MIN"] = "0"
+    try:
+        out = admission.admit_batch(payloads, sigs65)
+    finally:
+        admission.device_span = span
+        if saved is None:
+            os.environ.pop("FISCO_DEVICE_SHARD_MIN")
+        else:
+            os.environ["FISCO_DEVICE_SHARD_MIN"] = saved
+    if ops != ["admission"]:
+        raise AssertionError(f"admit_batch through the plane on one card gave the spans {ops}, not ['admission']")
+    check_outputs(out, expected_admission(picked), "mixed block, through the plane with FISCO_DEVICE_SHARD_MIN=0")
+    log(f"[{card}] admit_batch through the plane, FISCO_DEVICE_SHARD_MIN=0, one card: span 'admission' "
+        f"(no fan-out), == host oracle")
+
+
+def fan_out_uploads_first(mesh, shards, body) -> list[tuple]:
+    """``parallel/sharding.py _fan_out`` in the order it did not take, for
+    timing it: every shard's upload, then every body back to back (their
+    kernels start closer together, but the card idles while the host
+    uploads)."""
+    import torch
+
+    from fisco_bcos_tpu_torch.parallel.sharding import _shard_stream, _upload
+
+    uploaded = []
+    for i, (dev, arrays) in enumerate(zip(mesh.devices, shards)):
+        with torch.cuda.device(dev):
+            stream = _shard_stream(dev, i)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                uploaded.append((dev, stream, _upload(arrays, dev)))
+    launched = []
+    for dev, stream, tensors in uploaded:
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            outs = tuple(body(*tensors))
+            done = torch.cuda.Event()
+            done.record(stream)
+        launched.append((dev, done, outs))
+    gathered = []
+    for dev, done, outs in launched:
+        reader = torch.cuda.current_stream(dev)
+        reader.wait_event(done)
+        for t in outs:
+            t.record_stream(reader)
+        gathered.append(tuple(t.to(mesh.devices[0]) for t in outs))
+    return gathered
+
+
+def time_fan_out(card: str, device, block, meshes: dict) -> None:
+    """sharded_admission_packed at each mesh size in turns with the
+    one-device body, each from the same host arrays (uploads included), the
+    median of SHARD_REPS, with the segments the caching allocator took from
+    cudaMalloc; at each size above one also in the order not taken
+    (fan_out_uploads_first) and with a fresh pool stream a shard a call in
+    place of _shard_stream's; one profiled call at the largest size in
+    both orders and at one: the kernels' summed device time over their
+    union shows whether the shards' kernels overlap, and the recover
+    kernels' start times how far apart the host launched them."""
+    import torch
+
+    from fisco_bcos_tpu_torch.crypto import admission
+    from fisco_bcos_tpu_torch.parallel import sharding
+
+    payloads, sigs65, _ = tile(block, BLOCK_TXS)
+    host = admission.host_inputs(payloads, sigs65)
+    kept_order, kept_streams = sharding._fan_out, sharding._shard_stream
+
+    def fresh_streams(dev, shard):  # a pool stream a call: its allocator cache is another stream's
+        return torch.cuda.Stream(dev)
+
+    def variant(step, fan=kept_order, streams=kept_streams):
+        def run():
+            sharding._fan_out, sharding._shard_stream = fan, streams
+            try:
+                return step(*host)
+            finally:
+                sharding._fan_out, sharding._shard_stream = kept_order, kept_streams
+        return run
+
+    variants = {"one-device _admission_packed":
+                lambda: admission._admission_packed(*(torch.from_numpy(a).to(device) for a in host))}
+    for d, mesh in meshes.items():
+        step = sharding.sharded_admission_packed(mesh)
+        variants[f"D = {d}"] = variant(step)
+        if d > 1:
+            variants[f"D = {d} uploads first"] = variant(step, fan=fan_out_uploads_first)
+            variants[f"D = {d} fresh streams"] = variant(step, streams=fresh_streams)
+    times: dict[str, list[float]] = {k: [] for k in variants}
+    segments = dict.fromkeys(variants, 0)  # the caching allocator's cudaMalloc calls in the timed calls
+    for fn in variants.values():
+        fn()
+    for rep in range(SHARD_REPS):
+        for name in (list(variants) if rep % 2 == 0 else list(reversed(variants))):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_stats(device).get("segment.all.allocated", 0)
+            t0 = time.perf_counter()
+            variants[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            segments[name] += torch.cuda.memory_stats(device).get("segment.all.allocated", 0) - before
+    log(f"[{card}] sharded_admission_packed @ {BLOCK_TXS:,} txs, from the host arrays (uploads included), "
+        f"median of {SHARD_REPS} in turns, ms (segments the allocator took from cudaMalloc in those calls): "
+        + ", ".join(f"{k} {statistics.median(v):.4f} ({min(v):.4f}-{max(v):.4f}; {segments[k]})"
+                    for k, v in times.items())
+        + "; the fan-out's own cost on one card (logical shards share its SMs): not a multi-card speed")
+    top = max(meshes)
+    for name in (f"D = {top}", f"D = {top} uploads first", "D = 1"):
+        events, wall = profiled_events(variants[name])
+        kernels = [e for e in events if not is_copy(e)]
+        if not kernels:
+            log(f"[{card}] sharded_admission_packed at {name}, one profiled call: not measured "
+                "(no device events in the trace)")
+            continue
+        summed = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+        union = union_us(kernels) / 1e3
+        rec = sorted((e.time_range.start, e.time_range.end) for e in kernels if "recover" in e.name)
+        starts = ", ".join(f"{(lo - rec[0][0]) / 1e3:.4f}" for lo, _ in rec)
+        lasts = ", ".join(f"{(hi - lo) / 1e3:.4f}" for lo, hi in rec)
+        log(f"[{card}] sharded_admission_packed at {name}, one profiled call: {len(kernels)} kernels, their "
+            f"device times sum to {summed:.4f} ms over a union of {union:.4f} ms (x{summed / union:.3f}: above 1 "
+            f"the shards' kernels overlap); the recover kernels start at +[{starts}] ms and last [{lasts}] ms; "
+            f"device busy {union_us(events) / 1e3:.4f} ms of {wall:.3f} ms wall, {len(events) - len(kernels)} copies")
+
+
+def run_sharding_phase(card: str, device, cases, verify_cases, sm_cases, ed_cases, block) -> None:
+    """The multi-device fan-out (ROADMAP A9) on one card: the real mesh;
+    every program equal to its one-device call at one entry and on logical
+    meshes of 2 and 4 (a stream a shard); the plane's admission without a
+    fan-out on one card; the fan-out's times; the calling thread's current
+    device unchanged by the phase."""
+    import torch
+
+    from fisco_bcos_tpu_torch.parallel import sharding
+
+    t0 = time.perf_counter()
+    before = torch.cuda.current_device()
+    real = sharding.make_mesh()
+    cards = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    if real.devices != cards:
+        raise AssertionError(f"make_mesh() gave {real.devices}, not the cards {cards}")
+    try:
+        sharding.make_mesh(len(cards) + 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("make_mesh asked for more cards than there are did not raise")
+    meshes = {d: sharding.make_mesh(1) if d == 1 else sharding.Mesh((device,) * d) for d in SHARD_COUNTS}
+    programs = sharded_programs(device, cases, verify_cases, sm_cases, ed_cases)
+    check_sharded_programs(card, device, programs, meshes)
+    check_plane_on_one_card(card, cases)
+    time_fan_out(card, device, block, meshes)
+    after = torch.cuda.current_device()
+    if after != before:
+        raise AssertionError(f"the current device moved from {before} to {after} during the sharding phase")
+    log(f"[{card}] sharding phase: the real mesh {[str(d) for d in real.devices]} ({len(cards)} card(s)); "
+        f"make_mesh({len(cards) + 1}) raised ValueError; current device {before} before and after; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4472,7 +4785,8 @@ def call_anatomy(card: str, args, ch_args, parent=None) -> None:
     payloads (`args`), and a challenge call on the first 4 lanes (a QC
     check) of the Ed25519 timed block (`ch_args`): the wrapper's checks, an
     output allocation, the current stream read as an object and as the raw
-    handle, the bound C entry point alone, the whole wrapper (and, for the
+    handle, the device guard of _kernels._launch (keccak), the bound C entry
+    point alone, the whole wrapper (and, for the
     challenge, ed25519.challenge_device), and one small torch op beside
     them; with `parent`, the parent checkout's whole wrappers beside. Host
     clock a call, the best of 5 runs of 1,000 calls."""
@@ -4485,11 +4799,17 @@ def call_anatomy(card: str, args, ch_args, parent=None) -> None:
     out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
     fn, _ = _kernels._entry("keccak256_packed")
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def guard():  # what _kernels._launch adds around the C entry point
+        with torch.cuda.device(dev):
+            pass
+
     parts = {
         "checks": lambda: _kernels._packed_args("keccak256_packed", data, starts, lengths, None),
         "torch.empty": lambda: torch.empty((b, 32), dtype=torch.uint8, device=dev),
         "current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "the raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "the device guard (an empty torch.cuda.device block)": guard,
         "the C entry point": lambda: fn(data.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                                         None, b, data.numel(), dev.index, stream),
         "the whole wrapper": lambda: _kernels.keccak256_packed(data, starts, lengths),
@@ -5125,6 +5445,9 @@ def main() -> int:
 
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
     run_plane_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block, verify_block, sm_block, ed_block)
+
+    # -- the multi-device fan-out: every sharded program on one card and on logical meshes over it --
+    run_sharding_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block)
 
     timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block, poseidon_blocks)
     if parent:

@@ -33,14 +33,24 @@ span is, (bucketed batch, bucketed keccak block count); and for the SM
 suite, whose three JAX calls (``sm3`` tx hashes, ``sm2_verify``, ``sm3``
 senders) run here as one fused body, one ``sm2_verify`` span, the op of
 the signature work.
+
+On the plane's worker, a merged ``admit_batch`` whose bucketed batch
+clears ``FISCO_DEVICE_SHARD_MIN`` on a node with more than one card fans
+out over all of them (``parallel/sharding.py sharded_admission_packed``)
+under the span ``admission_sharded``, as the JAX plane's merged batches do
+(JAX ``crypto/admission.py:118-147``). Unlike JAX, a failure of the mesh
+or of a shard reaches the caller: there is no fallback.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..device.plane import in_plane_executor
 from ..ops import keccak, secp256k1, sm2, sm3
 from ..ops.address import sender_address_device, sm3_sender_address_device
 from ..ops.bigint import bytes_be_to_limbs
@@ -100,18 +110,65 @@ def admit_batch(
     payloads = list(payloads)
     sigs65 = _signature_rows(payloads, sigs65, 65)
     return _routed(f"admission.{dev}", (payloads, sigs65), len(payloads),
-                   lambda p, s: _admit_direct(p, s, dev))
+                   lambda p, s: _admit_direct(p, s, dev, allow_shard=in_plane_executor()))
 
 
-def _admit_direct(payloads, sigs65, dev):
+def _admit_direct(payloads, sigs65, dev, allow_shard: bool = False):
+    """The admission body on this thread. `allow_shard` (the plane's worker
+    only) fans the bucketed batch out over the local cards when it clears
+    the threshold (:func:`_maybe_sharded_step`)."""
     host = host_inputs(payloads, sigs65)
     # the JAX span's key, from the shape pad_keccak gives the same payloads:
     # (bucketed batch, bucketed block count of the longest lane)
     lengths = host[2]
-    key = (len(lengths), bucket_batch(int(lengths.max()) // keccak.RATE_BYTES + 1))
-    with device_span("admission", len(payloads), shape_key=key):
-        packed = _admission_packed(*(torch.from_numpy(a).to(dev) for a in host))
+    bb = len(lengths)
+    key = (bb, bucket_batch(int(lengths.max()) // keccak.RATE_BYTES + 1))
+    step = _maybe_sharded_step(bb, dev) if allow_shard else None
+    with device_span("admission" if step is None else "admission_sharded", len(payloads), shape_key=key):
+        if step is None:
+            packed = _admission_packed(*(torch.from_numpy(a).to(dev) for a in host))
+        else:
+            packed = step(*host)
         return _unpack(packed, len(payloads))
+
+
+# -- multi-device fan-out -----------------------------------------------------
+
+_SHARD_CACHE: dict[tuple[str, int], object] = {}
+
+
+def _shard_min() -> int:
+    """Bucketed-batch floor for the fan-out (JAX ``_shard_min``, its knob
+    and default): below thousands of lanes one card is faster than the
+    split and the gather."""
+    try:
+        return int(os.environ.get("FISCO_DEVICE_SHARD_MIN", "4096"))
+    except ValueError:
+        return 4096
+
+
+def _local_devices(dev: torch.device) -> int:
+    """The devices of `dev`'s kind a batch may fan out over: every CUDA
+    card; the CPU is one device."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _maybe_sharded_step(bb: int, dev: torch.device):
+    """The sharded admission program, cached by device kind and count, when
+    the bucketed batch `bb` on `dev` clears the JAX rule: more than one
+    device, bb >= max(shard_min, devices) and bb divisible by the devices;
+    None otherwise (the one-device body). Nothing is caught: a mesh that
+    cannot be built raises to the caller."""
+    ndev = _local_devices(dev)
+    if ndev <= 1 or bb < max(_shard_min(), ndev) or bb % ndev:
+        return None
+    step = _SHARD_CACHE.get((dev.type, ndev))
+    if step is None:
+        from ..parallel.sharding import Mesh, make_mesh, sharded_admission_packed
+
+        mesh = make_mesh(ndev) if dev.type == "cuda" else Mesh((dev,) * ndev)
+        step = _SHARD_CACHE[(dev.type, ndev)] = sharded_admission_packed(mesh)
+    return step
 
 
 def _packed_payloads(payloads, lanes: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -11,7 +11,7 @@ at import: the CPU tests import every module.
 Every C entry point's ``argtypes`` is bound once, when its library loads
 (:data:`_ENTRIES`). A wrapper checks device, type, shape and contiguity,
 allocates its outputs and launches on PyTorch's current stream; the C entry
-point sets the device itself.
+point sets the device itself, and :func:`_launch` restores the caller's.
 
 A library may hold several kernels, one C entry point each (the hash
 kernels' forms: :data:`KERNELS`). ``LAUNCHES`` counts, per kernel, the
@@ -225,12 +225,17 @@ def _entry(kernel: str):
 
 def _launch(kernel: str, dev: torch.device, *args) -> None:
     """Call `kernel`'s C entry point with `args`, then the device index and
-    the current stream; raise on a CUDA error, count the launch."""
+    the current stream; raise on a CUDA error, count the launch. The call
+    runs under ``torch.cuda.device(dev)``: the entry point sets `dev`
+    current, and the guard gives the calling thread its own current device
+    back, so a launch on another card does not move later default calls
+    there."""
     fn, lib = _entry(kernel)
-    # the raw handle of PyTorch's current stream: what current_stream(dev)
-    # .cuda_stream returns, without building a Stream object (chip_smoke.py
-    # call_anatomy times both)
-    err = fn(*args, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        # the raw handle of PyTorch's current stream: what current_stream(dev)
+        # .cuda_stream returns, without building a Stream object (chip_smoke.py
+        # call_anatomy times both)
+        err = fn(*args, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
     if err:
         msg = lib.fisco_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")

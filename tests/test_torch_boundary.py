@@ -20,6 +20,7 @@ import fisco_bcos_tpu_torch
 from fisco_bcos_tpu_torch.crypto import admission, bls, suite
 from fisco_bcos_tpu_torch.device import resolve_device
 from fisco_bcos_tpu_torch.ops import _kernels, bls12_381, ed25519, keccak, merkle, poseidon, secp256k1, sha256, sm2, sm3
+from fisco_bcos_tpu_torch.parallel import sharding
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -71,7 +72,7 @@ def test_importing_the_port_loads_no_jax():
     port = _loaded_modules(
         "import fisco_bcos_tpu_torch.crypto.admission, fisco_bcos_tpu_torch.crypto.suite, "
         "fisco_bcos_tpu_torch.ops.merkle, fisco_bcos_tpu_torch.observability.device, "
-        "fisco_bcos_tpu_torch.crypto.bls, chip_smoke"
+        "fisco_bcos_tpu_torch.crypto.bls, fisco_bcos_tpu_torch.parallel, chip_smoke"
     )
     assert {
         "fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle",
@@ -80,7 +81,7 @@ def test_importing_the_port_loads_no_jax():
         "fisco_bcos_tpu_torch.crypto.ref.sha2", "fisco_bcos_tpu_torch.ops.poseidon",
         "fisco_bcos_tpu_torch.crypto.ref.poseidon", "fisco_bcos_tpu_torch.observability.device",
         "fisco_bcos_tpu_torch.observability.tracer", "fisco_bcos_tpu_torch.utils.metrics",
-        "fisco_bcos_tpu_torch.crypto.bls",
+        "fisco_bcos_tpu_torch.crypto.bls", "fisco_bcos_tpu_torch.parallel.sharding",
     } <= port
     assert not sorted(m for m in port - bare if _forbidden(m))
 
@@ -145,6 +146,8 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: bls.bls_suite(),
         lambda: bls12_381.pairing_check_batch([(None, None, None)]),
         lambda: bls12_381.multi_pairing_check([(None, None)]),
+        lambda: sharding.make_mesh(),
+        lambda: sharding.make_mesh(1),
     ):
         with pytest.raises(RuntimeError):
             call()
