@@ -217,6 +217,25 @@ exits non-zero, printing no result, without them. In order it:
    time over their union, the recover kernels' start times); the thread's
    current device the same before and after. These are the fan-out's own
    costs on one card, not a multi-card speed;
+11c. the node's transaction pool (``run_txpool_phase``, the port's
+   ``txpool``, ``ledger``, ``storage`` and ``protocol``): BASELINE config
+   4's flood at full width, 51,200 parallel-transfer transactions from
+   ``bench.py``'s 64 admission signers in 5 batches of 10,240, each
+   decoded from its wire bytes (signed with one ephemeral k a batch, a
+   sample held against the host oracle's recovery), the last batch also
+   carrying every rejected kind (a sixteenth of the signatures bad in six
+   ways, intra-batch nonce repeats, a wrong chain and group, block limits
+   expired and too far ahead); each batch through ``TxPool.submit_batch``
+   on a four-node genesis, counted (one ``admit_batch``'s launches, no
+   plain version), every lane's tx hash, status and sender as built, then
+   sealed into a 10,240-tx block, its txs root and the overlay's state hash
+   on the card (counted), ``Ledger.prewrite_block``, ``merge_into_prev``,
+   ``on_block_committed``, each stage timed; a committed batch replayed:
+   ``TX_ALREADY_IN_CHAIN`` on every lane, no launch; ``submit_batch`` into
+   fresh pools (median of 5), its stages one at a time, ``admit_batch`` of
+   the same transactions alone in turns with it, one profiled call; one
+   SM batch through an SM pool and its block; every txs root, state hash
+   and a sample of tx hashes against the host oracle in the oracle pool;
 12. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
@@ -253,7 +272,8 @@ exits non-zero, printing no result, without them. In order it:
    DevicePlane is drained first, so no request of any phase is left
    unanswered.
 
-After the build it prints each kernel's registers, stack and spills
+After each phase it prints ``[phase] <name>: <s>``, the command time it
+took. After the build it prints each kernel's registers, stack and spills
 (ptxas), its size in SASS instructions (``cuobjdump``) and its launch
 geometry at the block's width.
 
@@ -1466,9 +1486,12 @@ def run_sm_path(rows) -> tuple[dict, float]:
     return launches, host_ms(lambda: admit_batch_sm(payloads, sigs128), reps=5)
 
 
-def measure_sm2(rows, device) -> tuple[dict, float]:
-    """The SM2 kernel on the SM path's inputs: equal to the plain version
-    (timed), its own time and bound; and sm2.verify_batch end to end."""
+def measure_sm2(rows, device, plain_ms: float, err: int) -> tuple[dict, float]:
+    """The SM2 kernel on the SM path's inputs: its own time and bound, with
+    the plain version's time and difference from the mixed block's
+    comparison (check_sm2_mixed_block: 10,240 lanes and the e-edge lanes;
+    the plain version's time does not depend on the lanes' values); and
+    sm2.verify_batch end to end, every lane held against the host oracle."""
     import numpy as np
 
     from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
@@ -1476,7 +1499,6 @@ def measure_sm2(rows, device) -> tuple[dict, float]:
 
     payloads, sigs128, _ = sm2_tile(rows, BLOCK_TXS)
     args = sm2_device_inputs(payloads, sigs128, device)
-    _, err, plain_ms = compare_and_time(sm2.verify_device, sm2.verify_plain, args, "sm2_verify", "timed block")
     kernel_ms = cuda_ms(lambda: sm2.verify_device(*args))
     per_case = [sm2_verify_multiplies(r, s) for _, r, s, _, _ in rows]
     muls = sum(per_case[i % len(rows)] for i in range(BLOCK_TXS))
@@ -1486,7 +1508,8 @@ def measure_sm2(rows, device) -> tuple[dict, float]:
         io_bytes=BLOCK_TXS * (5 * 16 * 4 + 1) + 30 * 8 * 4,
     )
     row.update(max_abs_err=err, plain_ms=plain_ms)
-    hashes = np.stack([np.frombuffer(sm3(p), dtype=np.uint8) for p in payloads])
+    digests = {p: np.frombuffer(sm3(p), dtype=np.uint8) for p in set(payloads)}
+    hashes = np.stack([digests[p] for p in payloads])
     verify_args = (hashes, sigs128[:, :32], sigs128[:, 32:64], sigs128[:, 64:])
     got, launches = counted_run(
         lambda: sm2.verify_batch(*verify_args), SM2_VERIFY_LAUNCHES, "sm2.verify_batch"
@@ -1635,18 +1658,20 @@ def hash_mixed_messages() -> list[bytes]:
     return [rng.randbytes(n) for n in lengths]
 
 
-def check_hash_lanes(name: str, args, msgs, what: str) -> tuple[int, float]:
+def check_hash_lanes(name: str, args, msgs, what: str, memo: dict | None = None) -> tuple[int, float]:
     """A hash kernel's packed form == its plain version == the host oracle
     on every lane of the packed batch `args` holding `msgs`; prints how
     many warps staged their messages and how many read them directly.
-    Returns (largest difference from the plain version, plain ms)."""
+    `memo` keeps the oracle's digests across calls of one hash (layouts of
+    the same messages hash each once). Returns (largest difference from the
+    plain version, plain ms)."""
     import torch
 
     kernel, plain, oracle = hash_fns(name)[:3]
     routes = torch.zeros(2, dtype=torch.int32, device=args[0].device)
     got, err, plain_ms = compare_and_time(lambda *a: kernel(*a, routes=routes), plain, args, name, what)
     got = got.cpu().numpy()
-    memo: dict = {}
+    memo = {} if memo is None else memo
     for i, m in enumerate(msgs):
         if m not in memo:
             memo[m] = oracle(m)
@@ -1690,12 +1715,22 @@ def packed_layouts(device) -> list[tuple]:
 
 
 def check_hash_kernels(device) -> dict[str, int]:
-    """Each hash kernel's packed form on every layout of packed_layouts.
-    Returns each kernel's largest difference from its plain version."""
+    """Each hash kernel's packed form on every layout of packed_layouts,
+    the host oracle's digests of their distinct messages computed once in
+    the oracle pool. Returns each kernel's largest difference from its plain
+    version."""
     layouts = packed_layouts(device)
+    distinct = list(dict.fromkeys(m for _, _, msgs in layouts for m in msgs))
+    chunk = max(1, len(distinct) // (4 * ORACLE_WORKERS))
+    with oracle_pool() as pool:
+        digests = {name: pool.map(oracle_digests, [(name, distinct[i:i + chunk])
+                                                   for i in range(0, len(distinct), chunk)])
+                   for name in HASH_KERNELS}
+        memos = {name: dict(zip(distinct, (d for part in parts for d in part))) for name, parts in digests.items()}
     errs = {}
     for name in HASH_KERNELS:
-        errs[f"{name}_packed"] = max(check_hash_lanes(name, args, msgs, what)[0] for what, args, msgs in layouts)
+        errs[f"{name}_packed"] = max(check_hash_lanes(name, args, msgs, what, memos[name])[0]
+                                     for what, args, msgs in layouts)
         log(f"{name}: packed kernel == plain == host oracle on the {', the '.join(w for w, _, _ in layouts)}")
     return errs
 
@@ -5268,6 +5303,575 @@ def observatory_cold(card: str) -> None:
         f"keccak256_batch of 4 messages {wall_ms:.1f} ms, phases {json.dumps(phases)}")
 
 
+# ---------------------------------------------------------------------------
+# The node's transaction pool: admission, sealing and the ledger's write
+# ---------------------------------------------------------------------------
+
+FLOOD_BATCHES = 5  # BASELINE config 4's flood at full width: 5 x 10,240 = 51,200 transactions
+MIXED_BATCH = FLOOD_BATCHES - 1  # the batch that also carries every rejected kind
+POOL_REPS = 5  # fresh pools a timed submit_batch
+POOL_TURNS = 3  # rounds of admit_batch alone, submit_batch, submit_batch, admit_batch alone
+POOL_SAMPLE = 256  # lanes a batch whose tx hash is held against the host oracle
+SIGN_SAMPLE = 8  # lanes a batch whose signature is held against the host oracle
+TX_LIMIT = 500  # block_limit of the flood's transactions (bench.py's)
+POOL_WINDOW = 600  # the pool's replay window, TxPool's default block_limit
+TRANSFER_TO = bytes.fromhex("000000000000000000000000000000000000100c")  # the DAG-transfer precompile
+TRANSFER_SELECTOR = bytes.fromhex("a9059cbb")  # transfer(address,uint256)
+FLOOD_NODE_SECRET = 0xF100D  # bench.py bench_flood's committee: secret 0xF100D + i
+BAD_SIGNATURES = ("v=4", "r=0", "s=0", "s=n", "short", "x off the curve")
+FLOOD_STAGES = ("submit_batch", "seal_txs", "txs_root", "prewrite_block", "state_hash", "merge",
+                "on_block_committed")
+
+
+def transfer_input(g: int) -> bytes:
+    """A fixed 68-byte transfer call laid out by hand: the selector, the
+    recipient's address word and the amount word."""
+    return TRANSFER_SELECTOR + (0x5EED0000 + g % 4096).to_bytes(32, "big") + (1 + g % 1000).to_bytes(32, "big")
+
+
+def flood_signers(kind: str) -> list[tuple[int, tuple[int, int], bytes]]:
+    """The 64 signers of bench.py's admission benchmark (secret 0xBEEF +
+    104729·i) or of its SM benchmark (0x1234 + 7919·i): (secret, public
+    key, address by the host oracle)."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+    from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+    from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
+
+    curve, h, base, step = ((ref.SECP256K1, keccak256, 0xBEEF, 104729) if kind == "ecdsa"
+                            else (ref.SM2_CURVE, sm3, 0x1234, 7919))
+    out = []
+    for i in range(BENCH_SIGNERS):
+        d = base + step * i
+        q = ref.privkey_to_pubkey(curve, d)
+        out.append((d, q, h(q[0].to_bytes(32, "big") + q[1].to_bytes(32, "big"))[12:]))
+    return out
+
+
+def off_curve_x() -> int:
+    """The least x for which x³ + 7 has no square root mod p: an r that no
+    recovery lifts to a point."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+    p, x = ref.SECP256K1.p, 2
+    while pow((x**3 + 7) % p, (p - 1) // 2, p) == 1:
+        x += 1
+    return x
+
+
+def bad_signature(sig: bytes, kind: str) -> bytes:
+    """A 65-byte signature made invalid in one of BAD_SIGNATURES' ways."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+    n = ref.SECP256K1.n
+    return {
+        "v=4": sig[:64] + bytes([4]),
+        "r=0": bytes(32) + sig[32:],
+        "s=0": sig[:32] + bytes(32) + sig[64:],
+        "s=n": sig[:32] + n.to_bytes(32, "big") + sig[64:],
+        "short": sig[:64],
+        "x off the curve": off_curve_x().to_bytes(32, "big") + sig[32:64] + bytes([0]),
+    }[kind]
+
+
+class FloodBatch:
+    """One 10,240-transaction batch of the flood as wire bytes, and what the
+    pool must give each lane: ``want`` (tx hash, status, sender). The
+    signatures share one ephemeral k a batch (test data only: each is a few
+    modular products on the host instead of a whole signing); every lane is
+    still recovered in full on the card. The tx hashes are the packed hash
+    kernel's digests of the payloads, sampled against the host oracle."""
+
+    def __init__(self, kind: str, b: int, device, signers, head: int = 0):
+        import numpy as np
+
+        from fisco_bcos_tpu_torch.ops import keccak, sm2, sm3
+        from fisco_bcos_tpu_torch.protocol import Transaction
+        from fisco_bcos_tpu_torch.utils.error import ErrorCode as E
+
+        n = BLOCK_TXS
+        mixed = kind == "ecdsa" and b == MIXED_BATCH
+        self.kind, self.rng = kind, random.Random(SEED + 22 * (b + 1) + (kind == "sm"))
+        txs, status, self.who, self.bad = [], [], [], {}
+        for i in range(n):
+            g = b * n + i
+            nonce, chain, group, limit, st = f"{kind}-flood-{g}", "chain0", "group0", TX_LIMIT, E.SUCCESS
+            if mixed and i % 16 == 3:  # the nonce of the lane before it: an intra-batch replay
+                nonce, st = f"{kind}-flood-{g - 1}", E.ALREADY_IN_TX_POOL
+            elif mixed and i % 256 == 5:
+                chain, st = "chain1", E.INVALID_CHAIN_ID
+            elif mixed and i % 256 == 6:
+                group, st = "group1", E.INVALID_GROUP_ID
+            elif mixed and i % 256 == 7:  # expired: at the head
+                limit, st = head, E.BLOCK_LIMIT_CHECK_FAIL
+            elif mixed and i % 256 == 8:  # beyond the head's window
+                limit, st = head + POOL_WINDOW + 1, E.BLOCK_LIMIT_CHECK_FAIL
+            elif mixed and i % 16 == 1:  # a sixteenth of the signatures
+                st, self.bad[i] = E.INVALID_SIGNATURE, BAD_SIGNATURES[(i // 16) % len(BAD_SIGNATURES)]
+            txs.append(Transaction(version=1, chain_id=chain, group_id=group, block_limit=limit, nonce=nonce,
+                                   to=TRANSFER_TO, input=transfer_input(g), import_time=1_700_000_000_000 + g))
+            status.append(int(st))
+            self.who.append(g % BENCH_SIGNERS)
+        self.payloads = [t.encode_data() for t in txs]
+        digests = (keccak.keccak256_batch if kind == "ecdsa" else sm3.sm3_batch)(self.payloads, device)
+        self.hashes = [bytes(d) for d in digests]
+        if kind == "ecdsa":
+            sigs = self._sign_ecdsa(signers)
+        else:
+            pubs = np.frombuffer(b"".join(_xy(q) for _, q, _ in signers), dtype=np.uint8).reshape(-1, 64)
+            self.e = sm2.sm2_e_batch(digests, pubs[self.who], device=device)
+            sigs = self._sign_sm2(signers)
+        for i, how in self.bad.items():
+            sigs[i] = bad_signature(sigs[i], how)
+        for t, s in zip(txs, sigs):
+            t.signature = s
+        self.sigs = sigs
+        self.wires = [t.encode() for t in txs]
+        self.want = [(h, st, signers[w][2] if st == E.SUCCESS else b"")
+                     for h, st, w in zip(self.hashes, status, self.who)]
+
+    def _sign_ecdsa(self, signers) -> list[bytes]:
+        from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+        c = ref.SECP256K1
+        k = self.rng.randrange(1, c.n)
+        rx, ry = ref.point_mul(c, k, (c.gx, c.gy))
+        if rx >= c.n:  # v would need its overflow bit: another k
+            raise AssertionError(f"flood nonce k gives R.x >= n (seed {SEED})")
+        kinv, r, v = pow(k, -1, c.n), rx.to_bytes(32, "big"), bytes([ry & 1])
+        return [r + (kinv * (int.from_bytes(h, "big") + rx * signers[w][0]) % c.n).to_bytes(32, "big") + v
+                for h, w in zip(self.hashes, self.who)]
+
+    def _sign_sm2(self, signers) -> list[bytes]:
+        from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+        c = ref.SM2_CURVE
+        k = self.rng.randrange(1, c.n)
+        x1 = ref.point_mul(c, k, (c.gx, c.gy))[0]
+        inv = [pow(1 + d, -1, c.n) for d, _, _ in signers]
+        out = []
+        for e, w in zip(self.e, self.who):
+            r = (int.from_bytes(bytes(e), "big") + x1) % c.n
+            s = inv[w] * (k - r * signers[w][0]) % c.n
+            if not r or r + k == c.n or not s:
+                raise AssertionError("a degenerate SM2 flood signature (r = 0, r + k = n or s = 0)")
+            out.append(r.to_bytes(32, "big") + s.to_bytes(32, "big") + _xy(signers[w][1]))
+        return out
+
+    def check_signatures(self, signers) -> None:
+        """A sample of the signatures, and one of each bad kind, against
+        the host oracle's recovery or verification."""
+        from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+
+        good = [i for i in range(len(self.sigs)) if i not in self.bad]
+        for i in self.rng.sample(good, SIGN_SAMPLE) + [min(k for k, v in self.bad.items() if v == how)
+                                                       for how in set(self.bad.values())]:
+            sig, q = self.sigs[i], signers[self.who[i]][1]
+            r, s = int.from_bytes(sig[:32], "big"), int.from_bytes(sig[32:64], "big")
+            if self.kind == "ecdsa":
+                valid_v = len(sig) == 65 and sig[64] in (0, 1, 2, 3, 27, 28)  # the device's rule
+                got = ref.ecdsa_recover(self.hashes[i], r, s, sig[64]) if valid_v else None
+                ok = got == q
+            else:
+                ok = ref.sm2_verify_e(ref.sm2_e(self.hashes[i], q), r, s, q)
+                if ok and ref.sm2_e(self.hashes[i], q) != int.from_bytes(bytes(self.e[i]), "big"):
+                    raise AssertionError(f"sm2_e_batch != host oracle on SM flood lane {i}")
+            if ok != (i not in self.bad):
+                raise AssertionError(f"flood lane {i} ({self.bad.get(i, 'valid')}): host oracle says {ok}")
+
+    def fresh(self) -> list:
+        """The batch decoded from its wire bytes, as RPC and gossip deliver
+        it: no hash cached, no sender."""
+        from fisco_bcos_tpu_torch.protocol import Transaction
+
+        return [Transaction.decode(w) for w in self.wires]
+
+
+def _xy(q) -> bytes:
+    return q[0].to_bytes(32, "big") + q[1].to_bytes(32, "big")
+
+
+def _ref_hash(hasher: str):
+    """The port's host oracle of a hash, by name."""
+    if hasher == "keccak256":
+        from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+
+        return keccak256
+    if hasher == "sha256":
+        from fisco_bcos_tpu_torch.crypto.ref.sha2 import sha256
+
+        return sha256
+    from fisco_bcos_tpu_torch.crypto.ref.sm3 import sm3
+
+    return sm3
+
+
+def oracle_digests(job: tuple[str, list[bytes]]) -> list[bytes]:
+    """The host oracle's digest of each message (an oracle pool job)."""
+    h = _ref_hash(job[0])
+    return [h(m) for m in job[1]]
+
+
+def oracle_xor(job: tuple[str, list[bytes]]) -> int:
+    """The XOR of the host oracle's digests of the messages, as an integer
+    (an oracle pool job: a share of the state hash)."""
+    h, acc = _ref_hash(job[0]), 0
+    for m in job[1]:
+        acc ^= int.from_bytes(h(m), "big")
+    return acc
+
+
+def oracle_root(job: tuple[str, bytes]) -> bytes:
+    """oracle_merkle_root of packed 32-byte leaves (an oracle pool job)."""
+    leaves = job[1]
+    return oracle_merkle_root([leaves[i:i + 32] for i in range(0, len(leaves), 32)], job[0])
+
+
+def state_preimages(overlay) -> list[bytes]:
+    """H's inputs of the overlay's state hash, one a dirty row: flat(table)
+    ‖ flat(key) ‖ the entry's bytes (storage/state_storage.py)."""
+    from fisco_bcos_tpu_torch.codec.flat import FlatWriter
+
+    out = []
+    for t, k, e in overlay.traverse():
+        out.append(FlatWriter().str_(t).bytes_(k).out() + e.encode())
+    return out
+
+
+class PoolOracle:
+    """Host-oracle jobs gathered while the phase runs and sent to the oracle
+    pool once its timed parts are over (so the workers do not share the
+    host with them); ``settle`` waits and holds each result."""
+
+    def __init__(self):
+        self.jobs = []  # (what, kind of job, job, expected)
+
+    def digests(self, what: str, hasher: str, msgs, want) -> None:
+        self.jobs.append((what, "digests", (hasher, list(msgs)), list(want)))
+
+    def root(self, what: str, hasher: str, leaves: list[bytes], want: bytes) -> None:
+        self.jobs.append((what, "root", (hasher, b"".join(leaves)), want))
+
+    def state(self, what: str, hasher: str, preimages: list[bytes], want: bytes) -> None:
+        self.jobs.append((what, "state", (hasher, preimages), want))
+
+    def settle(self, card: str, pool) -> None:
+        t0 = time.perf_counter()
+        futures = []
+        for what, how, job, want in self.jobs:
+            if how == "state":
+                chunk = max(1, len(job[1]) // (4 * ORACLE_WORKERS))
+                parts = [pool.submit(oracle_xor, (job[0], job[1][i:i + chunk]))
+                         for i in range(0, len(job[1]), chunk)]
+            else:
+                parts = [pool.submit(oracle_digests if how == "digests" else oracle_root, job)]
+            futures.append((what, how, parts, want))
+        for what, how, parts, want in futures:
+            got = [f.result() for f in parts]
+            if how == "state":
+                acc = 0
+                for x in got:
+                    acc ^= x
+                got = acc.to_bytes(32, "big")
+            else:
+                got = got[0]
+            if got != want:
+                raise AssertionError(f"{what} != host oracle")
+        log(f"[{card}] txpool phase: {len(self.jobs)} host-oracle checks held (tx hash samples, every txs root "
+            f"and state hash) in {time.perf_counter() - t0:.1f} s on {ORACLE_WORKERS} workers")
+
+
+def txpool_genesis(suite, kind: str):
+    """A MemoryStorage, its Ledger and the genesis header of a four-node
+    committee (chain0/group0, tx_count_limit one block of BLOCK_TXS)."""
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+    from fisco_bcos_tpu_torch.ledger import ConsensusNode, GenesisConfig, Ledger
+    from fisco_bcos_tpu_torch.storage import MemoryStorage
+
+    curve = ref.SECP256K1 if kind == "ecdsa" else ref.SM2_CURVE
+    nodes = [_xy(ref.privkey_to_pubkey(curve, FLOOD_NODE_SECRET + i)) for i in range(4)]
+    store = MemoryStorage()
+    ledger = Ledger(store, suite)
+    ledger.build_genesis(GenesisConfig(consensus_nodes=[ConsensusNode(p) for p in nodes], tx_count_limit=BLOCK_TXS,
+                                       timestamp=1_700_000_000_000))
+    return store, ledger, nodes
+
+
+def new_pool(suite, ledger):
+    from fisco_bcos_tpu_torch.txpool import TxPool
+    from fisco_bcos_tpu_torch.txpool.quota import AdmissionQuotas
+
+    return TxPool(suite, ledger, quotas=AdmissionQuotas())
+
+
+def submit_checked(pool, batch: FloodBatch, launches: dict, what: str):
+    """pool.submit_batch of the batch decoded from its wire bytes, counted
+    (counted_run): every lane's (tx hash, status, sender) as the batch
+    wants it. Returns (results, wall ms)."""
+    txs = batch.fresh()
+    t0 = time.perf_counter()
+    results, _ = counted_run(lambda: pool.submit_batch(txs), launches, what)
+    ms = (time.perf_counter() - t0) * 1e3
+    got = [(r.tx_hash, int(r.status), r.sender) for r in results]
+    if got != batch.want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, batch.want)) if g != w)
+        raise AssertionError(f"{what}: lane {bad} gave {got[bad]}, not {batch.want[bad]}")
+    return results, ms
+
+
+def write_block(pool, ledger, store, suite, nodes, hasher: str, oracle: PoolOracle, what: str) -> dict:
+    """Seal one block of the pool's txs and write it as the node does: the
+    txs root on the card, prewrite_block into an overlay, its state hash on
+    the card, merge_into_prev, on_block_committed. Returns each stage's ms
+    and the block's hashes; the root and the state hash go to the oracle."""
+    from fisco_bcos_tpu_torch.protocol import Block, BlockHeader, ParentInfo
+    from fisco_bcos_tpu_torch.storage import StateStorage
+
+    ms = {}
+    number = ledger.block_number() + 1
+    t0 = time.perf_counter()
+    txs, hashes = pool.seal_txs(ledger.ledger_config().tx_count_limit)
+    ms["seal_txs"] = (time.perf_counter() - t0) * 1e3
+    block = Block(header=BlockHeader(
+        version=1, parent_info=[ParentInfo(number - 1, ledger.block_hash_by_number(number - 1))], number=number,
+        timestamp=1_700_000_000_000 + number, sealer=number % 4, sealer_list=list(nodes), consensus_weights=[1] * 4,
+    ), transactions=txs)
+    t0 = time.perf_counter()
+    root, _ = counted_run(lambda: block.calculate_txs_root(suite), {f"{hasher}_packed": tree_levels(len(txs))},
+                          f"{what}'s txs root")
+    ms["txs_root"] = (time.perf_counter() - t0) * 1e3
+    block.header.txs_root = root
+    overlay = StateStorage(prev=store)
+    t0 = time.perf_counter()
+    ledger.prewrite_block(block, overlay)
+    ms["prewrite_block"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    state, _ = counted_run(lambda: overlay.hash(suite), {f"{hasher}_packed": 1}, f"{what}'s state hash")
+    ms["state_hash"] = (time.perf_counter() - t0) * 1e3
+    oracle.root(f"{what}'s txs root", hasher, hashes, root)
+    oracle.state(f"{what}'s state hash", hasher, state_preimages(overlay), state)
+    t0 = time.perf_counter()
+    overlay.merge_into_prev()
+    ms["merge"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pool.on_block_committed(number, hashes)
+    ms["on_block_committed"] = (time.perf_counter() - t0) * 1e3
+    if ledger.block_number() != number or ledger.header_by_number(number).txs_root != root:
+        raise AssertionError(f"{what} was not written as block {number}")
+    k = len({t.sender for t in txs})  # round-robin: the first k sealed come from the k senders
+    if len({t.sender for t in txs[:k]}) != k:
+        raise AssertionError(f"{what}: seal_txs did not go round its {k} senders")
+    return {"ms": ms, "hashes": hashes, "txs": len(txs)}
+
+
+def run_flood(card: str, suite, batches: list[FloodBatch], oracle: PoolOracle) -> dict:
+    """The flood: each batch submitted to one pool, then a block of it
+    sealed and written, in turn; every lane's result held against the
+    batch's expectation, each submit_batch counted (one admit_batch's
+    launches), each root and state hash counted and sent to the oracle."""
+    import gc
+
+    store, ledger, nodes = txpool_genesis(suite, "ecdsa")
+    pool = new_pool(suite, ledger)
+    stages = {k: [] for k in FLOOD_STAGES}
+    written = 0
+    full_collections = gc.get_stats()[2]["collections"]
+    for b, batch in enumerate(batches):
+        if ledger.block_number() != b:
+            raise AssertionError(f"flood batch {b} submitted at head {ledger.block_number()}")
+        results, ms = submit_checked(pool, batch, ADMIT_LAUNCHES, f"TxPool.submit_batch of flood batch {b}")
+        stages["submit_batch"].append(ms)
+        admitted = {r.tx_hash for r in results if r.status == 0}
+        block = write_block(pool, ledger, store, suite, nodes, "keccak256", oracle, f"flood block {b + 1}")
+        if set(block["hashes"]) != admitted or pool.pending_count():
+            raise AssertionError(f"flood block {b + 1} is not batch {b}'s admitted transactions")
+        for k, v in block["ms"].items():
+            stages[k].append(v)
+        written += block["txs"]
+    flood_ms = sum(sum(v) for v in stages.values())
+    full_collections = gc.get_stats()[2]["collections"] - full_collections
+    statuses = {}
+    for _, st, _ in batches[MIXED_BATCH].want:
+        statuses[st] = statuses.get(st, 0) + 1
+    log(f"[{card}] txpool flood: {sum(len(b.wires) for b in batches)} transactions in {len(batches)} batches of "
+        f"{BLOCK_TXS}, {written} written in {len(batches)} blocks; the mixed batch's statuses "
+        f"{json.dumps(statuses)} (bad signatures: {', '.join(BAD_SIGNATURES)}); every lane's tx hash, status "
+        f"and sender as built; each submit_batch {show_launches(ADMIT_LAUNCHES)}")
+    log(f"[{card}] txpool flood, submitted to written: {flood_ms:.1f} ms, {written / flood_ms * 1e3:.0f} tx/s "
+        f"(wire decode excluded; {full_collections} full garbage collections meanwhile); a stage, median of "
+        f"the {len(batches)} blocks (ms, each block): "
+        + "; ".join(f"{k} {statistics.median(v):.3f} ({', '.join(f'{x:.2f}' for x in v)})"
+                    for k, v in stages.items()))
+    return {"store": store, "ledger": ledger, "pool": pool, "stages": stages, "flood_ms": flood_ms,
+            "written": written}
+
+
+def pool_stages(suite, ledger, batch: FloodBatch) -> dict[str, float]:
+    """submit_batch's stages one at a time on fresh objects (median of 3):
+    the static gates (check_static and the batch's nonce set), the payload
+    encode, batch_admit, and the results and inserts."""
+    from fisco_bcos_tpu_torch.txpool.txpool import TxSubmitResult
+    from fisco_bcos_tpu_torch.txpool.validator import batch_admit
+    from fisco_bcos_tpu_torch.utils.error import ErrorCode
+
+    out = {}
+
+    def timed(name, prepare, fn):
+        times = []
+        for _ in range(3):
+            arg = prepare()
+            t0 = time.perf_counter()
+            fn(arg)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+
+    def static(arg):
+        pool, txs = arg
+        seen = set()
+        for tx in txs:
+            if pool.validator.check_static(tx) == ErrorCode.SUCCESS and tx.nonce not in seen:
+                seen.add(tx.nonce)
+
+    def inserts(arg):
+        pool, txs = arg
+        for tx in txs:
+            h = tx.hash(suite)
+            pool._insert(tx, h, persist=False)
+            TxSubmitResult(h, ErrorCode.SUCCESS, tx.sender)
+
+    def admitted():
+        txs = batch.fresh()
+        batch_admit(txs, suite)
+        return new_pool(suite, ledger), txs
+
+    timed("static gates", lambda: (new_pool(suite, ledger), batch.fresh()), static)
+    timed("payload encode", batch.fresh, lambda txs: [t.encode_data() for t in txs])
+    timed("batch_admit", batch.fresh, lambda txs: batch_admit(txs, suite))
+    timed("results and inserts", admitted, inserts)
+    return out
+
+
+def time_pool(card: str, suite, batch: FloodBatch) -> dict:
+    """submit_batch of one 10,240-tx batch into fresh pools (a warm call,
+    then the median of POOL_REPS), its stages, admit_batch of the same
+    payloads and signatures alone in turns with it, and one profiled call."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch
+
+    _, ledger, _ = txpool_genesis(suite, "ecdsa")
+
+    def submit(txs=None):
+        txs = batch.fresh() if txs is None else txs
+        pool = new_pool(suite, ledger)
+        t0 = time.perf_counter()
+        pool.submit_batch(txs)
+        return (time.perf_counter() - t0) * 1e3
+
+    submit()
+    reps = [submit() for _ in range(POOL_REPS)]
+    submit_ms = statistics.median(reps)
+    stages = pool_stages(suite, ledger, batch)
+    sigs = np.frombuffer(b"".join(batch.sigs), dtype=np.uint8).reshape(-1, 65)
+
+    def alone():
+        t0 = time.perf_counter()
+        admit_batch(batch.payloads, sigs, device=suite.device)
+        return (time.perf_counter() - t0) * 1e3
+
+    alone()
+    turns = {"admit_batch alone": [], "submit_batch": []}
+    for _ in range(POOL_TURNS):
+        for who in ("admit_batch alone", "submit_batch", "submit_batch", "admit_batch alone"):
+            turns[who].append(alone() if who == "admit_batch alone" else submit())
+    log(f"[{card}] TxPool.submit_batch @ {BLOCK_TXS} txs into a fresh pool, median of {POOL_REPS}: {submit_ms:.2f} ms "
+        f"({BLOCK_TXS / submit_ms * 1e3:.0f} tx/s; each {', '.join(f'{x:.2f}' for x in reps)})")
+    log(f"[{card}] TxPool.submit_batch stages, one at a time, median of 3 (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    log(f"[{card}] admit_batch alone and submit_batch on the same {BLOCK_TXS} transactions, in turns (ms): "
+        + "; ".join(f"{k} median {statistics.median(v):.3f} ({', '.join(f'{x:.2f}' for x in v)})"
+                    for k, v in turns.items())
+        + f"; the pool adds {statistics.median(turns['submit_batch']) - statistics.median(turns['admit_batch alone']):.3f}")
+    ready = [batch.fresh() for _ in range(4)]  # profiled_events makes a warm call and three traced ones
+    log_busy(card, f"TxPool.submit_batch @ {BLOCK_TXS} txs", lambda: submit(ready.pop() if ready else None))
+    return {"submit_ms": submit_ms, "stages": stages, "turns": turns}
+
+
+def run_sm_pool(card: str, device, oracle: PoolOracle) -> None:
+    """One 10,240-tx batch of the SM suite (bench_sm2's 64 signers) through
+    an SM pool and into a block, checked as the flood is: every lane's
+    tx hash, status and sender, admit_batch_sm's launches, the block's SM3
+    txs root and state hash against the host oracle."""
+    from fisco_bcos_tpu_torch.crypto.suite import sm_suite
+
+    suite = sm_suite(device)
+    signers = flood_signers("sm")
+    batch = FloodBatch("sm", 0, device, signers)
+    batch.check_signatures(signers)
+    oracle.digests("SM tx hash sample", "sm3", *zip(*batch.rng.sample(
+        list(zip(batch.payloads, batch.hashes)), POOL_SAMPLE)))
+    store, ledger, nodes = txpool_genesis(suite, "sm")
+    pool = new_pool(suite, ledger)
+    _, ms = submit_checked(pool, batch, ADMIT_SM_LAUNCHES, "the SM pool's submit_batch")
+    block = write_block(pool, ledger, store, suite, nodes, "sm3", oracle, "the SM block")
+    log(f"[{card}] SM pool: submit_batch @ {BLOCK_TXS} txs {ms:.2f} ms (one call, counted: "
+        f"{show_launches(ADMIT_SM_LAUNCHES)}), every lane's tx hash, status and sender as built; its block of "
+        f"{block['txs']} written (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in block["ms"].items()))
+
+
+def run_txpool_phase(card: str, device) -> dict:
+    """The node's transaction pool on the card (``fisco_bcos_tpu_torch/txpool``
+    over the port's ledger and storage): BASELINE config 4's flood of
+    51,200 parallel-transfer transactions (5 batches of 10,240 from
+    bench.py's 64 signers, one batch also carrying every rejected kind),
+    each batch admitted by TxPool.submit_batch and sealed into a 10,240-tx
+    block that the Ledger writes; a replay of a committed batch (no launch);
+    submit_batch's time, stages and device-busy share beside admit_batch
+    alone; one SM batch through an SM pool; every root and state hash and a
+    sample of tx hashes against the host oracle at the end."""
+    from fisco_bcos_tpu_torch.crypto.suite import ecdsa_suite
+    from fisco_bcos_tpu_torch.utils.error import ErrorCode
+
+    t0 = time.perf_counter()
+    suite = ecdsa_suite(device)
+    signers = flood_signers("ecdsa")
+    batches = [FloodBatch("ecdsa", b, device, signers, head=b) for b in range(FLOOD_BATCHES)]
+    oracle = PoolOracle()
+    for b, batch in enumerate(batches):
+        batch.check_signatures(signers)
+        oracle.digests(f"flood batch {b}'s tx hash sample", "keccak256",
+                       *zip(*batch.rng.sample(list(zip(batch.payloads, batch.hashes)), POOL_SAMPLE)))
+    log(f"[{card}] txpool phase: {FLOOD_BATCHES * BLOCK_TXS} transactions built and signed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flood = run_flood(card, suite, batches, oracle)
+    t1 = time.perf_counter()
+    replay, _ = counted_run(lambda: flood["pool"].submit_batch(batches[0].fresh()), {}, "a committed batch's replay")
+    replay_ms = (time.perf_counter() - t1) * 1e3
+    if [(r.tx_hash, r.status) for r in replay] != [(h, ErrorCode.TX_ALREADY_IN_CHAIN) for h, _, _ in batches[0].want]:
+        raise AssertionError("a committed batch's replay did not give TX_ALREADY_IN_CHAIN on every lane")
+    log(f"[{card}] replay of committed flood batch 0: TX_ALREADY_IN_CHAIN on all {BLOCK_TXS} lanes, no kernel "
+        f"launched, {replay_ms:.1f} ms (each rejected lane hashed singly on the host)")
+    timed = time_pool(card, suite, batches[0])
+    with oracle_pool() as pool:
+        run_sm_pool(card, device, oracle)
+        oracle.settle(card, pool)
+    log(f"[{card}] txpool phase: {time.perf_counter() - t0:.1f} s")
+    return {**timed, "flood_ms": flood["flood_ms"], "written": flood["written"], "stages": flood["stages"]}
+
+
+def phase_clock():
+    """lap(name) logs the seconds since the last lap (or since this call)
+    and since this call: the command time a phase takes."""
+    start = last = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - last:.1f} s (command so far {now - start:.1f} s)")
+        last = now
+
+    return lap
+
+
 ROW_KEYS = (
     "name", "route", "source", "replaces", "launches", "max_abs_err",
     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -5301,6 +5905,7 @@ def main() -> int:
     card = card_line()
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    lap = phase_clock()
     t0 = time.perf_counter()
     names = list(_kernels.SOURCES)
     parent = load_kernels_module(args.parent) if args.parent else None
@@ -5332,9 +5937,11 @@ def main() -> int:
         if len(sizes) > 1:
             log(f"  {name}: SASS instructions a kernel {json.dumps(sizes)}")
 
+    lap('builds')
     # -- the device observatory, in fresh interpreters over the libraries just built --
     run_observatory_phase(card)
 
+    lap('observatory')
     device = resolve_device()
     t0 = time.perf_counter()
     cases = make_cases(UNIQUE_SIGNERS, SEED)
@@ -5365,6 +5972,7 @@ def main() -> int:
     payloads, sigs65, _ = tile(block, BLOCK_TXS)
     log_busy(card, "admit_batch", lambda: admit_batch(payloads, sigs65))
 
+    lap('secp256k1 admission')
     # -- secp256k1 verify --
     verify_mixed_err, _ = check_verify_block(verify_cases, device, "verify mixed block")
     verify_err, verify_plain_ms = check_verify_block(verify_block, device, "verify timed block")
@@ -5384,11 +5992,12 @@ def main() -> int:
         log(f"[{card}] verify_batch stages{' (parent checkout)' if who else ''} (ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in v_stages.items()))
 
+    lap('secp256k1 verify')
     # -- SM2 / SM-suite admission --
-    sm_mixed_err, _ = check_sm2_mixed_block(sm_cases, device)
+    sm_mixed_err, sm_plain_ms = check_sm2_mixed_block(sm_cases, device)
     sm_launches, sm_admit_ms = run_sm_path(sm_block)
-    sm2_row, sm2_verify_batch_ms = measure_sm2(sm_block, device)
-    sm2_row.update(launches=sm_launches["sm2_verify"], max_abs_err=max(sm2_row["max_abs_err"], sm_mixed_err))
+    sm2_row, sm2_verify_batch_ms = measure_sm2(sm_block, device, sm_plain_ms, sm_mixed_err)
+    sm2_row["launches"] = sm_launches["sm2_verify"]
     log_kernel(card, sm2_row)
     log(f"[{card}] sm2.verify_batch @ {BLOCK_TXS} signatures: {sm2_verify_batch_ms:.2f} ms "
         f"end to end ({BLOCK_TXS / sm2_verify_batch_ms * 1e3:.0f} verifies/s)")
@@ -5401,6 +6010,7 @@ def main() -> int:
     sm_payloads, sigs128, _ = sm2_tile(sm_block, BLOCK_TXS)
     log_busy(card, "admit_batch_sm", lambda: admit_batch_sm(sm_payloads, sigs128))
 
+    lap('SM admission')
     # -- hash kernels: the packed forms, the forms, the merkle root --
     hash_errs = check_hash_kernels(device)
     hash_errs.update(check_hash_forms(cases, sm_cases, device))
@@ -5425,43 +6035,61 @@ def main() -> int:
         log_kernel(card, row)
         hash_rows.append(row)
 
+    lap('hash kernels')
     # -- the CryptoSuite seam, driven as the node drives it --
     run_suite_phase(card, block, cases, sm_block, sm_cases, verify_cases, merkle_trees)
 
+    lap('suite')
     # -- Ed25519: the kernel, verify_batch, the suite's Ed25519Crypto --
     ed_rows, ed_block, ed_cases = run_ed25519_phase(card, device, parent)
 
+    lap('Ed25519')
     # -- Poseidon: the kernel, the state plane's commitment at its defaults --
     poseidon_row_, poseidon_blocks = run_poseidon_phase(card, device)
     log_kernel(card, poseidon_row_)
 
+    lap('Poseidon')
     # -- BLS12-381: the pairing kernel, BLSCrypto's aggregate (QC) check --
     bls_row = run_bls_phase(card, device, parent)
     log_kernel(card, bls_row)
 
+    lap('BLS')
     # -- BLS12-381: the multi-pairing kernel, header sync's multi_pairing_verify --
     multi_row = run_multi_pairing_phase(card, device, parent)
     log_kernel(card, multi_row)
 
+    lap('multi-pairing')
     # -- the DevicePlane: every seam merged, the window, concurrent callers, lanes --
     run_plane_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block, verify_block, sm_block, ed_block)
 
+    lap('plane')
     # -- the multi-device fan-out: every sharded program on one card and on logical meshes over it --
     run_sharding_phase(card, device, cases, verify_cases, sm_cases, ed_cases, block)
 
+    lap('sharding')
+    # -- the node's transaction pool: the flood admitted, sealed and written; an SM batch --
+    run_txpool_phase(card, device)
+
+    lap('txpool')
     timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block, poseidon_blocks)
     if parent:
         time_against_parent(card, parent, timed_args,
                             parent_kernel_args(parent, device, verify_block, args.parent, timed_args))
     lane_scaling(card, timed_args)
+    lap('parent and lane scaling')
     call_anatomy(card, timed_args["keccak256_packed"], timed_args["ed25519_challenge"], parent)
+    lap('call anatomy')
     stage_sweep(card, {**stage_libs, 16384: _kernels.library_path("keccak256")}, device)
+    lap('stage sweep')
     field_bench(card, bench_libs, {label: checkout_poseidon_table(c, device) for label, c in checkouts.items()})
+    lap('field bench')
     hash_bench(card, bench_libs)
+    lap('hash bench')
     bench = bls_bench(card, bench_libs)
     bls_latency_floor(card, bench, bls_row["one_lane_ms"], bls_row["one_lane_bound_ms"])
     bls_multi_latency_floor(card, bench, multi_row["times"])
 
+    lap('BLS bench and floors')
     drain_plane()  # every request of every phase answered: a failed one has raised
     rows = (recover, verify, sm2_row, *hash_rows, *ed_rows, poseidon_row_, bls_row, multi_row)
     log(json.dumps({"kernels": [{k: row[k] for k in ROW_KEYS} for row in rows]}))

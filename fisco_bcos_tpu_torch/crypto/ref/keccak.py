@@ -26,30 +26,41 @@ _ROT = [
 _MASK = (1 << 64) - 1
 
 
-def _rotl(v: int, n: int) -> int:
-    n %= 64
-    return ((v << n) | (v >> (64 - n))) & _MASK
+# rho + pi as (source lane, destination lane, rotation): B[y, 2x+3y] = rot(A[x, y])
+_RHO_PI = [(x + 5 * y, y + 5 * ((2 * x + 3 * y) % 5), _ROT[x][y]) for x in range(5) for y in range(5)]
 
 
 def keccak_f1600(state: list[int]) -> list[int]:
     """24-round Keccak-f[1600] permutation over 25 lanes (index = x + 5y)."""
     A = list(state)
+    B = [0] * 25
+    M = _MASK
     for rc in _RC:
         # theta
-        C = [A[x] ^ A[x + 5] ^ A[x + 10] ^ A[x + 15] ^ A[x + 20] for x in range(5)]
-        D = [C[(x - 1) % 5] ^ _rotl(C[(x + 1) % 5], 1) for x in range(5)]
-        A = [A[i] ^ D[i % 5] for i in range(25)]
-        # rho + pi: B[y, 2x+3y] = rot(A[x, y])
-        B = [0] * 25
-        for x in range(5):
-            for y in range(5):
-                B[y + 5 * ((2 * x + 3 * y) % 5)] = _rotl(A[x + 5 * y], _ROT[x][y])
-        # chi
-        A = [
-            B[x + 5 * y] ^ ((~B[(x + 1) % 5 + 5 * y]) & _MASK & B[(x + 2) % 5 + 5 * y])
-            for y in range(5)
-            for x in range(5)
-        ]
+        c0 = A[0] ^ A[5] ^ A[10] ^ A[15] ^ A[20]
+        c1 = A[1] ^ A[6] ^ A[11] ^ A[16] ^ A[21]
+        c2 = A[2] ^ A[7] ^ A[12] ^ A[17] ^ A[22]
+        c3 = A[3] ^ A[8] ^ A[13] ^ A[18] ^ A[23]
+        c4 = A[4] ^ A[9] ^ A[14] ^ A[19] ^ A[24]
+        D = (
+            c4 ^ (((c1 << 1) | (c1 >> 63)) & M),
+            c0 ^ (((c2 << 1) | (c2 >> 63)) & M),
+            c1 ^ (((c3 << 1) | (c3 >> 63)) & M),
+            c2 ^ (((c4 << 1) | (c4 >> 63)) & M),
+            c3 ^ (((c0 << 1) | (c0 >> 63)) & M),
+        )
+        # theta's column parity applied, then rho + pi
+        for src, dst, r in _RHO_PI:
+            v = A[src] ^ D[src % 5]
+            B[dst] = ((v << r) | (v >> (64 - r))) & M if r else v
+        # chi (~b & c stays within 64 bits for a non-negative c)
+        for y in (0, 5, 10, 15, 20):
+            b0, b1, b2, b3, b4 = B[y : y + 5]
+            A[y] = b0 ^ (~b1 & b2)
+            A[y + 1] = b1 ^ (~b2 & b3)
+            A[y + 2] = b2 ^ (~b3 & b4)
+            A[y + 3] = b3 ^ (~b4 & b0)
+            A[y + 4] = b4 ^ (~b0 & b1)
         # iota
         A[0] ^= rc
     return A

@@ -1,0 +1,458 @@
+"""Ledger — chain data schema and access (the port's copy of the JAX
+package's ``ledger/ledger.py``: the same rows, byte for byte; hashes, roots
+and proof trees on the port's suite, on its device).
+
+Reference: bcos-ledger/src/libledger/Ledger.cpp (asyncPrewriteBlock,
+asyncStoreTransactions, asyncGetBlockDataByNumber, getTxProof/getReceiptProof,
+genesis build) over the system tables of
+bcos-framework/ledger/LedgerTypeDef.h:59-73:
+
+  s_consensus          key "key" -> consensus node list (type+weight+enable#)
+  s_config             config key -> (value, enable-block-number)
+  s_current_state      "current_number" / "total_transaction_count" / ...
+  s_hash_2_number      block hash -> number
+  s_number_2_hash      number -> block hash
+  s_block_number_2_nonces  number -> nonce list (block-limit replay window)
+  s_number_2_header    number -> encoded header
+  s_number_2_txs       number -> tx hash list
+  s_hash_2_tx          tx hash -> encoded tx
+  s_hash_2_receipt     tx hash -> encoded receipt
+  s_code_binary        code hash -> bytecode
+  s_contract_abi       code hash -> abi json
+
+Writes go into a caller-supplied StateStorage overlay (the block-commit 2PC
+stages that overlay into the durable backend) — mirroring asyncPrewriteBlock's
+participation in the scheduler's two-phase commit.
+
+The port has no proof plane: ``Ledger.proof_plane`` stays None unless a
+caller attaches one, and proofs take the direct bodies on the suite's
+``merkle_tree``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..codec.flat import FlatReader, FlatWriter
+from ..crypto.suite import CryptoSuite
+from ..ops.merkle import MerkleProofItem
+from ..protocol import Block, BlockHeader, Transaction, TransactionReceipt
+from ..protocol.transaction import hash_transactions_batch
+from ..storage.entry import Entry
+from ..storage.interfaces import StorageInterface
+from ..utils.log import get_logger
+
+# system table names (LedgerTypeDef.h:59-73)
+SYS_CONSENSUS = "s_consensus"
+SYS_CONFIG = "s_config"
+SYS_CURRENT_STATE = "s_current_state"
+SYS_HASH_2_NUMBER = "s_hash_2_number"
+SYS_NUMBER_2_HASH = "s_number_2_hash"
+SYS_NUMBER_2_NONCES = "s_block_number_2_nonces"
+SYS_NUMBER_2_HEADER = "s_number_2_header"
+SYS_NUMBER_2_TXS = "s_number_2_txs"
+SYS_HASH_2_TX = "s_hash_2_tx"
+SYS_HASH_2_RECEIPT = "s_hash_2_receipt"
+SYS_CODE_BINARY = "s_code_binary"
+SYS_CONTRACT_ABI = "s_contract_abi"
+
+SYSTEM_TABLES = [
+    SYS_CONSENSUS,
+    SYS_CONFIG,
+    SYS_CURRENT_STATE,
+    SYS_HASH_2_NUMBER,
+    SYS_NUMBER_2_HASH,
+    SYS_NUMBER_2_NONCES,
+    SYS_NUMBER_2_HEADER,
+    SYS_NUMBER_2_TXS,
+    SYS_HASH_2_TX,
+    SYS_HASH_2_RECEIPT,
+    SYS_CODE_BINARY,
+    SYS_CONTRACT_ABI,
+]
+
+# s_current_state keys
+KEY_CURRENT_NUMBER = b"current_number"
+KEY_TOTAL_TX_COUNT = b"total_transaction_count"
+KEY_TOTAL_FAILED_TX_COUNT = b"total_failed_transaction_count"
+
+# s_config keys (SystemConfigPrecompiled-governed)
+CONFIG_TX_COUNT_LIMIT = b"tx_count_limit"
+CONFIG_LEADER_PERIOD = b"consensus_leader_period"
+CONFIG_GAS_LIMIT = b"tx_gas_limit"
+
+_log = get_logger("ledger")
+
+
+@dataclass(frozen=True)
+class ConsensusNode:
+    node_id: bytes  # node public key (64 bytes)
+    weight: int = 1
+    node_type: str = "consensus_sealer"  # or "consensus_observer"
+    enable_number: int = 0
+    # registered quorum-certificate pubkey (consensus/qc.py): 32-byte
+    # ed25519 or 48-byte BLS G1, derived from the member's consensus
+    # secret (qc_pub_for). Empty = member not QC-capable — the engine then
+    # keeps the legacy per-signature path for the whole committee.
+    # Registration here is the proof-of-possession boundary for BLS
+    # rogue-key safety.
+    qc_pub: bytes = b""
+
+
+@dataclass
+class GenesisConfig:
+    chain_id: str = "chain0"
+    group_id: str = "group0"
+    consensus_nodes: list[ConsensusNode] = field(default_factory=list)
+    tx_count_limit: int = 1000
+    leader_period: int = 1
+    gas_limit: int = 3_000_000_000
+    version: int = 1
+    timestamp: int = 0
+    # chain VM type (the reference genesis [executor] is_wasm flag): a wasm
+    # chain runs liquid/WASM contracts, an EVM chain Solidity bytecode
+    is_wasm: bool = False
+    # WASM gas strategy — "dispatch" (per-instruction) or "inject"
+    # (GasInjector-style per-basic-block). CHAIN-level because the two
+    # differ on trap receipts (inject charges the whole entered block); a
+    # per-node setting would fork receipt roots
+    wasm_gas_mode: str = "dispatch"
+    # account-governance governor addresses (hex) — the AuthCommittee
+    # governor list analog consumed by AccountManagerPrecompiled
+    governors: list[str] = field(default_factory=list)
+
+
+@dataclass
+class LedgerConfig:
+    """What consensus needs from the ledger (bcos-framework LedgerConfig)."""
+
+    block_number: int = 0
+    block_hash: bytes = b"\x00" * 32
+    consensus_nodes: list[ConsensusNode] = field(default_factory=list)
+    tx_count_limit: int = 1000
+    leader_period: int = 1
+    gas_limit: int = 3_000_000_000
+
+
+def _encode_nodes(nodes: list[ConsensusNode]) -> bytes:
+    w = FlatWriter()
+    w.seq(
+        nodes,
+        lambda w2, n: (
+            w2.bytes_(n.node_id),
+            w2.u64(n.weight),
+            w2.str_(n.node_type),
+            w2.i64(n.enable_number),
+            w2.bytes_(n.qc_pub),
+        ),
+    )
+    return w.out()
+
+
+def _decode_nodes(buf: bytes) -> list[ConsensusNode]:
+    # current format carries qc_pub per row; fall back to the pre-QC row
+    # shape for tables written by an older build (durable sqlite chains)
+    for with_qc in (True, False):
+        try:
+            r = FlatReader(buf)
+            nodes = r.seq(
+                lambda r2: ConsensusNode(
+                    r2.bytes_(),
+                    r2.u64(),
+                    r2.str_(),
+                    r2.i64(),
+                    qc_pub=r2.bytes_() if with_qc else b"",
+                )
+            )
+            r.done()
+            return nodes
+        except ValueError:
+            if not with_qc:
+                raise
+    raise ValueError("undecodable consensus node table")
+
+
+def _encode_hash_list(hashes: list[bytes]) -> bytes:
+    return b"".join(hashes)
+
+
+def _decode_hash_list(buf: bytes) -> list[bytes]:
+    return [buf[i : i + 32] for i in range(0, len(buf), 32)]
+
+
+class Ledger:
+    def __init__(self, storage: StorageInterface, suite: CryptoSuite):
+        self.storage = storage
+        self.suite = suite
+        # read-path proof server; None = the direct per-request rebuild
+        # bodies below (the port has no proof plane of its own)
+        self.proof_plane = None
+
+    # -- genesis ------------------------------------------------------------
+
+    def build_genesis(self, cfg: GenesisConfig) -> BlockHeader:
+        """Idempotent genesis bootstrap (Ledger.cpp buildGenesisBlock)."""
+        existing = self.storage.get_row(SYS_NUMBER_2_HEADER, b"0")
+        if existing is not None:
+            return BlockHeader.decode(existing.get())
+        header = BlockHeader(
+            version=cfg.version,
+            number=0,
+            timestamp=cfg.timestamp,
+            extra_data=f"{cfg.chain_id}/{cfg.group_id}".encode(),
+            sealer_list=[n.node_id for n in cfg.consensus_nodes],
+            consensus_weights=[n.weight for n in cfg.consensus_nodes],
+        )
+        h = header.hash(self.suite)
+        put = self.storage.set_row
+        put(SYS_NUMBER_2_HEADER, b"0", Entry().set(header.encode()))
+        put(SYS_NUMBER_2_HASH, b"0", Entry().set(h))
+        put(SYS_HASH_2_NUMBER, h, Entry().set(b"0"))
+        put(SYS_CURRENT_STATE, KEY_CURRENT_NUMBER, Entry().set(b"0"))
+        put(SYS_CURRENT_STATE, KEY_TOTAL_TX_COUNT, Entry().set(b"0"))
+        put(SYS_CURRENT_STATE, KEY_TOTAL_FAILED_TX_COUNT, Entry().set(b"0"))
+        put(SYS_CONSENSUS, b"key", Entry().set(_encode_nodes(cfg.consensus_nodes)))
+        for key, val in (
+            (CONFIG_TX_COUNT_LIMIT, cfg.tx_count_limit),
+            (CONFIG_LEADER_PERIOD, cfg.leader_period),
+            (CONFIG_GAS_LIMIT, cfg.gas_limit),
+        ):
+            e = Entry().set(str(val).encode()).set("enable_number", b"0")
+            put(SYS_CONFIG, key, e)
+        if cfg.governors:
+            e = Entry().set(",".join(cfg.governors).encode())
+            e.set("enable_number", b"0")
+            put(SYS_CONFIG, b"auth_governors", e)
+        _log.info("genesis built: hash=%s nodes=%d", h.hex()[:16], len(cfg.consensus_nodes))
+        return header
+
+    # -- block write (participates in the commit 2PC via `out` overlay) -----
+
+    def prewrite_block(self, block: Block, out: StorageInterface) -> None:
+        """Stage all chain-data writes for `block` into the overlay `out`
+        (Ledger.cpp asyncPrewriteBlock)."""
+        header = block.header
+        suite = self.suite
+        num_key = str(header.number).encode()
+        h = header.hash(suite)
+        put = out.set_row
+        put(SYS_NUMBER_2_HEADER, num_key, Entry().set(header.encode()))
+        put(SYS_NUMBER_2_HASH, num_key, Entry().set(h))
+        put(SYS_HASH_2_NUMBER, h, Entry().set(num_key))
+        put(SYS_CURRENT_STATE, KEY_CURRENT_NUMBER, Entry().set(num_key))
+
+        tx_hashes = (
+            hash_transactions_batch(block.transactions, suite)
+            if block.transactions
+            else list(block.tx_metadata)
+        )
+        put(SYS_NUMBER_2_TXS, num_key, Entry().set(_encode_hash_list(tx_hashes)))
+        for tx, th in zip(block.transactions, tx_hashes):
+            put(SYS_HASH_2_TX, th, Entry().set(tx.encode()))
+        failed = 0
+        for rc, th in zip(block.receipts, tx_hashes):
+            if rc.status != 0:
+                failed += 1
+            put(SYS_HASH_2_RECEIPT, th, Entry().set(rc.encode()))
+        nonces = FlatWriter()
+        nonces.seq(
+            [t.nonce for t in block.transactions], lambda w2, n: w2.str_(n)
+        )
+        put(SYS_NUMBER_2_NONCES, num_key, Entry().set(nonces.out()))
+
+        # totals read through the overlay first so pipelined prewrites see
+        # earlier staged increments, then fall back to committed state
+        def staged_total(key: bytes) -> int:
+            e = out.get_row(SYS_CURRENT_STATE, key)
+            if e is not None:
+                return int(e.get().decode())
+            return self._current_state(key)
+
+        total = staged_total(KEY_TOTAL_TX_COUNT) + len(tx_hashes)
+        put(SYS_CURRENT_STATE, KEY_TOTAL_TX_COUNT, Entry().set(str(total).encode()))
+        if failed:
+            tfail = staged_total(KEY_TOTAL_FAILED_TX_COUNT) + failed
+            put(
+                SYS_CURRENT_STATE,
+                KEY_TOTAL_FAILED_TX_COUNT,
+                Entry().set(str(tfail).encode()),
+            )
+
+    def store_code(self, code_hash: bytes, code: bytes, abi: str, out: StorageInterface) -> None:
+        out.set_row(SYS_CODE_BINARY, code_hash, Entry().set(code))
+        if abi:
+            out.set_row(SYS_CONTRACT_ABI, code_hash, Entry().set(abi.encode()))
+
+    # -- reads --------------------------------------------------------------
+
+    def _current_state(self, key: bytes) -> int:
+        e = self.storage.get_row(SYS_CURRENT_STATE, key)
+        return int(e.get().decode()) if e is not None else 0
+
+    def block_number(self) -> int:
+        return self._current_state(KEY_CURRENT_NUMBER)
+
+    def total_transaction_count(self) -> int:
+        return self._current_state(KEY_TOTAL_TX_COUNT)
+
+    def total_failed_transaction_count(self) -> int:
+        return self._current_state(KEY_TOTAL_FAILED_TX_COUNT)
+
+    def block_hash_by_number(self, number: int) -> bytes | None:
+        e = self.storage.get_row(SYS_NUMBER_2_HASH, str(number).encode())
+        return e.get() if e is not None else None
+
+    def block_number_by_hash(self, h: bytes) -> int | None:
+        e = self.storage.get_row(SYS_HASH_2_NUMBER, h)
+        return int(e.get().decode()) if e is not None else None
+
+    def header_by_number(self, number: int) -> BlockHeader | None:
+        e = self.storage.get_row(SYS_NUMBER_2_HEADER, str(number).encode())
+        return BlockHeader.decode(e.get()) if e is not None else None
+
+    def tx_hashes_by_number(self, number: int) -> list[bytes]:
+        e = self.storage.get_row(SYS_NUMBER_2_TXS, str(number).encode())
+        return _decode_hash_list(e.get()) if e is not None else []
+
+    def tx_by_hash(self, h: bytes) -> Transaction | None:
+        e = self.storage.get_row(SYS_HASH_2_TX, h)
+        return Transaction.decode(e.get()) if e is not None else None
+
+    def receipt_by_hash(self, h: bytes) -> TransactionReceipt | None:
+        e = self.storage.get_row(SYS_HASH_2_RECEIPT, h)
+        return TransactionReceipt.decode(e.get()) if e is not None else None
+
+    def block_by_number(
+        self, number: int, with_txs: bool = True, with_receipts: bool = False
+    ) -> Block | None:
+        header = self.header_by_number(number)
+        if header is None:
+            return None
+        blk = Block(header=header)
+        hashes = self.tx_hashes_by_number(number)
+        blk.tx_metadata = hashes
+        if with_txs:
+            txs = [self.tx_by_hash(h) for h in hashes]
+            blk.transactions = [t for t in txs if t is not None]
+        if with_receipts:
+            rcs = [self.receipt_by_hash(h) for h in hashes]
+            blk.receipts = [rc for rc in rcs if rc is not None]
+        return blk
+
+    def nonces_by_number(self, number: int) -> list[str]:
+        e = self.storage.get_row(SYS_NUMBER_2_NONCES, str(number).encode())
+        if e is None:
+            return []
+        r = FlatReader(e.get())
+        out = r.seq(lambda r2: r2.str_())
+        r.done()
+        return out
+
+    def system_config(self, key: bytes) -> tuple[str, int] | None:
+        e = self.storage.get_row(SYS_CONFIG, key)
+        if e is None:
+            return None
+        return e.get().decode(), int(e.get("enable_number").decode() or b"0")
+
+    def consensus_nodes(self, storage=None) -> list[ConsensusNode]:
+        """Committee membership. `storage` reads through an alternative
+        layer — the pipelined commit passes the committing block's
+        post-state overlay so the engine sees a committee change at
+        optimistic-advance time, before the 2PC lands."""
+        st = storage if storage is not None else self.storage
+        e = st.get_row(SYS_CONSENSUS, b"key")
+        return _decode_nodes(e.get()) if e is not None else []
+
+    def ledger_config(self) -> LedgerConfig:
+        num = self.block_number()
+        cfg = LedgerConfig(
+            block_number=num,
+            block_hash=self.block_hash_by_number(num) or b"\x00" * 32,
+            consensus_nodes=self.consensus_nodes(),
+        )
+        for attr, key in (
+            ("tx_count_limit", CONFIG_TX_COUNT_LIMIT),
+            ("leader_period", CONFIG_LEADER_PERIOD),
+            ("gas_limit", CONFIG_GAS_LIMIT),
+        ):
+            v = self.system_config(key)
+            if v is not None:
+                setattr(cfg, attr, int(v[0]))
+        return cfg
+
+    # -- merkle proofs (MerkleProofUtility.cpp analog) -----------------------
+
+    def _proof(self, number: int, target_hash: bytes) -> tuple[list[MerkleProofItem], int, int] | None:
+        hashes = self.tx_hashes_by_number(number)
+        try:
+            idx = hashes.index(target_hash)  # one scan (was: `in` + .index)
+        except ValueError:
+            return None
+        leaves = np.frombuffer(b"".join(hashes), dtype=np.uint8).reshape(-1, 32)
+        # through the suite seam: plane-routed (or direct-but-spanned) so
+        # the cache-off rebuild stays attributed in the device observatory
+        tree = self.suite.merkle_tree(leaves)
+        return tree.proof(idx), idx, len(hashes)
+
+    def tx_proof(self, tx_hash: bytes):
+        """-> (proof items, leaf index, leaf count) against header.txs_root.
+
+        Served from the ProofPlane's frozen-tree cache when attached (Node
+        boot wires it); the direct rebuild below is the cache-off fallback
+        (FISCO_PROOF_PLANE=0 / bare Ledger constructions)."""
+        if self.proof_plane is not None:
+            return self.proof_plane.tx_proof(tx_hash)
+        rc = self.receipt_by_hash(tx_hash)
+        if rc is None:
+            return None
+        return self._proof(rc.block_number, tx_hash)
+
+    def receipt_proof(self, tx_hash: bytes):
+        """Proof that the *receipt* is in its block's receiptsRoot. Same
+        ProofPlane delegation contract as :meth:`tx_proof` — the fallback
+        re-reads every receipt in the block per request, which is exactly
+        the O(N)-per-proof shape the plane exists to kill."""
+        if self.proof_plane is not None:
+            return self.proof_plane.receipt_proof(tx_hash)
+        rc = self.receipt_by_hash(tx_hash)
+        if rc is None:
+            return None
+        return self._receipt_proof_direct(tx_hash, rc.block_number)
+
+    def _receipt_proof_direct(self, tx_hash: bytes, number: int):
+        hashes = self.tx_hashes_by_number(number)
+        try:
+            idx = hashes.index(tx_hash)  # locate BEFORE paying N receipt reads
+        except ValueError:
+            return None
+        rcs = [self.receipt_by_hash(h) for h in hashes]
+        rc_hashes = [x.hash(self.suite) for x in rcs if x is not None]
+        if len(rc_hashes) != len(hashes):
+            return None
+        leaves = np.frombuffer(b"".join(rc_hashes), dtype=np.uint8).reshape(-1, 32)
+        tree = self.suite.merkle_tree(leaves)
+        return tree.proof(idx), idx, len(rc_hashes)
+
+    def proof_batch_direct(
+        self, hashes: list[bytes], kind: str = "tx"
+    ) -> list[tuple | None]:
+        """The cache-off batch shape (aligned ``(number, items, idx, n)`` or
+        None per hash): per-hash direct rebuilds, shared by every surface's
+        FISCO_PROOF_PLANE=0 fallback (rpc, lightnode, bench) so the
+        fallback semantics can't drift between copies."""
+        out: list[tuple | None] = []
+        for h in hashes:
+            rc = self.receipt_by_hash(h)
+            if rc is None:
+                out.append(None)
+                continue
+            number = rc.block_number
+            p = (
+                self._proof(number, h)
+                if kind == "tx"
+                else self._receipt_proof_direct(h, number)
+            )
+            out.append(None if p is None else (number, *p))
+        return out

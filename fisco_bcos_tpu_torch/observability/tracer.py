@@ -93,6 +93,13 @@ def current_context() -> TraceContext | None:
     return _CURRENT.get()
 
 
+def trace_hex(ctx: TraceContext | None) -> str | None:
+    """The 32-hex trace id of a context (None-safe): the exemplar label of a
+    histogram observation. Unsampled contexts give None too: their spans
+    were all dropped."""
+    return f"{ctx.trace_id:032x}" if ctx is not None and ctx.sampled else None
+
+
 @dataclass
 class SpanRecord:
     name: str

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F_nn
 
 LIMBS = 16
 LIMB_BITS = 16
@@ -62,16 +61,16 @@ def const_col(limbs_np, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(limbs_np, dtype=np.int64), device=device)[:, None]
 
 
+# torch.nn.functional.pad's constant mode without its Python dispatch, which
+# costs as much as the op on these small tensors
+_pad = torch.constant_pad_nd
+
+
 def _fit(x: torch.Tensor, rows: int) -> torch.Tensor:
     """Truncate or zero-extend axis 0 of [L, T] to `rows`."""
     if x.shape[0] >= rows:
         return x[:rows]
-    return F_nn.pad(x, (0, 0, 0, rows - x.shape[0]))
-
-
-def _shift_up(x: torch.Tensor) -> torch.Tensor:
-    """[L, T] -> [L, T] shifted one limb toward the high end."""
-    return F_nn.pad(x[:-1], (0, 0, 1, 0))
+    return _pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -79,36 +78,51 @@ def _shift_up(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _carry_in(g: torch.Tensor, p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+_BIT_COLS: dict = {}
+
+
+def _bit_cols(L: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """([L, 1] bit positions, [L, 1] their weights 2^i) on `device`, made
+    once a (width, device)."""
+    key = (L, device)
+    cols = _BIT_COLS.get(key)
+    if cols is None:
+        bits = torch.arange(L, device=device)[:, None]
+        cols = _BIT_COLS[key] = (bits, 1 << bits)
+    return cols
+
+
+def _carry_in(g: torch.Tensor, p: torch.Tensor, carry_out: bool = True):
     """Per-position 0/1 carry-in from generate/propagate bits (bool [L, T],
-    mutually exclusive), plus the carry-out of the top position (bool [T]).
+    mutually exclusive), plus the carry-out of the top position (bool [T])
+    when `carry_out`.
 
     The chain is a binary add: pack A = g|p and B = g as L-bit integers per
     lane; position i then sees a+b = 2 (generate), 1 (propagate) or 0 (kill),
     and the carries into every bit are (A + B) ^ A ^ B. L ≤ 40 here."""
     L = g.shape[0]
-    bits = torch.arange(L, device=g.device)
-    w = (1 << bits)[:, None]
-    a = ((g | p).to(torch.int64) * w).sum(0)
-    b = (g.to(torch.int64) * w).sum(0)
+    bits, w = _bit_cols(L, g.device)
+    a = ((g | p) * w).sum(0)
+    b = (g * w).sum(0)
     s = a + b
-    cin = ((s ^ a ^ b)[None, :] >> bits[:, None]) & 1
-    return cin, ((s >> L) & 1).bool()
+    cin = ((s ^ a ^ b)[None, :] >> bits) & 1
+    return (cin, ((s >> L) & 1).bool()) if carry_out else cin
 
 
 def carry_norm(cols: torch.Tensor, bits: int = 40) -> torch.Tensor:
     """Carry-propagate non-negative column sums (each < 2^bits, bits ≤ 62):
     [L, T] -> [L+1, T] normalized 16-bit limbs (top row = final carry-out)."""
-    x = F_nn.pad(cols, (0, 0, 0, 1))
+    x = _pad(cols, (0, 0, 0, 1))
     b = bits
     while True:
         # value unchanged: limb i keeps its low 16 bits, its high part moves up
-        x = (x & MASK) + _shift_up(x >> LIMB_BITS)
+        hi = x >> LIMB_BITS
+        x = x & MASK
+        x[1:] += hi[:-1]
         if b <= 32:  # inputs < 2^32 -> every limb now ≤ 2·0xFFFF
             break
         b = max(b - LIMB_BITS, LIMB_BITS) + 1
-    cin, _ = _carry_in(x > MASK, x == MASK)
-    return (x + cin) & MASK
+    return (x + _carry_in(x > MASK, x == MASK, carry_out=False)) & MASK
 
 
 def sub_borrow(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -154,7 +168,7 @@ def conv_cols(a: torch.Tensor, b: torch.Tensor, out: int) -> torch.Tensor:
     w = ha + hb - 1
     prod = a[:, None, :] * b[None, :, :]
     t = prod.shape[-1]
-    flat = F_nn.pad(prod, (0, 0, 0, w + 1 - hb)).reshape(ha * (w + 1), t)
+    flat = _pad(prod, (0, 0, 0, w + 1 - hb)).reshape(ha * (w + 1), t)
     cols = flat[: ha * w].reshape(ha, w, t).sum(0)
     return _fit(cols, out)
 

@@ -1,0 +1,102 @@
+"""Block: header + transactions (or tx-hash metadata) + receipts (the
+port's copy of the JAX package's ``protocol/block.py``; its roots run on
+the port's ``merkle_root_async``, on the suite's device).
+
+Mirrors bcos-framework/protocol/Block.h / Block.tars. A consensus proposal
+carries only transaction *metadata* (hashes) — the pool fills full txs on
+execution (asyncFillBlock, bcos-scheduler/BlockExecutive.cpp:301-357); a
+synced/stored block carries everything. Tx/receipt merkle roots are built by
+the wide device merkle (ops/merkle), hasher chosen by the crypto suite.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..codec.flat import FlatReader, FlatWriter
+from ..crypto.suite import CryptoSuite
+from .block_header import BlockHeader
+from .receipt import TransactionReceipt
+from .transaction import Transaction, hash_transactions_batch
+
+_EMPTY_ROOT = b"\x00" * 32
+
+
+@dataclass
+class Block:
+    header: BlockHeader = field(default_factory=BlockHeader)
+    transactions: list[Transaction] = field(default_factory=list)
+    tx_metadata: list[bytes] = field(default_factory=list)  # 32-byte tx hashes
+    receipts: list[TransactionReceipt] = field(default_factory=list)
+
+    # -- serialization ------------------------------------------------------
+
+    def encode(self) -> bytes:
+        w = FlatWriter()
+        w.bytes_(self.header.encode())
+        w.seq(self.transactions, lambda w2, t: w2.bytes_(t.encode()))
+        w.seq(self.tx_metadata, lambda w2, h: w2.fixed(h, 32))
+        w.seq(self.receipts, lambda w2, rc: w2.bytes_(rc.encode()))
+        return w.out()
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "Block":
+        r = FlatReader(buf)
+        blk = cls(header=BlockHeader.decode(r.bytes_()))
+        blk.transactions = [
+            Transaction.decode(b) for b in r.seq(lambda r2: r2.bytes_())
+        ]
+        blk.tx_metadata = r.seq(lambda r2: r2.fixed(32))
+        blk.receipts = [
+            TransactionReceipt.decode(b) for b in r.seq(lambda r2: r2.bytes_())
+        ]
+        r.done()
+        return blk
+
+    @classmethod
+    def execution_view(cls, buf: bytes, transactions: list) -> "Block":
+        """Run-isolated view of an accepted proposal for (speculative)
+        execution: a PRIVATE header decoded from the accept-time snapshot
+        (execution fills roots/gas/receipts in place while the certificate
+        path serializes the cached original), sharing the already-decoded
+        transaction objects — txs are immutable once signed, so re-decoding
+        N of them per replica per block bought isolation nothing needs."""
+        r = FlatReader(buf)
+        return cls(
+            header=BlockHeader.decode(r.bytes_()),
+            transactions=list(transactions),
+        )
+
+    # -- content ------------------------------------------------------------
+
+    @property
+    def number(self) -> int:
+        return self.header.number
+
+    def tx_hashes(self, suite: CryptoSuite) -> list[bytes]:
+        if self.transactions:
+            return hash_transactions_batch(self.transactions, suite)
+        return list(self.tx_metadata)
+
+    def calculate_txs_root_async(self, suite: CryptoSuite):
+        """Dispatch-now, sync-later (() -> bytes): see suite.merkle_root_async."""
+        hashes = self.tx_hashes(suite)
+        if not hashes:
+            return lambda: _EMPTY_ROOT
+        leaves = np.frombuffer(b"".join(hashes), dtype=np.uint8).reshape(-1, 32)
+        return suite.merkle_root_async(leaves)
+
+    def calculate_txs_root(self, suite: CryptoSuite) -> bytes:
+        return self.calculate_txs_root_async(suite)()
+
+    def calculate_receipts_root_async(self, suite: CryptoSuite):
+        if not self.receipts:
+            return lambda: _EMPTY_ROOT
+        hashes = [rc.hash(suite) for rc in self.receipts]
+        leaves = np.frombuffer(b"".join(hashes), dtype=np.uint8).reshape(-1, 32)
+        return suite.merkle_root_async(leaves)
+
+    def calculate_receipts_root(self, suite: CryptoSuite) -> bytes:
+        return self.calculate_receipts_root_async(suite)()

@@ -1,0 +1,136 @@
+"""Transaction receipt + status codes (the port's copy of the JAX
+package's ``protocol/receipt.py``).
+
+Mirrors bcos-framework/protocol/TransactionReceipt.h and the tars struct
+(bcos-tars-protocol/tars/TransactionReceipt.tars); status values from
+bcos-protocol/TransactionStatus.h.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from enum import IntEnum
+
+from ..codec.flat import FlatReader, FlatWriter
+from ..crypto.suite import CryptoSuite
+
+
+class TransactionStatus(IntEnum):
+    """Values match bcos-protocol/TransactionStatus.h:32-63 exactly — they
+    are visible through receipts and the RPC API."""
+
+    NONE = 0
+    UNKNOWN = 1
+    OUT_OF_GAS_LIMIT = 2
+    NOT_ENOUGH_CASH = 7
+    BAD_INSTRUCTION = 10
+    BAD_JUMP_DESTINATION = 11
+    OUT_OF_GAS = 12
+    OUT_OF_STACK = 13
+    STACK_UNDERFLOW = 14
+    PRECOMPILED_ERROR = 15
+    REVERT_INSTRUCTION = 16
+    CONTRACT_ADDRESS_ALREADY_USED = 17
+    PERMISSION_DENIED = 18
+    CALL_ADDRESS_ERROR = 19
+    GAS_OVERFLOW = 20
+    CONTRACT_FROZEN = 21
+    ACCOUNT_FROZEN = 22
+    ACCOUNT_ABOLISHED = 23
+    # WASM engine statuses (TransactionStatus.h:48-53)
+    WASM_VALIDATION_FAILURE = 32
+    WASM_ARGUMENT_OUT_OF_RANGE = 33
+    WASM_UNREACHABLE_INSTRUCTION = 34
+    WASM_TRAP = 35
+    # txpool admission errors (TransactionStatus.h:54-63)
+    NONCE_CHECK_FAIL = 10000
+    BLOCK_LIMIT_CHECK_FAIL = 10001
+    TXPOOL_IS_FULL = 10002
+    MALFORM = 10003
+    ALREADY_IN_TXPOOL = 10004
+    TX_ALREADY_IN_CHAIN = 10005
+    INVALID_CHAIN_ID = 10006
+    INVALID_GROUP_ID = 10007
+    INVALID_SIGNATURE = 10008
+
+
+@dataclass
+class LogEntry:
+    address: bytes = b""
+    topics: list[bytes] = field(default_factory=list)
+    data: bytes = b""
+
+    def encode_into(self, w: FlatWriter) -> None:
+        w.bytes_(self.address)
+        w.seq(self.topics, lambda w2, t: w2.fixed(t, 32))
+        w.bytes_(self.data)
+
+    @classmethod
+    def decode_from(cls, r: FlatReader) -> "LogEntry":
+        return cls(
+            address=r.bytes_(),
+            topics=r.seq(lambda r2: r2.fixed(32)),
+            data=r.bytes_(),
+        )
+
+
+@dataclass
+class TransactionReceipt:
+    version: int = 0
+    gas_used: int = 0
+    contract_address: bytes = b""
+    status: int = 0
+    output: bytes = b""
+    log_entries: list[LogEntry] = field(default_factory=list)
+    block_number: int = 0
+    effective_gas_price: str = ""
+    _hash: bytes | None = field(default=None, repr=False)
+    _enc: bytes | None = field(default=None, repr=False)
+
+    def encode(self) -> bytes:
+        """Cached after first call (same invariant as ``_hash``: the
+        executor builds a receipt fully before anything encodes it; the
+        block path then encodes twice — receipts root and ledger prewrite)."""
+        if self._enc is not None:
+            return self._enc
+        w = FlatWriter()
+        w.u32(self.version)
+        w.u64(self.gas_used)
+        w.bytes_(self.contract_address)
+        w.u32(self.status)
+        w.bytes_(self.output)
+        w.seq(self.log_entries, lambda w2, e: e.encode_into(w2))
+        w.i64(self.block_number)
+        w.str_(self.effective_gas_price)
+        self._enc = w.out()
+        return self._enc
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "TransactionReceipt":
+        r = FlatReader(buf)
+        rc = cls(
+            version=r.u32(),
+            gas_used=r.u64(),
+            contract_address=r.bytes_(),
+            status=r.u32(),
+            output=r.bytes_(),
+            log_entries=r.seq(LogEntry.decode_from),
+            block_number=r.i64(),
+            effective_gas_price=r.str_(),
+        )
+        r.done()
+        rc._enc = bytes(buf)  # seed the wire-form cache with the exact bytes
+        return rc
+
+    def invalidate_caches(self) -> None:
+        """Drop the wire-form/hash caches after mutating a field (mirrors
+        Transaction.invalidate_caches so mutation sites have one correct
+        idiom; a stale ``_enc`` would re-serialize pre-mutation bytes into
+        the receipts root)."""
+        self._enc = None
+        self._hash = None
+
+    def hash(self, suite: CryptoSuite) -> bytes:
+        if self._hash is None:
+            self._hash = suite.hash(self.encode())
+        return self._hash

@@ -1,0 +1,78 @@
+"""Table entry — one row of state (the port's copy of the JAX package's
+``storage/entry.py``, the same bytes).
+
+Reference: bcos-framework/storage/Entry.h (status + field values; small-value
+inline optimization is a C++ concern we don't need). Canonical bytes are the
+flat-codec encoding over sorted field names — deterministic, because entry
+bytes feed the state-root hash.
+"""
+
+from __future__ import annotations
+
+from enum import IntEnum
+
+from ..codec.flat import FlatReader, FlatWriter
+
+
+class EntryStatus(IntEnum):
+    NORMAL = 0
+    DELETED = 1
+
+
+class Entry:
+    __slots__ = ("fields", "status")
+
+    def __init__(
+        self,
+        fields: dict[str, bytes] | None = None,
+        status: EntryStatus = EntryStatus.NORMAL,
+    ):
+        self.fields: dict[str, bytes] = dict(fields) if fields else {}
+        self.status = status
+
+    # single-value convenience (KV tables store one "value" field)
+    def get(self, name: str = "value") -> bytes:
+        return self.fields.get(name, b"")
+
+    def set(self, name_or_value, value: bytes | None = None) -> "Entry":
+        """entry.set(b"v") sets the default field; entry.set("f", b"v") named."""
+        if value is None:
+            self.fields["value"] = bytes(name_or_value)
+        else:
+            self.fields[str(name_or_value)] = bytes(value)
+        return self
+
+    @property
+    def deleted(self) -> bool:
+        return self.status == EntryStatus.DELETED
+
+    def copy(self) -> "Entry":
+        return Entry(dict(self.fields), self.status)
+
+    def encode(self) -> bytes:
+        w = FlatWriter()
+        w.u8(int(self.status))
+        names = sorted(self.fields)
+        w.seq(names, lambda w2, n: (w2.str_(n), w2.bytes_(self.fields[n])))
+        return w.out()
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "Entry":
+        r = FlatReader(buf)
+        status = EntryStatus(r.u8())
+        fields: dict[str, bytes] = {}
+        for _ in range(r.u32()):
+            n = r.str_()
+            fields[n] = r.bytes_()
+        r.done()
+        return cls(fields, status)
+
+    def __repr__(self) -> str:
+        return f"Entry(status={self.status.name}, fields={self.fields!r})"
+
+    def __eq__(self, other) -> bool:
+        return (
+            isinstance(other, Entry)
+            and self.status == other.status
+            and self.fields == other.fields
+        )

@@ -1,0 +1,137 @@
+"""StateStorage — the in-memory overlay state with a device-hashed root
+(the port's copy of the JAX package's ``storage/state_storage.py``; the
+state hash is one ``hash_batch_async`` of the port's suite, on its device).
+
+Reference: bcos-table/src/StateStorage.h (685 lines; bucketed tbb-parallel
+overlay). Reads fall through to the previous layer; writes stay local until
+the scheduler commits them down. The state root
+(StateStorage.h:457-486) is the XOR-fold of per-dirty-entry digests — XOR
+makes it order-independent, which is exactly what makes it batchable: here
+all dirty entries are hashed in ONE device program (hot spot #3; the
+reference uses tbb::parallel_for + per-entry CPU hashes) and XOR-folded with
+numpy. Digest layout: H(flat(table) ‖ flat(key) ‖ entry.encode()) — one hash
+per entry instead of the reference's hash(table)^hash(key)^hash(entry) triple
+(same order-independence, one device pass, and immune to the triple's
+component-swapping collisions).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterator
+
+import numpy as np
+
+from ..codec.flat import FlatWriter
+from ..crypto.suite import CryptoSuite
+from .entry import Entry, EntryStatus
+from .interfaces import StorageInterface, TraversableStorage
+
+_ZERO32 = b"\x00" * 32
+
+
+class StateStorage(TraversableStorage):
+    def __init__(self, prev: StorageInterface | None = None):
+        self.prev = prev
+        self._data: dict[tuple[str, bytes], Entry] = {}
+        self._lock = threading.RLock()
+        # when set to a set(), fall-through reads (keys this layer depends on
+        # from BELOW) are recorded — the DAG runner's read-set for runtime
+        # conflict validation (executor.dag_execute_transactions)
+        self.read_track: set | None = None
+
+    # -- reads --------------------------------------------------------------
+
+    def get_row(self, table: str, key: bytes) -> Entry | None:
+        key = bytes(key)
+        with self._lock:
+            e = self._data.get((table, key))
+        if e is not None:
+            if e.deleted:
+                return None
+            return e.copy()
+        if self.read_track is not None:
+            self.read_track.add((table, key))
+        return self.prev.get_row(table, key) if self.prev else None
+
+    def get_primary_keys(self, table: str) -> list[bytes]:
+        keys: set[bytes] = set()
+        if self.prev:
+            keys.update(self.prev.get_primary_keys(table))
+        with self._lock:
+            for (t, k), e in self._data.items():
+                if t != table:
+                    continue
+                if e.deleted:
+                    keys.discard(k)
+                else:
+                    keys.add(k)
+        return sorted(keys)
+
+    # -- writes -------------------------------------------------------------
+
+    def set_row(self, table: str, key: bytes, entry: Entry) -> None:
+        with self._lock:
+            self._data[(table, bytes(key))] = entry.copy()
+
+    def remove_row(self, table: str, key: bytes) -> None:
+        self.set_row(table, key, Entry(status=EntryStatus.DELETED))
+
+    # -- commit support -----------------------------------------------------
+
+    def traverse(self) -> Iterator[tuple[str, bytes, Entry]]:
+        with self._lock:
+            items = list(self._data.items())
+        for (t, k), e in items:
+            yield t, k, e.copy()
+
+    def dirty_count(self) -> int:
+        with self._lock:
+            return len(self._data)
+
+    def merge_into_prev(self) -> None:
+        """Push local writes down one layer (scheduler commit path).
+
+        Entries MOVE rather than copy when the parent is a plain
+        StateStorage: this layer is cleared in the same step and the
+        copy-in/copy-out discipline of set_row/get_row means no alias to
+        a stored Entry can exist outside, so ownership transfer is safe —
+        this halves the per-merge Entry traffic on the block hot path
+        (tx overlay -> shadow -> block merges dominated the flood's
+        Python tail). Subclasses that override set_row keep the copying
+        path so their hooks still see every row."""
+        prev = self.prev
+        if prev is None:
+            raise ValueError("no previous layer to merge into")
+        if type(prev) is StateStorage:
+            with self._lock:
+                items = list(self._data.items())
+                self._data.clear()
+            with prev._lock:
+                prev._data.update(items)
+            return
+        with self._lock:
+            items = list(self._data.items())
+            self._data.clear()
+        for (t, k), e in items:
+            prev.set_row(t, k, e)  # set_row copies; traverse() would too
+
+    # -- state root (hot spot #3) -------------------------------------------
+
+    def hash_async(self, suite: CryptoSuite):
+        """Dispatch the state-root hash batch, defer the sync: () -> bytes.
+        Order-independent XOR root over dirty entries, hashed as one device
+        batch (vs the reference's tbb loop, StateStorage.h:457-486)."""
+        preimages = []
+        for t, k, e in self.traverse():
+            w = FlatWriter()
+            w.str_(t)
+            w.bytes_(k)
+            preimages.append(w.out() + e.encode())
+        if not preimages:
+            return lambda: _ZERO32
+        resolve = suite.hash_batch_async(preimages)
+        return lambda: bytes(np.bitwise_xor.reduce(resolve(), axis=0))
+
+    def hash(self, suite: CryptoSuite) -> bytes:
+        return self.hash_async(suite)()

@@ -1,5 +1,6 @@
-"""The swallowed-error observer (the port's copy of ``note_swallowed`` from
-the JAX package's ``utils/log.py``)."""
+"""The swallowed-error observer and the module loggers (the port's copies
+of ``note_swallowed`` and ``get_logger`` from the JAX package's
+``utils/log.py``)."""
 
 from __future__ import annotations
 
@@ -21,3 +22,10 @@ def note_swallowed(site: str, exc: BaseException | None = None) -> None:
         pass
     if exc is not None:
         logging.getLogger("fisco.swallowed").debug("swallowed at %s: %r", site, exc)
+
+
+def get_logger(name: str) -> logging.Logger:
+    """The named logger of a port module (the JAX package's
+    ``utils/log.get_logger``, without its root-handler setup: the embedding
+    program configures logging)."""
+    return logging.getLogger(name)

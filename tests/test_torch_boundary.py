@@ -20,7 +20,11 @@ import fisco_bcos_tpu_torch
 from fisco_bcos_tpu_torch.crypto import admission, bls, suite
 from fisco_bcos_tpu_torch.device import resolve_device
 from fisco_bcos_tpu_torch.ops import _kernels, bls12_381, ed25519, keccak, merkle, poseidon, secp256k1, sha256, sm2, sm3
+from fisco_bcos_tpu_torch.ledger import Ledger
 from fisco_bcos_tpu_torch.parallel import sharding
+from fisco_bcos_tpu_torch.protocol import Transaction
+from fisco_bcos_tpu_torch.storage import MemoryStorage
+from fisco_bcos_tpu_torch.txpool import TxPool, batch_admit
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -72,7 +76,7 @@ def test_importing_the_port_loads_no_jax():
     port = _loaded_modules(
         "import fisco_bcos_tpu_torch.crypto.admission, fisco_bcos_tpu_torch.crypto.suite, "
         "fisco_bcos_tpu_torch.ops.merkle, fisco_bcos_tpu_torch.observability.device, "
-        "fisco_bcos_tpu_torch.crypto.bls, fisco_bcos_tpu_torch.parallel, chip_smoke"
+        "fisco_bcos_tpu_torch.crypto.bls, fisco_bcos_tpu_torch.parallel, fisco_bcos_tpu_torch.txpool, chip_smoke"
     )
     assert {
         "fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle",
@@ -82,6 +86,12 @@ def test_importing_the_port_loads_no_jax():
         "fisco_bcos_tpu_torch.crypto.ref.poseidon", "fisco_bcos_tpu_torch.observability.device",
         "fisco_bcos_tpu_torch.observability.tracer", "fisco_bcos_tpu_torch.utils.metrics",
         "fisco_bcos_tpu_torch.crypto.bls", "fisco_bcos_tpu_torch.parallel.sharding",
+        "fisco_bcos_tpu_torch.txpool.txpool", "fisco_bcos_tpu_torch.txpool.validator",
+        "fisco_bcos_tpu_torch.txpool.quota", "fisco_bcos_tpu_torch.gateway.ratelimit",
+        "fisco_bcos_tpu_torch.ledger.ledger", "fisco_bcos_tpu_torch.protocol.transaction",
+        "fisco_bcos_tpu_torch.protocol.block", "fisco_bcos_tpu_torch.codec.flat",
+        "fisco_bcos_tpu_torch.storage.state_storage", "fisco_bcos_tpu_torch.storage.sqlite_storage",
+        "fisco_bcos_tpu_torch.utils.error",
     } <= port
     assert not sorted(m for m in port - bare if _forbidden(m))
 
@@ -94,6 +104,7 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     payloads = [b"no silent fallback"]
+    tx = Transaction(chain_id="chain0", group_id="group0", block_limit=1, nonce="n", signature=bytes(65))
     with pytest.raises(RuntimeError):
         admission.admit_batch(payloads, np.zeros((1, 65), np.uint8))
     with pytest.raises(RuntimeError):
@@ -148,6 +159,11 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         lambda: bls12_381.multi_pairing_check([(None, None)]),
         lambda: sharding.make_mesh(),
         lambda: sharding.make_mesh(1),
+        lambda: TxPool(suite.ecdsa_suite(), Ledger(MemoryStorage(), suite.ecdsa_suite())),
+        lambda: Ledger(MemoryStorage(), suite.sm_suite()),
+        # a suite that names no device resolves it at each batch
+        lambda: batch_admit([tx], suite.CryptoSuite(suite.Keccak256(), suite.Secp256k1Crypto())),
+        lambda: batch_admit([tx], suite.CryptoSuite(suite.SM3(), suite.SM2Crypto())),
     ):
         with pytest.raises(RuntimeError):
             call()
