@@ -160,12 +160,13 @@ exits non-zero, printing no result, without them. In order it:
    the field bench, the one-warp latency floor of a check (its programs'
    rows at the bench's cycles a row) beside the kernel at one lane;
 10b. BLS12-381's multi-pairing, header sync's one aggregate check
-   (``run_multi_pairing_phase``): the multi-pairing kernel against its
-   plain version on the card and the host oracle (verdicts and GT
-   elements) on lists of 1, 2, 3, 65 and 129 pairs (one pair; a check's
-   two, passing and failing; folds of two checks, accepted, rejected and
-   with None pairs among them; a 64-header chunk, accepted and with one
-   header's signature swapped; 128 headers), ``multi_pairing_check``'s
+   (``run_multi_pairing_phase``): the multi-pairing kernel against the
+   host oracle (verdicts and GT elements) on lists of 1, 2, 3, 9, 65 and
+   129 pairs (one pair; a check's two, passing and failing; folds of two
+   checks, accepted, rejected and with None pairs among them; a 64-header
+   chunk, accepted and with one header's signature swapped; 8 and 128
+   headers), and against its plain version on the card at 1, 2 and 65
+   pairs, ``multi_pairing_check``'s
    verdicts the same; ``BLSCrypto.multi_pairing_verify`` of 64 headers of
    a seeded 8-member committee's quorum of 6, counted (one launch, every
    plain version and the host pairing made to raise), accepted, and
@@ -236,6 +237,33 @@ exits non-zero, printing no result, without them. In order it:
    the same transactions alone in turns with it, one profiled call; one
    SM batch through an SM pool and its block; every txs root, state hash
    and a sample of tx hashes against the host oracle in the oracle pool;
+11d. PBFT consensus (``run_consensus_phase``, the port's ``consensus``,
+   ``front``, ``resilience`` and ``observability.pipeline``): BASELINE
+   config 4's committee (``bench.py bench_flood``'s keys), four replicas,
+   each with its own ``Ledger`` over a ``MemoryStorage`` genesis, its own
+   ``TxPool`` holding one 10,240-tx flood batch, a ``PBFTEngine`` with a
+   ``ConsensusStorage``, a ``Sealer``, all over one ``InprocGateway``
+   (inline dispatch, one host thread), the engines on the card. Execution
+   ends at this script's ``StandIn`` (the proposal's header back, the block
+   written through the ``Ledger``), which goes when the scheduler is
+   ported. In each QC mode (Ed25519, BLS, ``FISCO_QC=0``) three rounds on
+   fresh committees, the leader's seal to the stable commit on every
+   replica, the first counted (the txs roots' and the quorum checks'
+   kernels, no plain version), the median wall and the engine's ``pbft.*``
+   spans; every stable header accepted by ``BlockValidator`` on the card,
+   its QC record or signature list under the host oracle, four tampered
+   variants rejected, the txs root equal to the host oracle's; one profiled
+   round (device busy, kernels by name). ``QuorumCollector.admit`` and
+   ``verify_header_cert`` at 64 members in each scheme with one bad vote,
+   the struck member and the verdicts against the host oracle; the QC
+   check at 4 and 64 members through the plane and direct, in turns. Last,
+   a view change, with the card to itself (a packet that carries the block
+   is hashed on the host wherever it is signed or checked, minutes of
+   work): the block prepared by the next view's leader alone, every COMMIT
+   dropped, all four time out, the new leader re-proposes the block with
+   its transactions and the other three run ``batch_admit`` on the plane's
+   ``consensus`` lane (counted), then ``batch_admit`` against
+   ``admit_batch`` alone in turns;
 12. with ``--parent DIR`` (another checkout, for example the parent commit
    unpacked by ``git archive``), builds that checkout's kernels and holds
    each kernel against its counterpart there on the timed blocks, each fed
@@ -3438,6 +3466,7 @@ def run_bls_phase(card: str, device, parent=None) -> dict:
 
 MULTI_PAIRS = (2, 9, 65, 129, 257)  # timed: one check's pairs up to a 256-header fold
 HEADER_CHUNK = 64  # FISCO_SYNC_HEADER_BATCH's default: a chunk of 64 headers folds into 65 pairs
+PLAIN_PAIRS = (1, 2, HEADER_CHUNK + 1)  # pair counts also held against the plain version (~3-4 s a call)
 MULTI_REPLACES = "fisco_bcos_tpu/ops/bls12_381.py:599"
 MULTI_LAUNCHES = {"bls12_381_multi_pairing": 1}
 
@@ -3506,7 +3535,7 @@ def multi_cases(named, headers) -> list[tuple[str, list]]:
 
 def check_multi_pairings(card: str, device, cases, pool) -> tuple[int, dict]:
     """Each list: the kernel's verdict and GT element against the plain
-    version's on the card (the first list of each pair count) and the
+    version's on the card (the first list of each of PLAIN_PAIRS) and the
     oracle's, and multi_pairing_check's verdict. Returns (the largest limb
     difference, the plain version's ms by pair count)."""
     import torch
@@ -3521,7 +3550,7 @@ def check_multi_pairings(card: str, device, cases, pool) -> tuple[int, dict]:
         k = rows.shape[0]
         ok, gt = _kernels.bls12_381_multi_pairing(rows, table, gt=True)
         limbs = bls12_381.words_to_limbs(gt)
-        against_plain = k not in plain_ms
+        against_plain = k in PLAIN_PAIRS and k not in plain_ms
         if against_plain:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5858,6 +5887,647 @@ def run_txpool_phase(card: str, device) -> dict:
     return {**timed, "flood_ms": flood["flood_ms"], "written": flood["written"], "stages": flood["stages"]}
 
 
+# ---------------------------------------------------------------------------
+# PBFT consensus: a four-replica committee agrees on a 10,240-tx block
+# ---------------------------------------------------------------------------
+
+CONSENSUS_BATCH = FLOOD_BATCHES  # the flood batch index of the round's block (past the txpool phase's)
+CONSENSUS_ROUNDS = 3  # rounds a QC mode, each on a fresh committee, the first counted: the wall's median
+CONSENSUS_MODES = (  # (label, environment) of each round's QC mode
+    ("Ed25519 QC", {"FISCO_QC_SCHEME": "ed25519"}),
+    ("BLS QC", {"FISCO_QC_SCHEME": "bls"}),
+    ("FISCO_QC=0", {"FISCO_QC": "0"}),
+)
+CONSENSUS_KERNELS = {  # kernels a round must launch in each mode (the txs roots; the quorum checks)
+    "Ed25519 QC": {"keccak256_packed", "ed25519_challenge", "ed25519_verify"},
+    "BLS QC": {"keccak256_packed", "bls12_381_pairing"},
+    "FISCO_QC=0": {"keccak256_packed"},
+}
+REPROPOSAL_KERNELS = {"keccak256_packed", "keccak256_tx_hash", "keccak256_sender", "secp256k1_recover",
+                      "ed25519_challenge", "ed25519_verify"}
+CONSENSUS_SPANS = ("pbft.pre_prepare", "pbft.prepare", "pbft.commit", "pbft.checkpoint",
+                   "pbft.execute_and_checkpoint", "pbft.checkpoint_commit")
+CONSENSUS_HISTOGRAMS = ("fisco_pbft_preprepare_gate_latency_ms", "fisco_pbft_prepare_latency_ms",
+                        "fisco_pbft_commit_latency_ms", "fisco_pbft_execute_latency_ms",
+                        "fisco_pbft_checkpoint_latency_ms", "fisco_qc_verify_ms")
+HOST_PROFILE_TOP = 6  # functions of the host-profiled round printed, by own time
+TAMPERED = ("a flipped signature", "a forged bitmap", "a short weight", "a wrong sealer list")
+BIG_COMMITTEE = 64  # bench_scenario.big-committee.json's committee
+BIG_BAD = 17  # the member whose vote signs another message
+QC_TURNS = 3  # rounds of plane, direct, direct, plane a QC check
+REPROPOSAL_TURNS = 3  # rounds of admit_batch alone, batch_admit, batch_admit, admit_batch alone
+
+
+class StandIn:
+    """Execution's stand-in in the consensus phase and in the consensus
+    tests, the drivers' and never the package's (it goes when the scheduler
+    is ported): the scheduler interface the engine and sealer call.
+    ``execute_block`` executes nothing and returns the proposal's header as
+    the sealer built it; ``commit_block`` writes the block through the
+    replica's ``Ledger`` as the txpool phase writes a flood block (prewrite
+    into an overlay, merge) and tells the pool. `classes`: the package's
+    (BlockHeader, Block, StateStorage), the port's by default."""
+
+    def __init__(self, suite, store, ledger, pool, classes=None):
+        if classes is None:
+            from fisco_bcos_tpu_torch.protocol import Block, BlockHeader
+            from fisco_bcos_tpu_torch.storage import StateStorage
+
+            classes = (BlockHeader, Block, StateStorage)
+        self.suite, self.store, self.ledger, self.pool = suite, store, ledger, pool
+        self.BlockHeader, self.Block, self.StateStorage = classes
+        self.executed = {}
+
+    def execute_block(self, block, lazy_roots=False):
+        self.executed[block.header.number] = block
+        return self.BlockHeader.decode(block.header.encode())
+
+    def commit_block(self, header) -> None:
+        block = self.Block(header=header, transactions=list(self.executed.pop(header.number).transactions))
+        overlay = self.StateStorage(prev=self.store)
+        self.ledger.prewrite_block(block, overlay)
+        overlay.merge_into_prev()
+        self.pool.on_block_committed(header.number, block.tx_hashes(self.suite))
+
+    def commit_block_async(self, header, on_done) -> None:
+        self.commit_block(header)
+        on_done(header.number, None)
+
+    def in_flight_commits(self) -> int:
+        return 0
+
+    def staged_state(self, number):
+        return None
+
+
+@contextlib.contextmanager
+def qc_mode(env: dict):
+    """The QC mode's environment (FISCO_QC, FISCO_QC_SCHEME) while open."""
+    saved = {k: os.environ.get(k) for k in ("FISCO_QC", "FISCO_QC_SCHEME")}
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def consensus_committee(suite, batch: FloodBatch, auto: bool = True) -> tuple:
+    """BASELINE config 4's committee (bench.py bench_flood's keys): four
+    replicas, each a Ledger over its own MemoryStorage genesis (each
+    member's QC key of the mode's scheme registered), a TxPool holding the
+    batch, a PBFTEngine with a ConsensusStorage over that store, a Sealer
+    and the stand-in, all over one InprocGateway. Returns (gateway,
+    replicas)."""
+    import types
+
+    from fisco_bcos_tpu_torch.consensus import PBFTConfig, PBFTEngine, Sealer
+    from fisco_bcos_tpu_torch.consensus.qc import qc_pub_for, qc_scheme_name
+    from fisco_bcos_tpu_torch.consensus.storage import ConsensusStorage
+    from fisco_bcos_tpu_torch.front import FrontService, InprocGateway
+    from fisco_bcos_tpu_torch.ledger import ConsensusNode, GenesisConfig, Ledger
+    from fisco_bcos_tpu_torch.storage import MemoryStorage
+    from fisco_bcos_tpu_torch.utils.error import ErrorCode
+
+    kps = [suite.signature_impl.generate_keypair(secret=FLOOD_NODE_SECRET + i) for i in range(4)]
+    members = [ConsensusNode(kp.pub, weight=1, qc_pub=qc_pub_for(kp.secret, qc_scheme_name())) for kp in kps]
+    gw = InprocGateway(auto=auto)
+    reps = []
+    for kp in kps:
+        store = MemoryStorage()
+        ledger = Ledger(store, suite)
+        ledger.build_genesis(GenesisConfig(consensus_nodes=list(members), tx_count_limit=BLOCK_TXS,
+                                           timestamp=1_700_000_000_000))
+        pool = new_pool(suite, ledger)
+        if any(r.status != ErrorCode.SUCCESS for r in pool.submit_batch(batch.fresh())):
+            raise AssertionError("the consensus batch was not admitted whole")
+        front = FrontService(kp.pub)
+        gw.connect(front)
+        cfg = ledger.ledger_config()
+        config = PBFTConfig(suite=suite, keypair=kp, nodes=cfg.consensus_nodes, leader_period=cfg.leader_period,
+                            head=ledger.block_number())
+        engine = PBFTEngine(config, StandIn(suite, store, ledger, pool), pool, ledger, front,
+                            consensus_storage=ConsensusStorage(store))
+        reps.append(types.SimpleNamespace(keypair=kp, store=store, ledger=ledger, pool=pool, front=front,
+                                          config=config, engine=engine, sealer=Sealer(config, pool, ledger, engine)))
+    return gw, reps
+
+
+def round_leader(reps, number: int = 1, view: int = 0):
+    nid = reps[0].config.nodes[reps[0].config.leader_index(number, view)].node_id
+    return next(r for r in reps if r.keypair.pub == nid)
+
+
+def path_counted(fn, must: set, what: str):
+    """`fn()` with every launch counter set to 0 just before and read just
+    after, no plain version allowed: each kernel of `must` launched at least
+    once, no other kernel at all. Returns (fn's result, the nonzero counts)."""
+    from fisco_bcos_tpu_torch.ops import _kernels
+
+    drain_plane()
+    _kernels.reset_launches()
+    with plain_versions_forbidden():
+        out = fn()
+    launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    if set(launches) != must:
+        raise AssertionError(f"{what} launched {launches}, not each of {sorted(must)} and nothing else")
+    return out, launches
+
+
+def stable_round(reps, what: str) -> dict:
+    """One round, inline dispatch: the leader seals the pool's 10,240 txs
+    into a metadata proposal and submits it; when submit_proposal returns,
+    every replica must have stable-committed block 1. Returns the seal and
+    round ms and the engine's pbft.* spans (ms)."""
+    from fisco_bcos_tpu_torch.observability import TRACER
+
+    lead = round_leader(reps)
+    t0 = time.perf_counter()
+    block = lead.sealer.generate_proposal()
+    seal_ms = (time.perf_counter() - t0) * 1e3
+    if block is None or len(block.tx_metadata) != BLOCK_TXS:
+        raise AssertionError(f"{what}: the leader sealed no {BLOCK_TXS}-tx proposal")
+    TRACER.clear()
+    t0 = time.perf_counter()
+    if not lead.engine.submit_proposal(block):
+        raise AssertionError(f"{what}: the leader's proposal was refused")
+    round_ms = (time.perf_counter() - t0) * 1e3
+    spans = {}
+    for rec in TRACER.spans():
+        if rec.name in CONSENSUS_SPANS:
+            spans.setdefault(rec.name, []).append(rec.dur * 1e3)
+    check_stable(reps, what)
+    return {"seal_ms": seal_ms, "round_ms": round_ms, "spans": spans}
+
+
+def check_stable(reps, what: str, number: int = 1) -> None:
+    """Every replica at `number`, on one header hash, its pool empty."""
+    heads = {r.ledger.block_number() for r in reps}
+    hashes = {r.ledger.block_hash_by_number(number) for r in reps}
+    if heads != {number} or len(hashes) != 1 or any(r.pool.pending_count() for r in reps):
+        raise AssertionError(f"{what}: heads {heads}, {len(hashes)} hashes at {number}")
+
+
+def check_record(suite, header, nodes, what: str) -> str:
+    """The header's QC record or signature list under the crypto/ref
+    oracles: every signature over the header hash by the member it names,
+    a quorum's weight. Returns the record's kind."""
+    from fisco_bcos_tpu_torch.consensus.config import min_quorum
+    from fisco_bcos_tpu_torch.consensus.qc import QuorumCert
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref_bls
+    from fisco_bcos_tpu_torch.crypto.ref import ecdsa as ref
+    from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref_ed
+
+    h = header.hash(suite)
+    quorum = min_quorum(len(nodes))
+    if header.qc:
+        cert = QuorumCert.decode(header.qc)
+        idx = cert.signers()
+        if cert.scheme == "ed25519":
+            ok = all(ref_ed.verify(nodes[i].qc_pub, h, cert.agg_sig[64 * k:64 * k + 64]) for k, i in enumerate(idx))
+        else:
+            ok = ref_bls.aggregate_verify([nodes[i].qc_pub for i in idx], h, cert.agg_sig)
+        kind = f"{cert.scheme} QC of {len(idx)}"
+    else:
+        idx = [s.index for s in header.signature_list]
+        ok = all(ref.ecdsa_verify(h, int.from_bytes(s.signature[:32], "big"), int.from_bytes(s.signature[32:64], "big"),
+                                  (int.from_bytes(nodes[s.index].node_id[:32], "big"),
+                                   int.from_bytes(nodes[s.index].node_id[32:], "big")))
+                 for s in header.signature_list)
+        kind = f"signature list of {len(idx)}"
+    if not ok or len(set(idx)) < quorum:
+        raise AssertionError(f"{what}: the {kind} does not verify under the host oracle")
+    return kind
+
+
+def tampered(header) -> dict:
+    """The header with a flipped signature, a forged bitmap (a QC naming
+    other signers than its signatures', a signature list with two members'
+    indices swapped), a weight short of the quorum, and a wrong sealer
+    list."""
+    from fisco_bcos_tpu_torch.consensus.qc import QuorumCert
+    from fisco_bcos_tpu_torch.protocol import BlockHeader, SignatureTuple
+
+    out = {k: BlockHeader.decode(header.encode()) for k in TAMPERED}
+    if header.qc:
+        cert = QuorumCert.decode(header.qc)
+        idx = cert.signers()
+        flip = bytearray(cert.agg_sig)
+        flip[len(flip) // 2] ^= 1
+        out["a flipped signature"].qc = QuorumCert(cert.scheme, cert.committee, cert.bitmap, bytes(flip)).encode()
+        absent = [i for i in range(cert.committee) if i not in idx]
+        if absent:  # a member who did not sign in the place of one who did
+            forged, agg = idx[:-1] + absent[:1], cert.agg_sig
+        elif cert.scheme == "ed25519":  # everyone signed: the first three signatures, named one member on
+            forged, agg = idx[1:], cert.agg_sig[:64 * (len(idx) - 1)]
+        else:  # everyone signed: the aggregate of all, named as one fewer
+            forged, agg = idx[:-1], cert.agg_sig
+        out["a forged bitmap"].qc = QuorumCert(cert.scheme, cert.committee,
+                                               QuorumCert.make_bitmap(forged, cert.committee), agg).encode()
+        short = cert.agg_sig[:128] if cert.scheme == "ed25519" else cert.agg_sig
+        out["a short weight"].qc = QuorumCert(cert.scheme, cert.committee,
+                                              QuorumCert.make_bitmap(idx[:2], cert.committee), short).encode()
+    else:
+        sigs = header.signature_list
+        flip = bytearray(sigs[0].signature)
+        flip[40] ^= 1
+        out["a flipped signature"].signature_list = [SignatureTuple(sigs[0].index, bytes(flip))] + sigs[1:]
+        out["a forged bitmap"].signature_list = [SignatureTuple(sigs[1].index, sigs[0].signature),
+                                                 SignatureTuple(sigs[0].index, sigs[1].signature)] + sigs[2:]
+        out["a short weight"].signature_list = sigs[:2]
+    out["a wrong sealer list"].sealer_list = list(reversed(header.sealer_list))
+    for h in out.values():
+        h.clear_hash_cache()
+    return out
+
+
+def check_headers(suite, reps, what: str) -> list[str]:
+    """BlockValidator.check_block on the card on every replica's stable
+    header (accepted) and on the tampered variants of the first (each
+    rejected); every record under the host oracle. Returns the records'
+    kinds."""
+    from fisco_bcos_tpu_torch.consensus import BlockValidator
+
+    validator = BlockValidator(suite)
+    nodes = reps[0].ledger.consensus_nodes()
+    nodes = sorted((n for n in nodes if n.node_type == "consensus_sealer"), key=lambda n: n.node_id)
+    kinds = []
+    for r in reps:
+        header = r.ledger.header_by_number(1)
+        kinds.append(check_record(suite, header, nodes, what))
+        if not validator.check_block(header, nodes):
+            raise AssertionError(f"{what}: BlockValidator rejected a stable header")
+    for how, bad in tampered(reps[0].ledger.header_by_number(1)).items():
+        if validator.check_block(bad, nodes):
+            raise AssertionError(f"{what}: BlockValidator accepted the header with {how}")
+    return kinds
+
+
+_ORACLE_ROOTS: dict = {}  # the host oracle's txs root of a block's hash order (every round seals one order)
+
+
+def check_root(reps, batch: FloodBatch, what: str) -> None:
+    """The block's txs root: the header's equals the host oracle's merkle
+    root of the block's tx hashes, which are the batch's (the kernels'
+    digests, a sample of them against the host oracle)."""
+    from fisco_bcos_tpu_torch.crypto.ref.keccak import keccak256
+
+    block = reps[0].ledger.block_by_number(1, with_txs=False)
+    hashes = tuple(block.tx_metadata)
+    if sorted(hashes) != sorted(batch.hashes):
+        raise AssertionError(f"{what}: the block is not the batch's {BLOCK_TXS} transactions")
+    for i in batch.rng.sample(range(BLOCK_TXS), min(64, BLOCK_TXS)):
+        if keccak256(batch.payloads[i]) != batch.hashes[i]:
+            raise AssertionError(f"{what}: tx hash {i} != host oracle")
+    if hashes not in _ORACLE_ROOTS:
+        _ORACLE_ROOTS[hashes] = oracle_merkle_root(hashes, "keccak256")
+    if block.header.txs_root != _ORACLE_ROOTS[hashes]:
+        raise AssertionError(f"{what}: txs root != host oracle's merkle root")
+
+
+def histogram_totals() -> dict:
+    """(sum, count) of each CONSENSUS_HISTOGRAMS family, its series added."""
+    from fisco_bcos_tpu_torch.utils.metrics import REGISTRY
+
+    out = {}
+    for name in CONSENSUS_HISTOGRAMS:
+        snap = REGISTRY.histogram(name).snapshot().values()
+        out[name] = (sum(v[1] for v in snap), sum(v[2] for v in snap))
+    return out
+
+
+def host_profile_round(card: str, suite, batch: FloodBatch) -> None:
+    """One Ed25519-QC round under cProfile (host time by function): where
+    the round's host time goes."""
+    import cProfile
+    import pstats
+
+    with qc_mode(dict(CONSENSUS_MODES[0][1])):
+        _, reps = consensus_committee(suite, batch)
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.runcall(stable_round, reps, "the host-profiled round")
+        wall = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (calls, primitive, own s, cumulative s, callers)
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:HOST_PROFILE_TOP]
+    total = sum(v[2] for v in stats.values())
+    log(f"[{card}] one consensus round (Ed25519 QC) under cProfile: {wall:.1f} ms wall, {total * 1e3:.1f} ms of "
+        f"profiled host time; by own time: " + "; ".join(
+            f"{Path(f).name}:{line} {name} {v[2] * 1e3:.1f} ms ({v[2] / total:.1%}, {v[0]} calls)"
+            for (f, line, name), v in top))
+
+
+def consensus_rounds(card: str, suite, batch: FloodBatch) -> dict:
+    """Each QC mode: CONSENSUS_ROUNDS timed rounds, each on a fresh
+    committee, the first counted (its kernels, no plain version); the
+    headers under BlockValidator and the host oracle; one profiled Ed25519
+    round."""
+    out = {}
+    for label, env in CONSENSUS_MODES:
+        with qc_mode(env):
+            committees = [consensus_committee(suite, batch) for _ in range(CONSENSUS_ROUNDS)]
+            before = histogram_totals()
+            first, launches = path_counted(lambda: stable_round(committees[0][1], label),
+                                           CONSENSUS_KERNELS[label], f"the {label} round")
+            timed = [first] + [stable_round(reps, label) for _, reps in committees[1:]]
+            after = histogram_totals()
+            kinds = check_headers(suite, committees[0][1], label)
+            check_root(committees[0][1], batch, label)
+        spans = {}
+        for r in timed:
+            for k, v in r["spans"].items():
+                spans.setdefault(k, []).extend(v)
+        out[label] = {"round_ms": statistics.median(r["round_ms"] for r in timed),
+                      "seal_ms": statistics.median(r["seal_ms"] for r in timed)}
+        each = ", ".join(f"{r['round_ms']:.1f}" for r in timed)
+        log(f"[{card}] consensus, {label}: 4 replicas stable-committed one {BLOCK_TXS}-tx block (inline dispatch, "
+            f"one host thread); submit_proposal to the stable commit on every replica, median of {len(timed)}: "
+            f"{out[label]['round_ms']:.1f} ms (each {each}); the "
+            f"leader's seal {out[label]['seal_ms']:.1f} ms; the counted round launched {show_launches(launches)}")
+        log(f"[{card}] consensus, {label}: stages, ms, median over the replicas of the timed rounds (spans "
+            f"{len(timed)} x replicas): " + "; ".join(
+                f"{k} {statistics.median(spans[k]):.2f} (max {max(spans[k]):.2f}, n {len(spans[k])})"
+                for k in CONSENSUS_SPANS if k in spans)
+            + "; histograms, mean ms over the rounds (observations): " + "; ".join(
+                f"{k[len('fisco_'):]} {(after[k][0] - before[k][0]) / n:.2f} ({n})"
+                for k in CONSENSUS_HISTOGRAMS if (n := after[k][1] - before[k][1])))
+        log(f"[{card}] consensus, {label}: every replica's header accepted by BlockValidator on the card, its "
+            f"record under the host oracle ({', '.join(sorted(set(kinds)))}); {', '.join(TAMPERED)} rejected; "
+            f"the txs root == the host oracle's")
+    with qc_mode(dict(CONSENSUS_MODES[0][1])):
+        _, reps = consensus_committee(suite, batch)
+        events, wall = profiled_round(lambda: stable_round(reps, "the profiled round"))
+    kernels = {}
+    for e in events:
+        if not is_copy(e):
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+    busy = union_us(events) / 1e3
+    out["profiled"] = {"busy_ms": busy, "wall_ms": wall, "kernels": kernels}
+    if busy > 0:
+        log(f"[{card}] one consensus round (Ed25519 QC, {BLOCK_TXS} txs, the leader's seal and submit_proposal "
+            f"to the stable commit), profiled: device busy {busy:.3f} ms of {wall:.2f} ms wall (device idle share "
+            f"{1 - busy / wall:.4f}); device kernels by name {json.dumps(kernels)}; "
+            f"{sum(is_copy(e) for e in events)} copies")
+    else:
+        log(f"[{card}] one consensus round, device busy: not measured (no device events in the trace)")
+    host_profile_round(card, suite, batch)
+    return out
+
+
+def profiled_round(fn) -> tuple[list, float]:
+    """(device events, wall ms) of `fn()` under torch.profiler, once (the
+    rounds before it warmed every path; a round needs a fresh committee)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"], wall_ms
+
+
+@contextlib.contextmanager
+def dropping(reps, drop):
+    """Each replica's front discards a frame for which `drop(replica,
+    decoded message)` is true, while open (its on_receive wrapped)."""
+    from fisco_bcos_tpu_torch.consensus.messages import PBFTMessage
+
+    for r in reps:
+        receive = r.front.on_receive
+        r.front.on_receive = (lambda module_id, src, payload, r=r, receive=receive:
+                              None if drop(r, PBFTMessage.decode(payload)) else receive(module_id, src, payload))
+    try:
+        yield
+    finally:
+        for r in reps:
+            del r.front.on_receive
+
+
+def run_reproposal(card: str, device, suite, batch: FloodBatch) -> None:
+    """A view change whose new leader re-proposes a prepared 10,240-tx
+    block with its transactions (Ed25519 QC, queued delivery): the first
+    proposal's PREPAREs reach the next view's leader alone and every COMMIT
+    is dropped, so that leader alone has prepared it; all four replicas
+    time out, the new leader re-proposes, and the three others check the
+    full-tx proposal with batch_admit on the consensus lane (counted); then
+    batch_admit of the block against admit_batch alone, in turns. One
+    prepared replica keeps the block out of three of the four view-change
+    packets, each hashed on the host wherever it is signed or checked."""
+    import numpy as np
+
+    from fisco_bcos_tpu_torch.consensus.messages import PacketType
+    from fisco_bcos_tpu_torch.crypto.admission import admit_batch
+    from fisco_bcos_tpu_torch.device.plane import device_lane
+    from fisco_bcos_tpu_torch.txpool.validator import batch_admit
+    from fisco_bcos_tpu_torch.utils.metrics import REGISTRY
+
+    with qc_mode(dict(CONSENSUS_MODES[0][1])):
+        gw, reps = consensus_committee(suite, batch, auto=False)
+        if not round_leader(reps).sealer.seal_and_submit():
+            raise AssertionError("re-proposal: the first leader's proposal was refused")
+        next_leader = round_leader(reps, 1, 1)
+        with dropping(reps, lambda r, m: m.packet_type == PacketType.COMMIT
+                      or (m.packet_type == PacketType.PREPARE and r is not next_leader)):
+            gw.deliver_all()
+        prepared = [r for r in reps if (c := r.engine._caches.get(1)) is not None and c.prepared]
+        if prepared != [next_leader] or any(r.ledger.block_number() for r in reps):
+            raise AssertionError(f"re-proposal: {len(prepared)} replicas prepared, heads "
+                                 f"{[r.ledger.block_number() for r in reps]}")
+        lanes = lambda: {k: v for k, v in REGISTRY.counters_matching("fisco_device_plane_requests_total").items()  # noqa: E731
+                         if 'op="admission.' in k}
+        before = lanes()
+        t0 = time.perf_counter()
+
+        def view_change():
+            for r in reps:
+                r.engine.on_timeout()
+            gw.deliver_all()
+
+        _, launches = path_counted(view_change, REPROPOSAL_KERNELS, "the view change and re-proposal")
+        vc_ms = (time.perf_counter() - t0) * 1e3
+        check_stable(reps, "re-proposal")
+        after = lanes()
+    routed = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    if not routed or any('lane="consensus"' not in k for k in routed):
+        raise AssertionError(f"re-proposal: batch_admit did not ride the consensus lane: {routed}")
+    check_root(reps, batch, "re-proposal")
+    check_headers(suite, reps, "re-proposal")
+    log(f"[{card}] consensus re-proposal: the next view's leader alone prepared block 1, every COMMIT dropped; "
+        f"all four timed out into view {reps[0].engine.view}, the new leader re-proposed the {BLOCK_TXS}-tx block "
+        f"with its transactions and all four stable-committed it ({vc_ms:.1f} ms, queued delivery, one host thread); "
+        f"batch_admit requests {routed}; launched {show_launches(launches)}")
+    sigs = np.frombuffer(b"".join(batch.sigs), dtype=np.uint8).reshape(-1, 65)
+
+    def full():
+        txs = batch.fresh()
+        t0 = time.perf_counter()
+        with device_lane("consensus"):
+            ok = batch_admit(txs, suite)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not ok.all():
+            raise AssertionError("batch_admit rejected a lane of the re-proposed block")
+        return ms
+
+    def alone():
+        t0 = time.perf_counter()
+        admit_batch(batch.payloads, sigs, device=device)
+        return (time.perf_counter() - t0) * 1e3
+
+    full(), alone()
+    turns = {"admit_batch alone": [], "batch_admit (consensus lane)": []}
+    for _ in range(REPROPOSAL_TURNS):
+        for who in ("admit_batch alone", "batch_admit (consensus lane)", "batch_admit (consensus lane)",
+                    "admit_batch alone"):
+            turns[who].append(alone() if who == "admit_batch alone" else full())
+    log(f"[{card}] the re-proposal's batch_admit of {BLOCK_TXS} decoded txs and admit_batch alone, in turns (ms): "
+        + "; ".join(f"{k} median {statistics.median(v):.3f} ({', '.join(f'{x:.2f}' for x in v)})"
+                    for k, v in turns.items()))
+
+
+def run_big_committee(card: str, suite) -> None:
+    """QuorumCollector.admit and verify_header_cert at 64 members in each
+    scheme, one member's vote signed over another message, against the host
+    oracle: with Ed25519 the aggregate fails and each vote is checked alone
+    (isolation) before the quorum re-seals; with BLS the member is demoted
+    first (its vote checked alone, before the aggregate, as isolation would
+    cost 64 host pairings); the struck member, the certificate and a
+    certificate naming the bad member in a good one's place, each against
+    the oracle. Then the QC check at 4 and 64 members through the plane and
+    direct, in turns."""
+    from fisco_bcos_tpu_torch.consensus import qc
+    from fisco_bcos_tpu_torch.consensus.config import min_quorum
+    from fisco_bcos_tpu_torch.consensus.messages import PacketType
+    from fisco_bcos_tpu_torch.crypto.ref import bls12_381 as ref_bls
+    from fisco_bcos_tpu_torch.crypto.ref import ed25519 as ref_ed
+    from fisco_bcos_tpu_torch.txpool.quota import get_quotas
+
+    h = bytes(range(32))
+    quotas = get_quotas()
+    saved = quotas.strike_window_s, quotas.demote_s
+    quotas.strike_window_s = quotas.demote_s = 3600.0  # no strike ages out, no demotion lapses, mid-check
+    for name in ("ed25519", "bls"):
+        scheme = qc.get_scheme(name)
+        ref_ok = ((lambda pub, m, s: ref_ed.verify(pub, m, s)) if name == "ed25519"
+                  else (lambda pub, m, s: ref_bls.verify(pub, m, s)))
+        times = {}
+        for n in (4, BIG_COMMITTEE):
+            t0 = time.perf_counter()
+            kps = [scheme.derive_keypair(0xB16C0 + 131 * n + i) for i in range(n)]
+            pubs = [kp.pub for kp in kps]
+            msg32 = qc.vote_preimage(suite, PacketType.PREPARE, 0, 1, h)
+            other = qc.vote_preimage(suite, PacketType.PREPARE, 0, 1, h[::-1])
+            bad = BIG_BAD if n == BIG_COMMITTEE else None
+            votes = {i: scheme.sign_vote(kp, other if i == bad else msg32) for i, kp in enumerate(kps)}
+            setup_s = time.perf_counter() - t0
+            if bad is None:
+                cert = scheme.build_cert({i: votes[i] for i in range(n - 1)}, n)
+            else:
+                get_quotas().reset()
+                col = qc.QuorumCollector(suite, scheme)
+                key = (int(PacketType.PREPARE), 1, 0, h)
+                for i, s in votes.items():
+                    col.add_vote(key, i, s)
+                if name == "bls":
+                    for _ in range(3):
+                        get_quotas().note_invalid(qc.STRIKE_GROUP, col._strike_source(pubs[bad]), 1)
+                t0 = time.perf_counter()
+                valid, struck, cert = col.admit(key, msg32, None, pubs, lambda i: 1, min_quorum(n),
+                                                authenticated_fn=lambda i: True)
+                admit_ms = (time.perf_counter() - t0) * 1e3
+                strikes = {s: len(d) for s, d in get_quotas()._groups[qc.STRIKE_GROUP].strikes.items()}
+                want_bad = {i for i in ((bad, 0, n - 1) if name == "bls" else range(n))
+                            if not ref_ok(pubs[i], msg32, votes[i])}
+                if struck != want_bad or valid != set(range(n)) - want_bad or cert is None:
+                    raise AssertionError(f"{name} at {n}: struck {struck}, oracle {want_bad}")
+                if strikes.get(col._strike_source(pubs[bad])) != (4 if name == "bls" else 1):
+                    raise AssertionError(f"{name} at {n}: the bad member's strikes {strikes}")
+                log(f"[{card}] QuorumCollector.admit, {name} at {n} members, member {bad}'s vote bad: struck "
+                    f"{sorted(struck)} == the host oracle, {len(valid)} admitted, certificate of "
+                    f"{len(cert.encode())} bytes; {admit_ms:.1f} ms ({col.stats()['fallbacks']} aggregate "
+                    f"fallbacks; keys and votes made in {setup_s:.1f} s on the host)")
+            swap = cert.signers()
+            absent = next(i for i in range(n) if i not in swap)
+            wrong = qc.QuorumCert(cert.scheme, n, qc.QuorumCert.make_bitmap(swap[1:] + [absent], n), cert.agg_sig)
+            if name == "ed25519":  # the signatures in bitmap order, the absent member's last
+                oracle = [all(ref_ed.verify(pubs[i], msg32, c.agg_sig[64 * k:64 * k + 64])
+                              for k, i in enumerate(c.signers())) for c in (cert, wrong)]
+            else:
+                oracle = [ref_bls.aggregate_verify([pubs[i] for i in c.signers()], msg32, c.agg_sig)
+                          for c in (cert, wrong)]
+            got = [qc.verify_header_cert(c, pubs, msg32) for c in (cert, wrong)]
+            if got != oracle or got != [True, False]:
+                raise AssertionError(f"{name} at {n}: verify_header_cert {got}, oracle {oracle}")
+
+            def check(plane: bool) -> float:
+                if plane:
+                    os.environ.pop("FISCO_DEVICE_PLANE", None)
+                else:
+                    os.environ["FISCO_DEVICE_PLANE"] = "0"
+                t0 = time.perf_counter()
+                ok = scheme.verify_cert(cert, pubs, msg32)
+                ms = (time.perf_counter() - t0) * 1e3
+                if not ok:
+                    raise AssertionError(f"{name} at {n}: a good certificate failed")
+                return ms
+
+            check(True), check(False)
+            turns = {"plane": [], "direct": []}
+            try:
+                for _ in range(QC_TURNS):
+                    for plane in (True, False, False, True):
+                        turns["plane" if plane else "direct"].append(check(plane))
+            finally:
+                os.environ.pop("FISCO_DEVICE_PLANE", None)
+            times[n] = turns
+        log(f"[{card}] QC check (verify_cert of a quorum's certificate), {name}, in turns (ms): " + "; ".join(
+            f"{n} members {k} median {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+            for n, turns in times.items() for k, v in turns.items()))
+    get_quotas().reset()
+    quotas.strike_window_s, quotas.demote_s = saved
+    crypto = qc.get_scheme("bls")._impl
+    kp = crypto.generate_keypair(secret=0xB1)
+    sig = crypto.sign(kp, h)
+    t0 = time.perf_counter()
+    crypto.verify(kp.pub, h, sig)
+    log(f"[{card}] one BLS vote checked alone (verify_one: a host pairing, what isolation pays a member): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+def run_consensus_phase(card: str, device) -> dict:
+    """PBFT consensus on the card (``fisco_bcos_tpu_torch/consensus``):
+    BASELINE config 4's committee of four replicas, each with its own
+    Ledger, TxPool, PBFTEngine, Sealer and ConsensusStorage over one
+    InprocGateway, agrees on a 10,240-tx flood block in each QC mode
+    (Ed25519, BLS, FISCO_QC=0), execution ended at this script's stand-in;
+    a view change re-proposes a prepared 10,240-tx block with its
+    transactions (batch_admit on the consensus lane); BlockValidator on
+    every stable header and its tampered variants; the collector and the
+    certificate check at 64 members. Every root, record and verdict against
+    the host oracle."""
+    from fisco_bcos_tpu_torch.crypto.suite import ecdsa_suite
+
+    t0 = time.perf_counter()
+    suite = ecdsa_suite(device)
+    signers = flood_signers("ecdsa")
+    batch = FloodBatch("ecdsa", CONSENSUS_BATCH, device, signers)
+    batch.check_signatures(signers)
+    log(f"[{card}] consensus phase: {BLOCK_TXS} transactions built and signed in {time.perf_counter() - t0:.1f} s")
+    rounds = consensus_rounds(card, suite, batch)
+    run_big_committee(card, suite)
+    run_reproposal(card, device, suite, batch)
+    log(f"[{card}] consensus phase: {time.perf_counter() - t0:.1f} s")
+    return rounds
+
+
 def phase_clock():
     """lap(name) logs the seconds since the last lap (or since this call)
     and since this call: the command time a phase takes."""
@@ -6071,6 +6741,10 @@ def main() -> int:
     run_txpool_phase(card, device)
 
     lap('txpool')
+    # -- PBFT consensus: four replicas agree on a 10,240-tx block in each QC mode; a re-proposal; 64 members --
+    run_consensus_phase(card, device)
+
+    lap('consensus')
     timed_args = timed_kernel_args(device, block, verify_block, sm_block, forms, ed_block, poseidon_blocks)
     if parent:
         time_against_parent(card, parent, timed_args,

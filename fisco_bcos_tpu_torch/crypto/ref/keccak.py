@@ -5,6 +5,8 @@ NIST SHA3-256 differs only in the domain-separation padding byte (0x06)."""
 
 from __future__ import annotations
 
+from struct import unpack_from
+
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
     0x000000000000808B, 0x0000000080000001, 0x8000000080008081, 0x8000000000008009,
@@ -14,70 +16,119 @@ _RC = [
     0x8000000080008081, 0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
 ]
 
-# Rotation offsets r[x][y] (x = column, y = row), lane index = x + 5*y.
-_ROT = [
-    [0, 36, 3, 41, 18],
-    [1, 44, 10, 45, 2],
-    [62, 6, 43, 15, 61],
-    [28, 55, 25, 21, 56],
-    [27, 20, 39, 8, 14],
-]
-
 _MASK = (1 << 64) - 1
 
 
-# rho + pi as (source lane, destination lane, rotation): B[y, 2x+3y] = rot(A[x, y])
-_RHO_PI = [(x + 5 * y, y + 5 * ((2 * x + 3 * y) % 5), _ROT[x][y]) for x in range(5) for y in range(5)]
-
-
 def keccak_f1600(state: list[int]) -> list[int]:
-    """24-round Keccak-f[1600] permutation over 25 lanes (index = x + 5y)."""
-    A = list(state)
-    B = [0] * 25
+    """24-round Keccak-f[1600] permutation over 25 lanes (index = x + 5y),
+    each round written out over local lanes: theta's column parities c and
+    their mixes d; rho + pi into b, B[y, 2x+3y] = rot(A[x, y] ^ d[x],
+    r[x][y]) with the rotation offsets of FIPS 202 Table 2; chi back into
+    a (~b & c stays within 64 bits for a non-negative c); iota."""
+    (a0, a1, a2, a3, a4, a5, a6, a7, a8, a9, a10, a11, a12,
+     a13, a14, a15, a16, a17, a18, a19, a20, a21, a22, a23, a24) = state
     M = _MASK
     for rc in _RC:
-        # theta
-        c0 = A[0] ^ A[5] ^ A[10] ^ A[15] ^ A[20]
-        c1 = A[1] ^ A[6] ^ A[11] ^ A[16] ^ A[21]
-        c2 = A[2] ^ A[7] ^ A[12] ^ A[17] ^ A[22]
-        c3 = A[3] ^ A[8] ^ A[13] ^ A[18] ^ A[23]
-        c4 = A[4] ^ A[9] ^ A[14] ^ A[19] ^ A[24]
-        D = (
-            c4 ^ (((c1 << 1) | (c1 >> 63)) & M),
-            c0 ^ (((c2 << 1) | (c2 >> 63)) & M),
-            c1 ^ (((c3 << 1) | (c3 >> 63)) & M),
-            c2 ^ (((c4 << 1) | (c4 >> 63)) & M),
-            c3 ^ (((c0 << 1) | (c0 >> 63)) & M),
-        )
-        # theta's column parity applied, then rho + pi
-        for src, dst, r in _RHO_PI:
-            v = A[src] ^ D[src % 5]
-            B[dst] = ((v << r) | (v >> (64 - r))) & M if r else v
-        # chi (~b & c stays within 64 bits for a non-negative c)
-        for y in (0, 5, 10, 15, 20):
-            b0, b1, b2, b3, b4 = B[y : y + 5]
-            A[y] = b0 ^ (~b1 & b2)
-            A[y + 1] = b1 ^ (~b2 & b3)
-            A[y + 2] = b2 ^ (~b3 & b4)
-            A[y + 3] = b3 ^ (~b4 & b0)
-            A[y + 4] = b4 ^ (~b0 & b1)
-        # iota
-        A[0] ^= rc
-    return A
+        c0 = a0 ^ a5 ^ a10 ^ a15 ^ a20
+        c1 = a1 ^ a6 ^ a11 ^ a16 ^ a21
+        c2 = a2 ^ a7 ^ a12 ^ a17 ^ a22
+        c3 = a3 ^ a8 ^ a13 ^ a18 ^ a23
+        c4 = a4 ^ a9 ^ a14 ^ a19 ^ a24
+        d0 = c4 ^ (((c1 << 1) | (c1 >> 63)) & M)
+        d1 = c0 ^ (((c2 << 1) | (c2 >> 63)) & M)
+        d2 = c1 ^ (((c3 << 1) | (c3 >> 63)) & M)
+        d3 = c2 ^ (((c4 << 1) | (c4 >> 63)) & M)
+        d4 = c3 ^ (((c0 << 1) | (c0 >> 63)) & M)
+        b0 = a0 ^ d0
+        v = a6 ^ d1
+        b1 = ((v << 44) | (v >> 20)) & M
+        v = a12 ^ d2
+        b2 = ((v << 43) | (v >> 21)) & M
+        v = a18 ^ d3
+        b3 = ((v << 21) | (v >> 43)) & M
+        v = a24 ^ d4
+        b4 = ((v << 14) | (v >> 50)) & M
+        v = a3 ^ d3
+        b5 = ((v << 28) | (v >> 36)) & M
+        v = a9 ^ d4
+        b6 = ((v << 20) | (v >> 44)) & M
+        v = a10 ^ d0
+        b7 = ((v << 3) | (v >> 61)) & M
+        v = a16 ^ d1
+        b8 = ((v << 45) | (v >> 19)) & M
+        v = a22 ^ d2
+        b9 = ((v << 61) | (v >> 3)) & M
+        v = a1 ^ d1
+        b10 = ((v << 1) | (v >> 63)) & M
+        v = a7 ^ d2
+        b11 = ((v << 6) | (v >> 58)) & M
+        v = a13 ^ d3
+        b12 = ((v << 25) | (v >> 39)) & M
+        v = a19 ^ d4
+        b13 = ((v << 8) | (v >> 56)) & M
+        v = a20 ^ d0
+        b14 = ((v << 18) | (v >> 46)) & M
+        v = a4 ^ d4
+        b15 = ((v << 27) | (v >> 37)) & M
+        v = a5 ^ d0
+        b16 = ((v << 36) | (v >> 28)) & M
+        v = a11 ^ d1
+        b17 = ((v << 10) | (v >> 54)) & M
+        v = a17 ^ d2
+        b18 = ((v << 15) | (v >> 49)) & M
+        v = a23 ^ d3
+        b19 = ((v << 56) | (v >> 8)) & M
+        v = a2 ^ d2
+        b20 = ((v << 62) | (v >> 2)) & M
+        v = a8 ^ d3
+        b21 = ((v << 55) | (v >> 9)) & M
+        v = a14 ^ d4
+        b22 = ((v << 39) | (v >> 25)) & M
+        v = a15 ^ d0
+        b23 = ((v << 41) | (v >> 23)) & M
+        v = a21 ^ d1
+        b24 = ((v << 2) | (v >> 62)) & M
+        a0 = b0 ^ (~b1 & b2)
+        a1 = b1 ^ (~b2 & b3)
+        a2 = b2 ^ (~b3 & b4)
+        a3 = b3 ^ (~b4 & b0)
+        a4 = b4 ^ (~b0 & b1)
+        a5 = b5 ^ (~b6 & b7)
+        a6 = b6 ^ (~b7 & b8)
+        a7 = b7 ^ (~b8 & b9)
+        a8 = b8 ^ (~b9 & b5)
+        a9 = b9 ^ (~b5 & b6)
+        a10 = b10 ^ (~b11 & b12)
+        a11 = b11 ^ (~b12 & b13)
+        a12 = b12 ^ (~b13 & b14)
+        a13 = b13 ^ (~b14 & b10)
+        a14 = b14 ^ (~b10 & b11)
+        a15 = b15 ^ (~b16 & b17)
+        a16 = b16 ^ (~b17 & b18)
+        a17 = b17 ^ (~b18 & b19)
+        a18 = b18 ^ (~b19 & b15)
+        a19 = b19 ^ (~b15 & b16)
+        a20 = b20 ^ (~b21 & b22)
+        a21 = b21 ^ (~b22 & b23)
+        a22 = b22 ^ (~b23 & b24)
+        a23 = b23 ^ (~b24 & b20)
+        a24 = b24 ^ (~b20 & b21)
+        a0 ^= rc
+    return [a0, a1, a2, a3, a4, a5, a6, a7, a8, a9, a10, a11, a12,
+            a13, a14, a15, a16, a17, a18, a19, a20, a21, a22, a23, a24]
 
 
 def _keccak(data: bytes, rate: int, out_len: int, pad_byte: int) -> bytes:
     state = [0] * 25
+    words = f"<{rate // 8}Q"
     # multi-rate padding
     padded = bytearray(data)
     padded.append(pad_byte)
-    while len(padded) % rate:
-        padded.append(0)
+    padded += bytes(-len(padded) % rate)
     padded[-1] |= 0x80
     for off in range(0, len(padded), rate):
-        block = padded[off : off + rate]
-        for i in range(rate // 8):
-            state[i] ^= int.from_bytes(block[8 * i : 8 * i + 8], "little")
+        for i, w in enumerate(unpack_from(words, padded, off)):
+            state[i] ^= w
         state = keccak_f1600(state)
     out = b"".join(state[i].to_bytes(8, "little") for i in range(out_len // 8))
     return out[:out_len]

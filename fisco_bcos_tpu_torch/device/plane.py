@@ -49,10 +49,11 @@ device observatory's ledger takes the dispatch's ``queue`` phase under the
 plane op, its adjacency edge and its bookkeeping wall; the registry the
 wait, phase, dispatch, coalesced, batch-items and occupancy metrics. The
 process-wide plane registers the ``fisco_device_plane_queue_depth`` gauge.
-The JAX plane's deferred counter counts the group-fair selection, which no
-caller of the port reaches, and its pipeline-stage busy and blocked
-accounting waits for the pipeline observatory, which the port does not
-have.
+The pipeline observatory gets the JAX plane's accounting: the worker's
+dispatch is the ``device_plane`` stage busy, and a caller's wait flips its
+ambient stage to blocked on ``device_plane``. The JAX plane's deferred
+counter counts the group-fair selection, which no caller of the port
+reaches.
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ import torch
 from ..observability import BATCH_BUCKETS
 from ..observability import tracer as _tracer
 from ..observability.device import DEVICE_PHASE_BUCKETS_MS, LEDGER, device_obs_enabled
+from ..observability.pipeline import PIPELINE
 from ..ops.hash_common import bucket_batch
 from ..utils import env_float
 from ..utils import metrics as _metrics
@@ -364,7 +366,8 @@ class DevicePlane:
                 op, reqs, _deferred = picked
                 self._busy = True
             try:
-                self._dispatch(op, reqs)
+                with PIPELINE.busy("device_plane"):
+                    self._dispatch(op, reqs)
             finally:
                 with self._cv:
                     self._busy = False
@@ -550,14 +553,18 @@ class DevicePlane:
 
 
 def plane_wait(fut: Future):
-    """The result of a plane future (the seams' one blocking point)."""
-    return fut.result()
+    """The result of a plane future (the seams' one blocking point), the
+    wait attributed to the calling thread's ambient pipeline stage
+    (``<stage> blocked_on=device_plane``)."""
+    with PIPELINE.blocked("device_plane"):
+        return fut.result()
 
 
 def plane_wait_deferred(fut: Future):
     """:func:`plane_wait` for a hash future, whose result is a resolver:
-    both the queue wait and the download."""
-    return fut.result()()
+    both the queue wait and the download, in the one blocked attribution."""
+    with PIPELINE.blocked("device_plane"):
+        return fut.result()()
 
 
 _PLANE: DevicePlane | None = None

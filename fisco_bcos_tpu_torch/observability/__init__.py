@@ -19,6 +19,14 @@ that its device plane feeds).
   host entry points (kept out of this namespace so importing the package
   never drags in the metrics registry mid-import); ``FISCO_DEVICE_OBS=0``
   noops the observatory layer independently.
+- :mod:`.pipeline` — the pipeline observatory: per-stage busy/idle/blocked
+  occupancy with blocked-on attribution (``PIPELINE.busy("admission")``,
+  ``PIPELINE.blocked("device_plane")``) and the backpressure watermarks.
+  Imported directly (``from ..observability.pipeline import PIPELINE``);
+  ``FISCO_PIPELINE_OBS=0`` noops it.
+- :mod:`.roundlog` and :mod:`.flight` — the consensus round ledger
+  (``NOOP_LEDGER`` unless ``fleet_obs_enabled()``) and the crash flight
+  recorder the crash points flush.
 
 ``set_enabled(False)`` (or env ``FISCO_TELEMETRY=0`` before import) turns
 the registry and the tracer into no-ops — the switch an overhead A/B uses.

@@ -501,8 +501,8 @@ def device_memory_bytes() -> dict[str, float]:
 def install_observatory() -> bool:
     """Boot-time wiring: the build listener. Idempotent; refuses entirely
     under ``FISCO_DEVICE_OBS=0``. (The JAX package also registers a
-    ``device_mem`` watermark probe with its pipeline sampler, which the port
-    does not have yet.)"""
+    ``device_mem`` watermark probe with its pipeline sampler; the port's
+    does not yet.)"""
     if not device_obs_enabled():
         return False
     return install_build_hooks()
@@ -518,7 +518,7 @@ def device_doc(tail: int = 64) -> dict:
     (nvcc build vs build-cache load), per-op phase totals, the first-shape
     counters, storm state, live CUDA bytes, and the plane's scheduler
     stats — the JAX ``GET /device`` document's keys. The watermark rings
-    need the pipeline sampler, which the port does not have:
+    need the ``device_mem`` probe, which the port does not register yet:
     ``memory.watermarks`` is ``{}``, as the JAX document gives without it."""
     enabled = device_obs_enabled()
     doc: dict = {

@@ -54,6 +54,12 @@ _CURRENT: contextvars.ContextVar["TraceContext | None"] = contextvars.ContextVar
     "fisco_trace_ctx", default=None
 )
 
+# extra Chrome-trace event sources merged into export_chrome: callables
+# () -> list[event dicts]. observability/pipeline.py registers its
+# backpressure-watermark counter ("C") events here so queue levels render
+# on the same Perfetto timeline as the stage spans.
+CHROME_EVENT_SOURCES: list = []
+
 
 @dataclass(frozen=True)
 class TraceContext:
@@ -469,6 +475,16 @@ class Tracer:
                     "args": args,
                 }
             )
+        if self is globals().get("TRACER"):
+            # merge registered extra events (pipeline watermark counters)
+            # into the PROCESS trace only — local test tracers stay pure
+            for source in list(CHROME_EVENT_SOURCES):
+                try:
+                    events.extend(source())
+                except Exception as e:
+                    from ..utils.log import note_swallowed
+
+                    note_swallowed("tracer.chrome_source", e)
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",

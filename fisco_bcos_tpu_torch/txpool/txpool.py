@@ -12,8 +12,7 @@ hash-presence and batch-verifies any txs it had to fetch
 tbb-parallel verify at TransactionSync.cpp:521-553 → here one device batch).
 
 Left out of the port: the critical-path index (``note_tx(s)`` /
-``note_committed``, read only by the RPC's per-transaction trace) and the
-pipeline observatory's ``busy("admission")`` accounting.
+``note_committed``, read only by the RPC's per-transaction trace).
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from ..crypto.suite import CryptoSuite
 from ..device.plane import device_group, device_lane
 from ..ledger import Ledger
 from ..observability import BATCH_BUCKETS, TRACER
+from ..observability.pipeline import PIPELINE
 from ..observability.tracer import trace_hex
 from ..protocol.transaction import Transaction, hash_transactions_batch
 from ..storage.entry import Entry, EntryStatus
@@ -159,7 +159,9 @@ class TxPool:
         equal nonce), so no pre-verification hash pass is needed — the
         fused program's digests fill the hash caches of verified lanes,
         and only rejected lanes pay a host hash for their result row."""
-        with TRACER.span("txpool.submit_batch", batch=len(txs), lane=lane) as sp:
+        with TRACER.span(
+            "txpool.submit_batch", batch=len(txs), lane=lane
+        ) as sp, PIPELINE.busy("admission"):
             return self._submit_batch_spanned(txs, lane, source, policed, sp)
 
     def _submit_batch_spanned(

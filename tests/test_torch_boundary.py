@@ -25,6 +25,9 @@ from fisco_bcos_tpu_torch.parallel import sharding
 from fisco_bcos_tpu_torch.protocol import Transaction
 from fisco_bcos_tpu_torch.storage import MemoryStorage
 from fisco_bcos_tpu_torch.txpool import TxPool, batch_admit
+from fisco_bcos_tpu_torch.consensus import BlockValidator, qc
+from fisco_bcos_tpu_torch.ledger import ConsensusNode
+from fisco_bcos_tpu_torch.protocol import BlockHeader, SignatureTuple
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fisco_bcos_tpu")
@@ -76,7 +79,9 @@ def test_importing_the_port_loads_no_jax():
     port = _loaded_modules(
         "import fisco_bcos_tpu_torch.crypto.admission, fisco_bcos_tpu_torch.crypto.suite, "
         "fisco_bcos_tpu_torch.ops.merkle, fisco_bcos_tpu_torch.observability.device, "
-        "fisco_bcos_tpu_torch.crypto.bls, fisco_bcos_tpu_torch.parallel, fisco_bcos_tpu_torch.txpool, chip_smoke"
+        "fisco_bcos_tpu_torch.crypto.bls, fisco_bcos_tpu_torch.parallel, fisco_bcos_tpu_torch.txpool, "
+        "fisco_bcos_tpu_torch.consensus, fisco_bcos_tpu_torch.consensus.gossip, fisco_bcos_tpu_torch.consensus.storage, "
+        "fisco_bcos_tpu_torch.front, fisco_bcos_tpu_torch.scheduler, fisco_bcos_tpu_torch.resilience, chip_smoke"
     )
     assert {
         "fisco_bcos_tpu_torch.crypto.admission", "fisco_bcos_tpu_torch.ops.merkle",
@@ -91,7 +96,15 @@ def test_importing_the_port_loads_no_jax():
         "fisco_bcos_tpu_torch.ledger.ledger", "fisco_bcos_tpu_torch.protocol.transaction",
         "fisco_bcos_tpu_torch.protocol.block", "fisco_bcos_tpu_torch.codec.flat",
         "fisco_bcos_tpu_torch.storage.state_storage", "fisco_bcos_tpu_torch.storage.sqlite_storage",
-        "fisco_bcos_tpu_torch.utils.error",
+        "fisco_bcos_tpu_torch.utils.error", "fisco_bcos_tpu_torch.consensus.engine",
+        "fisco_bcos_tpu_torch.consensus.qc", "fisco_bcos_tpu_torch.consensus.block_validator",
+        "fisco_bcos_tpu_torch.consensus.sealer", "fisco_bcos_tpu_torch.consensus.messages",
+        "fisco_bcos_tpu_torch.consensus.config", "fisco_bcos_tpu_torch.consensus.audit",
+        "fisco_bcos_tpu_torch.consensus.gossip", "fisco_bcos_tpu_torch.consensus.storage",
+        "fisco_bcos_tpu_torch.front.front", "fisco_bcos_tpu_torch.scheduler.scheduler",
+        "fisco_bcos_tpu_torch.resilience.crashpoints", "fisco_bcos_tpu_torch.observability.pipeline",
+        "fisco_bcos_tpu_torch.observability.roundlog", "fisco_bcos_tpu_torch.observability.flight",
+        "fisco_bcos_tpu_torch.utils.worker",
     } <= port
     assert not sorted(m for m in port - bare if _forbidden(m))
 
@@ -104,6 +117,13 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     payloads = [b"no silent fallback"]
+    ed_cert = qc.QuorumCert("ed25519", 4, qc.QuorumCert.make_bitmap([0, 1, 2], 4), bytes(192))
+    bls_cert = qc.QuorumCert("bls", 4, qc.QuorumCert.make_bitmap([0, 1, 2], 4), bytes(96))
+    no_device = suite.CryptoSuite(suite.Keccak256(), suite.Secp256k1Crypto())
+    sealers = [bytes([i]) * 64 for i in range(4)]
+    signed = BlockHeader(number=1, sealer_list=sealers, consensus_weights=[1] * 4,
+                         signature_list=[SignatureTuple(i, bytes(65)) for i in range(3)])
+    monkeypatch.setattr(qc, "_SCHEMES", {})
     tx = Transaction(chain_id="chain0", group_id="group0", block_limit=1, nonce="n", signature=bytes(65))
     with pytest.raises(RuntimeError):
         admission.admit_batch(payloads, np.zeros((1, 65), np.uint8))
@@ -164,6 +184,11 @@ def test_no_cuda_means_no_default_device(monkeypatch):
         # a suite that names no device resolves it at each batch
         lambda: batch_admit([tx], suite.CryptoSuite(suite.Keccak256(), suite.Secp256k1Crypto())),
         lambda: batch_admit([tx], suite.CryptoSuite(suite.SM3(), suite.SM2Crypto())),
+        # the consensus checks run where their suite or QC scheme runs
+        lambda: qc.Ed25519QCScheme().verify_cert(ed_cert, [bytes(32)] * 4, bytes(32)),
+        lambda: qc.BLSQCScheme().verify_cert(bls_cert, [bytes(48)] * 4, bytes(32)),
+        lambda: qc.verify_header_cert(ed_cert, [bytes(32)] * 4, bytes(32)),
+        lambda: BlockValidator(no_device).check_block(signed, [ConsensusNode(p) for p in sealers]),
     ):
         with pytest.raises(RuntimeError):
             call()
